@@ -1,0 +1,155 @@
+"""Online drain and interleaved learning session (paper §3.5, §4), on torch.
+
+The FPGA's online path: datapoints arrive, pass through the cyclic buffer,
+and are consumed by the manager, which interleaves training with
+inference. :func:`_consume_many` drains one chunk for one machine: a
+serial loop of ``train_update`` (K1 + K8 per point) and, when monitored,
+one batch-first inference pass (K2) over the chunk under the post-chunk
+state. ``OnlineSession`` is the K = 1 shim over
+:class:`repro_torch.serve.service.TMService`.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random as rnd
+from repro_torch.core import feedback as fb_mod
+from repro_torch.core import tm as tm_mod
+from repro_torch.core.tm import TMConfig, TMRuntime, TMState
+from repro_torch.data import buffer as buf_mod
+
+
+class SessionState(NamedTuple):
+    """Device-side state of one machine."""
+
+    tm: TMState
+    buf: buf_mod.RingBuffer
+    step: torch.Tensor  # 0-dim int32: online datapoints consumed
+
+
+class ChunkAux(NamedTuple):
+    """Per-chunk observability from the drain (chunk size k)."""
+
+    predicted: torch.Tensor  # [k] i32: inference under the post-chunk state
+    correct: torch.Tensor    # [k] bool: predicted == label, invalid rows False
+    valid: torch.Tensor      # [k] bool: rows actually consumed
+    activity: torch.Tensor   # [k] f32: per-step TA-update activity
+
+
+def _consume_many(cfg: TMConfig, k: int, ss: SessionState, rt: TMRuntime,
+                  limit: int, key: torch.Tensor, *, monitor: bool = True
+                  ) -> tuple[SessionState, int, Optional[ChunkAux]]:
+    """Drain up to ``min(k, limit, buffered)`` datapoints in row order.
+
+    The reference runs a fixed-length scan of k steps and masks the steps
+    past the budget; here the loop stops at the budget, which leaves the
+    same state, and the chunk's k step keys come from one ``split(key, k)``
+    as there. Reading the ring's size costs one host round trip a chunk.
+
+    With ``monitor`` the chunk's rows go through one batch-first inference
+    pass under the post-chunk state. The reference's masked steps pop the
+    row at the (unmoved) head, so those columns carry that row here too
+    and ``predicted`` agrees for every column.
+    """
+    keys = rnd.split(key, k)
+    n = max(0, min(k, int(limit), int(ss.buf.size)))
+    buf, tm = ss.buf, ss.tm
+    xs, ys, acts = [], [], []
+    for i in range(n):
+        buf, x, y, _ = buf_mod.pop(buf)
+        tm, _, activity = fb_mod.train_update(cfg, tm, rt, x, y, keys[i])
+        xs.append(x)
+        ys.append(y)
+        acts.append(activity)
+    out = SessionState(tm=tm, buf=buf, step=ss.step + n)
+    if not monitor:
+        return out, n, None
+    _, x_head, y_head, _ = buf_mod.pop(buf)
+    xs += [x_head] * (k - n)
+    ys += [y_head] * (k - n)
+    dev = x_head.device
+    activity = torch.cat([torch.stack(acts) if acts else
+                          torch.zeros(0, device=dev),
+                          torch.zeros(k - n, device=dev)])
+    valid = torch.arange(k, device=dev) < n
+    ys = torch.stack(ys)
+    preds = tm_mod.predict_batch(cfg, tm, rt, torch.stack(xs))
+    aux = ChunkAux(predicted=preds, correct=(preds == ys) & valid,
+                   valid=valid, activity=activity)
+    return out, n, aux
+
+
+class OnlineSession:
+    """Host-side front end for interleaved inference and online learning.
+
+    * ``offer(x, y)``      -- producer side: stage into the cyclic buffer.
+    * ``learn_available``  -- consumer side: drain up to ``max_points``.
+    * ``infer(xs)``        -- batched inference at any time.
+
+    A shim over the K = 1 :class:`~repro_torch.serve.service.TMService`,
+    with the single-machine (no replica axis) views of the reference's
+    ``OnlineSession``.
+    """
+
+    def __init__(self, cfg: TMConfig, state: TMState, rt: TMRuntime, *,
+                 buffer_capacity: int = 64, chunk: int = 16, seed: int = 0,
+                 device=None):
+        from repro_torch.serve.service import ServiceConfig, TMService
+
+        # seed as a 1-sequence: the service then keys on PRNGKey(seed)
+        # with no fold_in, as the reference's session does.
+        self._svc = TMService(cfg, state, ServiceConfig(
+            replicas=1, buffer_capacity=buffer_capacity, chunk=chunk,
+            seed=[int(seed)],
+        ), rt=rt, device=device)
+
+    @property
+    def service(self):
+        return self._svc
+
+    @property
+    def cfg(self) -> TMConfig:
+        return self._svc.cfg
+
+    @property
+    def rt(self) -> TMRuntime:
+        return self._svc.rt
+
+    @property
+    def chunk(self) -> int:
+        return self._svc.chunk
+
+    @property
+    def ss(self) -> SessionState:
+        """The single-machine state, staged ingress flushed first."""
+        return self._svc.session_state()
+
+    @property
+    def dropped(self) -> int:
+        return int(self._svc.dropped[0])
+
+    @property
+    def buffered(self) -> int:
+        return int(self._svc.buffered[0])
+
+    def offer(self, x, y) -> bool:
+        return self._svc.submit(0, x, y)
+
+    def learn_available(
+        self, max_points: int,
+        on_chunk: Optional[Callable[[ChunkAux], None]] = None,
+    ) -> int:
+        """Consume up to ``max_points`` buffered datapoints; returns the
+        number trained. ``on_chunk`` receives each chunk's
+        :class:`ChunkAux` ([chunk], no replica axis); without it the
+        monitoring pass does not run."""
+        cb = None if on_chunk is None else (
+            lambda aux: on_chunk(ChunkAux(*(a[0] for a in aux)))
+        )
+        return int(self._svc.drain(max_points, on_chunk=cb)[0])
+
+    def infer(self, xs) -> np.ndarray:
+        return self._svc.serve(xs)[0]

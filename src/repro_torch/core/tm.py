@@ -1,0 +1,255 @@
+"""Tsetlin Machine core on torch: the datapath of ``repro.core.tm``.
+
+Same machine, same shapes, same bits as the reference: a bank of Tsetlin
+automata per (class, clause, literal), clause evaluation as an
+include-masked AND over the literals and their complements, a +/- polarity
+vote per class, over-provisioned classes and clauses gated by runtime
+masks, and the fault controller's AND/OR masks on the TA actions.
+
+Everything is a plain function over explicit state. Tensors live on the
+device the state was made on; the entry points that make state
+(:func:`init_state`, :func:`init_runtime`) take ``device`` and default to
+the card. The scalar ports ``s`` and ``T`` are 0-dim CPU tensors: the
+host reads them (vote clipping, feedback probabilities) without waiting
+on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random as rnd
+from repro_torch.kernels import dispatch
+
+INT32_MIN = -(2 ** 31)
+
+
+def mean_of_count(count: torch.Tensor, n: int) -> torch.Tensor:
+    """The reference's float32 mean of ``n`` 0/1 values that sum to
+    ``count``. XLA computes such a mean as sum * f32(1/n), not sum / n;
+    the sum itself is exact below 2**24. Returns a 0-dim f32 tensor."""
+    return count.to(torch.float32) * float(np.float32(1) / np.float32(n))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Without CUDA, asking for the card raises; nothing falls back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain versions on "
+            "the CPU"
+        )
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Configuration (the paper's design-time parameters, §3.1)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TMConfig:
+    """Design-time parameters (the FPGA's synthesis-time choices).
+
+    ``max_classes``/``max_clauses`` over-provision resources; the active
+    subset is selected at run time by the masks in :class:`TMRuntime`.
+    ``backend`` names a kernel backend (:mod:`repro_torch.kernels.dispatch`).
+    """
+
+    n_features: int                  # booleanized input width (iris: 16)
+    max_classes: int                 # provisioned classes (>= active classes)
+    max_clauses: int                 # provisioned clauses per class (even)
+    n_states: int = 99               # N states per action (TA has 2N states)
+    s_policy: str = "standard"       # "standard" | "hardware"
+    boost_true_positive: bool = True # deterministic strengthen on (clause=1,lit=1)
+    backend: str = "auto"            # kernel backend name
+
+    def __post_init__(self):
+        if self.max_clauses % 2:
+            raise ValueError("max_clauses must be even (half +, half - polarity)")
+        if self.n_states < 1:
+            raise ValueError("n_states must be >= 1")
+        if self.s_policy not in ("standard", "hardware"):
+            raise ValueError(f"unknown s_policy {self.s_policy!r}")
+        if self.backend not in dispatch.available():
+            raise ValueError(
+                f"unknown backend {self.backend!r}; "
+                f"available: {dispatch.available()}"
+            )
+
+    @property
+    def n_literals(self) -> int:
+        return 2 * self.n_features
+
+    @property
+    def state_dtype(self) -> torch.dtype:
+        # 2N must fit the dtype; int8 keeps the TA bank small.
+        return torch.int8 if 2 * self.n_states <= 127 else torch.int16
+
+
+# ---------------------------------------------------------------------------
+# Runtime ports and learnt state
+# ---------------------------------------------------------------------------
+
+
+class TMRuntime(NamedTuple):
+    """Runtime ports, adjustable without rebuilding anything.
+
+    * ``s``/``T``: the hyperparameter ports (0-dim CPU f32 / i32 tensors),
+    * ``clause_mask`` [J] / ``class_mask`` [C]: over-provisioning gates,
+    * ``ta_and_mask``/``ta_or_mask`` [C, J, L]: the fault controller,
+      action' = (action AND and_mask) OR or_mask. Fault-free: and=1, or=0.
+    """
+
+    s: torch.Tensor
+    T: torch.Tensor
+    clause_mask: torch.Tensor
+    class_mask: torch.Tensor
+    ta_and_mask: torch.Tensor
+    ta_or_mask: torch.Tensor
+
+
+class TMState(NamedTuple):
+    """Learnt state: the TA bank. States 1..N exclude, N+1..2N include."""
+
+    ta_state: torch.Tensor  # [max_classes, max_clauses, 2f] int8/int16
+
+
+def init_state(cfg: TMConfig, key: Optional[torch.Tensor] = None,
+               device=None) -> TMState:
+    """TA bank at the decision boundary: all N without a key, else N or
+    N+1 by a fair coin per TA (``bernoulli(key, 0.5)``, as the reference)."""
+    dev = resolve_device(device)
+    shape = (cfg.max_classes, cfg.max_clauses, cfg.n_literals)
+    n = cfg.n_states
+    if key is None:
+        ta = torch.full(shape, n, dtype=cfg.state_dtype, device=dev)
+    else:
+        coin = rnd.bernoulli(key.to(dev), 0.5, shape)
+        ta = torch.where(coin, n + 1, n).to(cfg.state_dtype)
+    return TMState(ta_state=ta)
+
+
+def init_runtime(
+    cfg: TMConfig,
+    *,
+    s: float = 3.9,
+    T: int = 15,
+    n_active_classes: Optional[int] = None,
+    n_active_clauses: Optional[int] = None,
+    device=None,
+) -> TMRuntime:
+    """Fault-free runtime with the first ``n_active_*`` resources enabled."""
+    dev = resolve_device(device)
+    n_cls = cfg.max_classes if n_active_classes is None else n_active_classes
+    n_clz = cfg.max_clauses if n_active_clauses is None else n_active_clauses
+    shape = (cfg.max_classes, cfg.max_clauses, cfg.n_literals)
+    return TMRuntime(
+        s=torch.tensor(s, dtype=torch.float32),
+        T=torch.tensor(T, dtype=torch.int32),
+        clause_mask=torch.arange(cfg.max_clauses, device=dev) < n_clz,
+        class_mask=torch.arange(cfg.max_classes, device=dev) < n_cls,
+        ta_and_mask=torch.ones(shape, dtype=torch.bool, device=dev),
+        ta_or_mask=torch.zeros(shape, dtype=torch.bool, device=dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Datapath: literals -> faulted actions -> clauses -> votes (paper Fig. 1)
+# ---------------------------------------------------------------------------
+
+
+def _unpacked(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.uint32:
+        raise NotImplementedError(
+            "packed uint32 rows belong to the bit-packed datapath, which "
+            "the port has not reached yet (the packed slice: K5/K6)"
+        )
+    return x.to(torch.bool)
+
+
+def make_literals(x: torch.Tensor) -> torch.Tensor:
+    """Boolean features -> literal vector [x, ~x] (length 2f)."""
+    x = _unpacked(x)
+    return torch.cat([x, ~x], dim=-1)
+
+
+def ta_actions(cfg: TMConfig, state: TMState, rt: TMRuntime) -> torch.Tensor:
+    """Include bits with the fault controller applied (§3.1.2)."""
+    include = state.ta_state > cfg.n_states
+    return (include & rt.ta_and_mask) | rt.ta_or_mask
+
+
+def clause_polarity(cfg: TMConfig, device=None) -> torch.Tensor:
+    """+1 for even-indexed clauses, -1 for odd. [J] i32."""
+    j = torch.arange(cfg.max_clauses, device=device)
+    return torch.where(j % 2 == 0, 1, -1).to(torch.int32)
+
+
+def eval_clauses(cfg: TMConfig, include: torch.Tensor,
+                 literals: torch.Tensor, rt: TMRuntime, *,
+                 training: bool) -> torch.Tensor:
+    """Clause outputs [C, J] bool (empty clauses: ``training``)."""
+    out = dispatch.resolve(cfg.backend).clause_eval(
+        include, literals, training=training
+    )
+    return out & rt.clause_mask[None, :]
+
+
+def eval_clauses_batch(cfg: TMConfig, include: torch.Tensor,
+                       literals: torch.Tensor, rt: TMRuntime, *,
+                       training: bool) -> torch.Tensor:
+    """Batch-first clause outputs [B, C, J] bool."""
+    out = dispatch.resolve(cfg.backend).clause_eval_batch(
+        include, literals, training=training
+    )
+    return out & rt.clause_mask[None, None, :]
+
+
+def class_sums(cfg: TMConfig, clause_out: torch.Tensor) -> torch.Tensor:
+    """Per-class vote [..., C] i32 from clause outputs [..., C, J]."""
+    pol = clause_polarity(cfg, clause_out.device)
+    return torch.sum(clause_out.to(torch.int32) * pol, dim=-1,
+                     dtype=torch.int32)
+
+
+def forward(cfg: TMConfig, state: TMState, rt: TMRuntime, x: torch.Tensor,
+            *, training: bool = False):
+    """One datapoint. Returns (clause_out [C, J], votes [C])."""
+    lits = make_literals(x)
+    include = ta_actions(cfg, state, rt)
+    clauses = eval_clauses(cfg, include, lits, rt, training=training)
+    return clauses, class_sums(cfg, clauses)
+
+
+def forward_batch(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                  xs: torch.Tensor, *, training: bool = False):
+    """A batch [B, f]. Returns (clause_out [B, C, J], votes [B, C])."""
+    lits = make_literals(xs)
+    include = ta_actions(cfg, state, rt)
+    clauses = eval_clauses_batch(cfg, include, lits, rt, training=training)
+    return clauses, class_sums(cfg, clauses)
+
+
+def _masked_argmax(votes: torch.Tensor, class_mask: torch.Tensor):
+    votes = torch.where(class_mask, votes, INT32_MIN)
+    return torch.argmax(votes, dim=-1).to(torch.int32)
+
+
+def predict(cfg: TMConfig, state: TMState, rt: TMRuntime,
+            x: torch.Tensor) -> torch.Tensor:
+    """argmax class over active classes (inactive classes vote -inf)."""
+    _, votes = forward(cfg, state, rt, x, training=False)
+    return _masked_argmax(votes, rt.class_mask)
+
+
+def predict_batch(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                  xs: torch.Tensor) -> torch.Tensor:
+    """Batch-first inference [B] i32: one ``clause_eval_batch`` call."""
+    _, votes = forward_batch(cfg, state, rt, xs, training=False)
+    return _masked_argmax(votes, rt.class_mask[None, :])

@@ -1,0 +1,179 @@
+// Clause-plane counts for Hopper (sm_90a): the CUDA twins of the Pallas
+// kernels clause_counts (K1) and clause_counts_batch (K2) in the reference
+// package's kernels/clause_eval.py.
+//
+//   violations[cj, b] = sum_l include[cj, l] & ~literal[b, l]
+//   n_included[cj]    = sum_l include[cj, l]
+//
+// Inputs are 1-byte bools: include [CJ, L], literals [B, L]. Outputs are
+// int32 violations [CJ, B] and n_included [CJ]. Both kernels are bound by
+// memory traffic at the main path's shapes (they read the include plane
+// once and do one add per byte), so neither uses the tensor cores.
+//
+// K1 (one datapoint): one warp per clause row; the lanes stride over L with
+// coalesced byte loads, and __reduce_add_sync finishes both counts.
+//
+// K2 (a batch): first the include and literal planes are packed once, 32
+// bools to a word, into scratch the wrapper allocates (one thread per
+// word). Then a block owns kRows = 64 clause rows and kTB = 32 batch
+// columns: it stages both word tiles in shared memory and lane t counts
+// column t as sum_w popc(inc_w & ~lit_w). Each byte of the planes is read
+// once; the words are re-read from L2 once per tile.
+//
+// Each C entry returns cudaGetLastError() so the caller sees a refused
+// launch at once.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;        // warps per block
+constexpr int kRows = 64;        // K2: clause rows per block
+constexpr int kTB = 32;          // K2: batch columns per block (one per lane)
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void clause_counts_kernel(const uint8_t* __restrict__ inc,
+                                     const uint8_t* __restrict__ lit,
+                                     int32_t* __restrict__ viol,
+                                     int32_t* __restrict__ ninc,
+                                     int cj, int L) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= cj) return;  // whole warp leaves together
+  const uint8_t* r = inc + static_cast<int64_t>(row) * L;
+  unsigned v = 0, n = 0;
+  for (int l = lane; l < L; l += 32) {
+    const unsigned i = r[l] != 0;
+    n += i;
+    v += i & (lit[l] == 0);
+  }
+  v = __reduce_add_sync(kFull, v);
+  n = __reduce_add_sync(kFull, n);
+  if (lane == 0) {
+    viol[row] = static_cast<int32_t>(v);
+    ninc[row] = static_cast<int32_t>(n);
+  }
+}
+
+// Pack 32 one-byte bools per word, bit j of word w = element 32w + j; a
+// tail past L packs zeros. One thread per word, so every load is in flight
+// at once.
+__global__ void pack_bits_kernel(const uint8_t* __restrict__ src,
+                                 uint32_t* __restrict__ dst, int rows, int L,
+                                 int nw) {
+  const int64_t n = static_cast<int64_t>(rows) * nw;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += step) {
+    const int64_t r = i / nw;
+    const int l0 = static_cast<int>(i - r * nw) * 32;
+    const uint8_t* p = src + r * L + l0;
+    uint32_t word = 0;
+    if (l0 + 32 <= L) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) word |= static_cast<uint32_t>(p[j] != 0) << j;
+    } else {
+      for (int j = 0; l0 + j < L; ++j)
+        word |= static_cast<uint32_t>(p[j] != 0) << j;
+    }
+    dst[i] = word;
+  }
+}
+
+// Counts from packed words: a block stages its kRows include rows and kTB
+// literal rows (contiguous in the packed arrays) in shared memory, then
+// lane t of each warp counts column t for the warp's rows.
+__global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
+                                           const uint32_t* __restrict__ litw,
+                                           int32_t* __restrict__ viol,
+                                           int32_t* __restrict__ ninc,
+                                           int cj, int B, int nw,
+                                           int stride) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* lit_s = smem;                   // [kTB][stride]
+  uint32_t* inc_s = smem + kTB * stride;    // [kRows][stride]
+  const int r0 = blockIdx.x * kRows;
+  const int b0 = blockIdx.y * kTB;
+  const int nr = min(kRows, cj - r0);
+  const int nb = min(kTB, B - b0);
+  for (int i = threadIdx.x; i < nb * nw; i += blockDim.x) {
+    const int t = i / nw;
+    lit_s[t * stride + (i - t * nw)] =
+        litw[static_cast<int64_t>(b0) * nw + i];
+  }
+  for (int i = threadIdx.x; i < nr * nw; i += blockDim.x) {
+    const int r = i / nw;
+    inc_s[r * stride + (i - r * nw)] =
+        incw[static_cast<int64_t>(r0) * nw + i];
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t* lw = lit_s + lane * stride;
+  for (int r = warp; r < nr; r += kWarps) {
+    const uint32_t* iw = inc_s + r * stride;
+    if (lane < nb) {
+      unsigned v = 0;
+      for (int w = 0; w < nw; ++w) v += __popc(iw[w] & ~lw[w]);
+      viol[static_cast<int64_t>(r0 + r) * B + b0 + lane] =
+          static_cast<int32_t>(v);
+    }
+    if (blockIdx.y == 0) {
+      unsigned n = 0;
+      for (int w = lane; w < nw; w += 32) n += __popc(iw[w]);
+      n = __reduce_add_sync(kFull, n);
+      if (lane == 0) ninc[r0 + r] = static_cast<int32_t>(n);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int clause_counts(const void* inc, const void* lit, void* viol,
+                             void* ninc, int cj, int L, void* stream) {
+  const dim3 grid((cj + kWarps - 1) / kWarps);
+  clause_counts_kernel<<<grid, kWarps * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(inc), static_cast<const uint8_t*>(lit),
+      static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc), cj, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory the batch kernel needs for literal width L, in bytes.
+extern "C" int clause_counts_batch_smem(int L) {
+  const int nw = (L + 31) / 32;
+  const int stride = nw | 1;  // odd word stride: lanes hit distinct banks
+  return (kTB + kRows) * stride * 4;
+}
+
+// scratch: (cj + B) * ceil(L / 32) uint32 words for the packed planes.
+extern "C" int clause_counts_batch(const void* inc, const void* lit,
+                                   void* viol, void* ninc, void* scratch,
+                                   int cj, int L, int B, void* stream) {
+  const int nw = (L + 31) / 32;
+  const int stride = nw | 1;
+  const int smem = clause_counts_batch_smem(L);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        clause_counts_batch_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  uint32_t* incw = static_cast<uint32_t*>(scratch);
+  uint32_t* litw = incw + static_cast<int64_t>(cj) * nw;
+  const int64_t words = static_cast<int64_t>(cj + B) * nw;
+  const unsigned pack_blocks = static_cast<unsigned>(
+      (words + 255) / 256 < 132 * 16 ? (words + 255) / 256 : 132 * 16);
+  pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
+      static_cast<const uint8_t*>(inc), incw, cj, L, nw);
+  pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
+      static_cast<const uint8_t*>(lit), litw, B, L, nw);
+  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB);
+  clause_counts_batch_kernel<<<grid, kWarps * 32, smem, st>>>(
+      incw, litw, static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc),
+      cj, B, nw, stride);
+  return static_cast<int>(cudaGetLastError());
+}

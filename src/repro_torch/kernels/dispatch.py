@@ -1,0 +1,99 @@
+"""Backend dispatch: the one seam between the TM core and its kernels.
+
+* ``"ref"``  -- plain PyTorch (:mod:`repro_torch.kernels.ref`) on any
+  device; the ground truth the kernels are held to.
+* ``"cuda"`` -- the hand-written CUDA kernels (:mod:`repro_torch.kernels.ops`).
+  A CPU tensor takes each kernel's plain version; a CUDA tensor launches
+  the kernel or raises.
+* ``"auto"`` -- ``"cuda"``, unless ``TM_BACKEND`` names another backend.
+
+Every backend implements :class:`KernelBackend`. The entries are those of
+the reference's contract (``repro.kernels.dispatch``) that the port has
+reached; later slices add the replica-first, packed and pruned entries.
+This module is the only place that knows which module backs which name.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class KernelBackend(NamedTuple):
+    """The typed kernel contract.
+
+    * ``clause_eval(include [C,J,L] bool, literals [L] bool, *, training)
+      -> [C,J] bool`` -- one datapoint's clause plane.
+    * ``clause_eval_batch(include [C,J,L] bool, literals [B,L] bool, *,
+      training) -> [B,C,J] bool`` -- MUST equal stacking ``clause_eval``
+      over rows bit for bit.
+    * ``feedback_step(ta_state [C,J,L], literals [L], clause_out [C,J],
+      type1_sel [C,J], type2_sel [C,J], u [C,J,L], *, s, n_states,
+      s_policy, boost_true_positive) -> new ta_state`` -- one datapoint's
+      TA update.
+    """
+
+    name: str
+    clause_eval: Callable[..., torch.Tensor]
+    clause_eval_batch: Callable[..., torch.Tensor]
+    feedback_step: Callable[..., torch.Tensor]
+
+
+_FACTORIES: dict[str, Callable[[], KernelBackend]] = {}
+_CACHE: dict[str, KernelBackend] = {}
+
+
+def register(name: str, factory: Callable[[], KernelBackend]) -> None:
+    """Register (or replace) a backend under ``name``."""
+    _FACTORIES[name] = factory
+    _CACHE.pop(name, None)
+
+
+def available() -> tuple[str, ...]:
+    """Registered backend names (plus the ``auto`` alias)."""
+    return tuple(sorted(_FACTORIES)) + ("auto",)
+
+
+def _auto_name() -> str:
+    # TM_BACKEND overrides auto-resolution, as in the reference.
+    return os.environ.get("TM_BACKEND") or "cuda"
+
+
+def resolve(name: str) -> KernelBackend:
+    """Backend name (or ``"auto"``) -> the :class:`KernelBackend`."""
+    if name == "auto":
+        name = _auto_name()
+    if name not in _FACTORIES:
+        raise ValueError(
+            f"unknown kernel backend {name!r}; available: {available()}"
+        )
+    if name not in _CACHE:
+        _CACHE[name] = _FACTORIES[name]()
+    return _CACHE[name]
+
+
+def _make_ref() -> KernelBackend:
+    from repro_torch.kernels import ref
+
+    return KernelBackend(
+        name="ref",
+        clause_eval=ref.clause_eval,
+        clause_eval_batch=ref.clause_eval_batch,
+        feedback_step=ref.feedback_step,
+    )
+
+
+def _make_cuda() -> KernelBackend:
+    from repro_torch.kernels import ops
+
+    return KernelBackend(
+        name="cuda",
+        clause_eval=ops.clause_eval,
+        clause_eval_batch=ops.clause_eval_batch,
+        feedback_step=ops.feedback_step,
+    )
+
+
+register("ref", _make_ref)
+register("cuda", _make_cuda)

@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the kernel-contract entries on the main path.
+
+The twins of ``repro.kernels.ref``'s ``clause_eval``, ``clause_eval_batch``
+and ``feedback_step``: the ``"ref"`` backend on any device, and the
+semantic ground truth the hand-written kernels are held to.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def clause_eval(include: torch.Tensor, literals: torch.Tensor, *,
+                training: bool) -> torch.Tensor:
+    """[C, J, L] bool x [L] bool -> [C, J] bool clause outputs.
+
+    A clause fires iff every included literal is 1; an empty clause
+    outputs ``training``.
+    """
+    match = ~include | literals[None, None, :]
+    fired = torch.all(match, dim=-1)
+    empty = ~torch.any(include, dim=-1)
+    return torch.where(empty, training, fired)
+
+
+def clause_eval_batch(include: torch.Tensor, literals: torch.Tensor, *,
+                      training: bool) -> torch.Tensor:
+    """[C, J, L] bool x [B, L] bool -> [B, C, J] bool.
+
+    violations[b, cj] = sum_l (1 - literal[b, l]) * include[cj, l], as one
+    float32 matrix product. The counts are integers <= L < 2**24, so the
+    product is exact and row b equals :func:`clause_eval` on literals[b].
+    """
+    C, J, L = include.shape
+    B = literals.shape[0]
+    inc = include.reshape(C * J, L).to(torch.float32)
+    neg = 1.0 - literals.to(torch.float32)
+    violations = neg @ inc.T                                  # [B, CJ]
+    fired = (violations == 0).reshape(B, C, J)
+    empty = ~torch.any(include, dim=-1)
+    return torch.where(empty[None], training, fired)
+
+
+def feedback_probabilities(s: torch.Tensor, *, s_policy: str,
+                           boost_true_positive: bool):
+    """(p_strengthen, p_erase) as float32 0-dim tensors on ``s``'s device.
+
+    standard: p_strengthen = (s-1)/s (or 1 with boost), p_erase = 1/s;
+    hardware: p_strengthen as above, p_erase = (s-1)/s. Single IEEE float32
+    operations, so the values equal the reference's bit for bit.
+    """
+    s = torch.as_tensor(s, dtype=torch.float32)
+    ratio = (s - 1.0) / s
+    p_strengthen = torch.ones_like(s) if boost_true_positive else ratio
+    p_erase = (1.0 / s) if s_policy == "standard" else ratio
+    return p_strengthen, p_erase
+
+
+def feedback_step(
+    ta_state: torch.Tensor,    # [C, J, L] int8/int16 (pre-update)
+    literals: torch.Tensor,    # [L] bool
+    clause_out: torch.Tensor,  # [C, J] bool (training-mode outputs)
+    type1_sel: torch.Tensor,   # [C, J] bool
+    type2_sel: torch.Tensor,   # [C, J] bool
+    u: torch.Tensor,           # [C, J, L] f32 uniforms in [0, 1)
+    *,
+    s: torch.Tensor,           # 0-dim f32
+    n_states: int,
+    s_policy: str,
+    boost_true_positive: bool,
+) -> torch.Tensor:
+    """One datapoint's TA-bank update (Type I + Type II); new ta_state.
+
+    Type I: clause=1 & lit=1 strengthens w.p. p_strengthen, otherwise the
+    TA moves toward exclude w.p. p_erase. Type II: clause=1 & lit=0 &
+    excluded moves toward include. The result is clipped to [1, 2N].
+    """
+    p_strengthen, p_erase = feedback_probabilities(
+        s, s_policy=s_policy, boost_true_positive=boost_true_positive
+    )
+    lit = literals[None, None, :]
+    c_out = clause_out[:, :, None]
+    include = ta_state > n_states
+    d1 = torch.where(
+        c_out & lit,
+        (u < p_strengthen).to(torch.int32),
+        -(u < p_erase).to(torch.int32),
+    )
+    d2 = (c_out & ~lit & ~include).to(torch.int32)
+    delta = (type1_sel[:, :, None].to(torch.int32) * d1
+             + type2_sel[:, :, None].to(torch.int32) * d2)
+    new_state = torch.clamp(ta_state.to(torch.int32) + delta, 1, 2 * n_states)
+    return new_state.to(ta_state.dtype)

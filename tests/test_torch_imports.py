@@ -1,0 +1,90 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or the reference package ``repro`` (an AST scan, so imports
+  inside functions count too).
+* The entry points default to CUDA and raise without it; ``device="cpu"``
+  is the explicit way onto the CPU.
+* The kernel build raises without ``nvcc``; nothing falls back.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.exists(), path
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_scan_sees_nested_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("def g():\n    from repro.core import tm\n    import jax\n")
+    assert {"repro", "jax"} <= _imported_roots(f)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import init_runtime, init_state
+    from repro_torch.core.accuracy import make_history
+    from repro_torch.serve import TMService
+
+    cfg = CONFIG.tm
+    for call in (lambda: init_state(cfg), lambda: init_runtime(cfg),
+                 lambda: make_history(4, 3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    state = init_state(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMService(cfg, state)
+    svc = TMService(cfg, state, device="cpu")
+    assert svc.serve(np.zeros((2, 16), dtype=bool)).shape == (1, 2)
+
+
+def test_convert_defaults_to_cuda(no_cuda):
+    from repro_torch import convert
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.key_from_numpy(np.zeros(2, np.uint32))
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc()
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()

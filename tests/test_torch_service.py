@@ -1,0 +1,171 @@
+"""The port's K = 1 TMService against the reference's, bit for bit.
+
+The quickstart's flow (examples/quickstart.py: offline_train -> submit +
+tick -> serve) on iris, and the same flow with monitoring, backpressure
+and rollbacks on the MNIST-scale machine at 7 x 7, run on both packages
+from the same seeds and rows. TA banks, keys, tick reports, histories,
+drops, chunk monitoring and served predictions must agree exactly.
+"""
+import numpy as np
+import pytest
+
+from repro.configs import tm_mnist as j_mnist_cfg
+from repro.configs.tm_iris import CONFIG as J_IRIS
+from repro.core import init_state as j_init_state
+from repro.core.online import OnlineSession as JSession
+from repro.core import init_runtime as j_init_runtime
+from repro.data import iris
+from repro.data import mnist
+from repro.serve import AdaptPolicy as JPolicy
+from repro.serve import ServiceConfig as JConfig
+from repro.serve import TMService as JService
+from repro_torch.configs import tm_mnist as t_mnist_cfg
+from repro_torch.configs.tm_iris import CONFIG as T_IRIS
+from repro_torch.core import init_runtime as t_init_runtime
+from repro_torch.core import init_state as t_init_state
+from repro_torch.core.online import OnlineSession as TSession
+from repro_torch.serve import AdaptPolicy as TPolicy
+from repro_torch.serve import ServiceConfig as TConfig
+from repro_torch.serve import TMService as TService
+import dataclasses
+
+BACKENDS = ["cuda", "ref"]
+
+
+def _np(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _eq(a, b) -> bool:
+    return np.array_equal(_np(a), _np(b))
+
+
+def _quickstart(Service, Config, Policy, init_state, cfg, **dev):
+    xs, ys = iris.load()
+    svc = Service(cfg, init_state(cfg, **dev),
+                  Config(replicas=1, buffer_capacity=32, chunk=8, s=1.0, T=15,
+                         policy=Policy(analyze_every=16)),
+                  eval_x=xs[100:], eval_y=ys[100:], **dev)
+    base = svc.offline_train(xs[:20], ys[:20], n_epochs=10)
+    reports = []
+    for i in range(32):
+        svc.submit(0, xs[20 + i], int(ys[20 + i]))
+        reports.append(svc.tick())
+    return dict(svc=svc, base=base, reports=reports,
+                served=svc.serve(xs[:50]))
+
+
+def _mnist_flow(Service, Config, Policy, init_state, cfg, **dev):
+    xs, ys = mnist.load(n_points=150, side=7)
+    svc = Service(cfg, init_state(cfg, **dev),
+                  Config(replicas=1, buffer_capacity=16, chunk=6,
+                         ingress_block=4, s=1.5, T=32,
+                         policy=Policy(analyze_every=8,
+                                       rollback_threshold=0.02)),
+                  eval_x=xs[100:], eval_y=ys[100:], **dev)
+    base = svc.offline_train(xs[:30], ys[:30], n_epochs=2)
+    chunks, reports, accepted = [], [], []
+    for i in range(30, 100):
+        accepted.append(svc.submit(0, xs[i], int(ys[i])))
+        if i % 10 == 0:             # 10 rows in, <= 7 out: backpressure
+            reports.append(svc.tick(max_points=3 + i % 7,
+                                    on_chunk=chunks.append))
+    reports.append(svc.tick(max_points=64, on_chunk=chunks.append))
+    return dict(svc=svc, base=base, reports=reports, chunks=chunks,
+                accepted=accepted, served=svc.serve(xs[100:]))
+
+
+def _compare(j, t):
+    js, ts = j["svc"], t["svc"]
+    assert _eq(j["base"], t["base"])
+    assert _eq(js.ss.tm.ta_state, ts.ss.tm.ta_state.numpy())
+    for f in ("data_x", "data_y", "head", "size"):
+        assert _eq(getattr(js.ss.buf, f), getattr(ts.ss.buf, f).numpy()), f
+    assert _eq(js.rng_keys, ts.rng_keys)
+    assert _eq(js.steps, ts.steps)
+    assert _eq(js.dropped, ts.dropped)
+    assert _eq(js.buffered, ts.buffered)
+    assert _eq(js.rollbacks, ts.rollbacks)
+    assert len(j["reports"]) == len(t["reports"])
+    for rj, rt in zip(j["reports"], t["reports"]):
+        assert _eq(rj.trained, rt.trained)
+        assert _eq(rj.rolled_back, rt.rolled_back)
+        assert (rj.accuracy is None) == (rt.accuracy is None)
+        if rj.accuracy is not None:
+            assert _eq(rj.accuracy, rt.accuracy)
+    assert len(js.history) == len(ts.history)
+    for (sj, aj), (st, at) in zip(js.history, ts.history):
+        assert _eq(sj, st) and _eq(aj, at)
+    assert _eq(j["served"], t["served"])
+
+
+@pytest.fixture(scope="module")
+def jax_quickstart():
+    return _quickstart(JService, JConfig, JPolicy, j_init_state, J_IRIS.tm)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_quickstart_flow_matches_reference(jax_quickstart, backend):
+    cfg = dataclasses.replace(T_IRIS.tm, backend=backend)
+    t = _quickstart(TService, TConfig, TPolicy, t_init_state, cfg,
+                    device="cpu")
+    _compare(jax_quickstart, t)
+    assert any(r.accuracy is not None for r in t["reports"])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_mnist_side7_flow_matches_reference(backend):
+    j = _mnist_flow(JService, JConfig, JPolicy, j_init_state,
+                    j_mnist_cfg.config_for_side(7).tm)
+    cfg = dataclasses.replace(t_mnist_cfg.config_for_side(7).tm,
+                              backend=backend)
+    t = _mnist_flow(TService, TConfig, TPolicy, t_init_state, cfg,
+                    device="cpu")
+    _compare(j, t)
+    assert j["accepted"] == t["accepted"]
+    assert int(t["svc"].dropped[0]) > 0
+    assert len(j["chunks"]) == len(t["chunks"]) > 0
+    for cj, ct in zip(j["chunks"], t["chunks"]):
+        for f in cj._fields:
+            assert _eq(getattr(cj, f), getattr(ct, f).numpy()), f
+
+
+def test_online_session_shim_matches_reference():
+    """The shim, with budgets past the buffered rows: the chunk monitor's
+    unconsumed columns must match the reference's masked scan steps."""
+    xs, ys = iris.load()
+    jc = J_IRIS.tm
+    tc = dataclasses.replace(T_IRIS.tm, backend="cuda")
+    js = JSession(jc, j_init_state(jc), j_init_runtime(jc, s=1.375),
+                  buffer_capacity=12, chunk=5, seed=3)
+    ts = TSession(tc, t_init_state(tc, device="cpu"),
+                  t_init_runtime(tc, s=1.375, device="cpu"),
+                  buffer_capacity=12, chunk=5, seed=3, device="cpu")
+    aj, at = [], []
+    for start in (0, 15, 40):
+        for i in range(start, start + 14):
+            assert js.offer(xs[i], int(ys[i])) == ts.offer(xs[i], int(ys[i]))
+        assert js.learn_available(9, on_chunk=aj.append) == \
+            ts.learn_available(9, on_chunk=at.append)
+        assert js.learn_available(20, on_chunk=aj.append) == \
+            ts.learn_available(20, on_chunk=at.append)
+    assert js.dropped == ts.dropped and js.buffered == ts.buffered
+    assert _eq(js.ss.tm.ta_state, ts.ss.tm.ta_state.numpy())
+    assert _eq(js.ss.step, ts.ss.step.numpy())
+    assert len(aj) == len(at)
+    for a, b in zip(aj, at):
+        for f in a._fields:
+            assert _eq(getattr(a, f), getattr(b, f).numpy()), f
+    assert _eq(js.infer(xs), ts.infer(xs))
+
+
+@pytest.mark.parametrize("sc", [
+    dict(replicas=2), dict(packed=True), dict(resident=1),
+    dict(tunable=object()), dict(s=[1.0]),
+])
+def test_later_slices_raise(sc):
+    cfg = T_IRIS.tm
+    with pytest.raises(NotImplementedError):
+        TService(cfg, t_init_state(cfg, device="cpu"), TConfig(**sc),
+                 device="cpu")
