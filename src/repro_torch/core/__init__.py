@@ -4,6 +4,7 @@
   init_state / init_runtime            -- constructors (default: the card)
   forward / forward_batch / predict / predict_batch -- inference datapath
   train_step / train_update / train_datapoints / train_epochs -- learning
+  faults, accuracy, manager, online, hpsearch   -- management subsystems
 """
 from repro_torch.core.tm import (  # noqa: F401
     TMConfig,

@@ -1,8 +1,10 @@
 """Accuracy-analysis block and history RAM (paper §3.3), on torch.
 
 ``analyze`` is the error-counting pass over a set in one batch-first
-clause plane (K2); ``History`` is the fixed-capacity record of per-cycle
-accuracies that the FPGA keeps in RAM.
+clause plane (K2); ``analyze_replicated`` and ``analyze_sets_replicated``
+do the same for R machines in one replica-first plane (K4); ``History`` is
+the fixed-capacity record of per-cycle accuracies that the FPGA keeps in
+RAM.
 """
 from __future__ import annotations
 
@@ -30,6 +32,47 @@ def analyze(cfg: TMConfig, state: TMState, rt: TMRuntime, xs: torch.Tensor,
     v = valid.to(torch.bool)
     hits = (ok & v).sum().to(torch.float32)
     return hits / torch.clamp(v.sum().to(torch.float32), min=1.0)
+
+
+def analyze_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                       xs: torch.Tensor, ys: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-replica accuracy [R] f32: replica r analyzes set r % D of xs
+    [D, m, f], ys [D, m], valid [D, m], bitwise :func:`analyze` on it."""
+    preds = tm_mod.predict_batch_replicated_(cfg, state, rt, xs)  # [R, m]
+    return _reduce_replicated(preds, ys, valid)
+
+
+def _reduce_replicated(preds: torch.Tensor, ys: torch.Tensor,
+                       valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The accuracy reduction of :func:`analyze_replicated`: preds [R, m],
+    ys / valid [D, m] tiled R / D times along the replica axis. [R] f32."""
+    H = preds.shape[0] // ys.shape[0]
+    ok = preds == ys.to(torch.int32).repeat(H, 1)
+    if valid is None:
+        return tm_mod.mean_of_count(ok.sum(-1), ok.shape[-1])
+    v = valid.to(torch.bool).repeat(H, 1)
+    hits = (ok & v).sum(-1).to(torch.float32)
+    return hits / torch.clamp(v.sum(-1).to(torch.float32), min=1.0)
+
+
+def analyze_sets_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                            sets) -> torch.Tensor:
+    """Per-replica accuracy over many sets in one K4 launch: [R, n_sets].
+
+    ``sets`` is a list of (xs [D, m_i, f], ys [D, m_i], valid [D, m_i] or
+    None), all with the same D. The sets are concatenated along the batch
+    axis, so the include banks are read once for all of them; each set's
+    reduction is :func:`analyze_replicated`'s over its own columns.
+    """
+    xs = torch.cat([x for x, _, _ in sets], dim=1)
+    preds = tm_mod.predict_batch_replicated_(cfg, state, rt, xs)
+    out, off = [], 0
+    for x, y, valid in sets:
+        m = x.shape[1]
+        out.append(_reduce_replicated(preds[:, off:off + m], y, valid))
+        off += m
+    return torch.stack(out, dim=-1)
 
 
 class History(NamedTuple):

@@ -6,6 +6,13 @@ sees the TA state of step t-1), where the reference runs ``lax.scan`` and
 ``fori_loop``. The key schedule is the reference's, draw for draw:
 ``split(key)`` per datapoint update, ``split(key, n)`` per pass over a set
 and ``fold_in(key, epoch)`` per epoch. So the TA banks agree bit for bit.
+
+The replica-first engine (``*_replicated``) advances R machines per step in
+one fused plane: per-replica state and control carry a leading R, the data
+streams (rows, labels, keys) a leading D with D | R, and replica r consumes
+stream r % D. The keys are batched ``[D, 2]`` and every draw is one
+threefry call over all streams, so a step costs the same launches whatever
+R is. Replica r is bitwise :func:`train_update` on stream r % D.
 """
 from __future__ import annotations
 
@@ -151,4 +158,141 @@ def train_epochs(cfg: TMConfig, state: TMState, rt: TMRuntime,
     for i in range(int(n_epochs)):
         state, _ = train_datapoints(cfg, state, rt, xs, ys,
                                     rnd.fold_in(key, i), valid)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Replica-first training (cross-validation x hyperparameter sweep axis)
+# ---------------------------------------------------------------------------
+
+
+def _replica_counts(state: TMState, xs: torch.Tensor) -> tuple[int, int]:
+    R = state.ta_state.shape[0]
+    D = xs.shape[0]
+    if R % D:
+        raise ValueError(f"data replicas {D} must divide replicas {R}")
+    return R, D
+
+
+def _selection_core_replicated(cfg: TMConfig, T: torch.Tensor,
+                               clause_mask: torch.Tensor,
+                               class_mask: torch.Tensor, votes: torch.Tensor,
+                               y: torch.Tensor, key: torch.Tensor):
+    """:func:`_selection_core` for R replicas at once: T [R] i32 and votes
+    [R, C] on the device, y [R], keys [R, 2]. Row r draws exactly what the
+    single-machine core draws from key r. Returns (type1, type2), both
+    [R, C, J] bool."""
+    ks = rnd.split(key, 3)                                   # [R, 3, 2]
+    k_neg, k_t, k_n = ks[:, 0], ks[:, 1], ks[:, 2]
+    C, J = cfg.max_classes, cfg.max_clauses
+    dev = votes.device
+    cls = torch.arange(C, device=dev)
+    y = y.to(torch.int64)[:, None]                           # [R, 1]
+
+    neg_ok = class_mask & (cls != y)                         # [R, C]
+    logits = torch.where(neg_ok, 0.0, float("-inf"))
+    ny = rnd.categorical(k_neg, logits)[:, None]             # [R, 1]
+
+    # T is an integer below 2**24: the float32 operations below are the
+    # reference's single IEEE operations on the same values.
+    Ti = T[:, None]
+    Tf = T.to(torch.float32)
+    v = torch.minimum(torch.maximum(votes, -Ti), Ti).to(torch.float32)
+    p_t = (Tf - v.gather(1, y)[:, 0]) / (2.0 * Tf)
+    p_n = (Tf + v.gather(1, ny)[:, 0]) / (2.0 * Tf)
+
+    sel_t = (rnd.uniform(k_t, (J,)) < p_t[:, None]) & clause_mask
+    sel_n = (rnd.uniform(k_n, (J,)) < p_n[:, None]) & clause_mask
+
+    pos = tm_mod.clause_polarity(cfg, dev) > 0
+    onehot_y = (cls == y)[:, :, None]                        # [R, C, 1]
+    onehot_n = (cls == ny)[:, :, None]
+    type1 = (onehot_y & (sel_t & pos)[:, None, :]
+             | onehot_n & (sel_n & ~pos)[:, None, :])
+    type2 = (onehot_y & (sel_t & ~pos)[:, None, :]
+             | onehot_n & (sel_n & pos)[:, None, :])
+    gate = class_mask[:, None]
+    return type1 & gate, type2 & gate
+
+
+def train_update_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                            x: torch.Tensor, y: torch.Tensor,
+                            key: torch.Tensor
+                            ) -> tuple[TMState, torch.Tensor, torch.Tensor]:
+    """One datapoint's TA-bank update for all R replicas at once.
+
+    state leaves [R, ...], x [D, f], y [D], keys [D, 2]; ``rt.s``/``rt.T``
+    0-dim or [R] (copied to the card here unless :func:`~repro_torch.core.
+    tm.replica_ports` already put them there), masks shared. Replica r performs exactly
+    :func:`train_update` on stream r % D with ``s[r]``/``T[r]``: one
+    replica-first clause plane (K3), the batched selection, one [D, C, J,
+    L] uniform draw shared by the replicas of a stream, and the fused
+    update (K9). Returns (new_state, votes [R, C], activity [R]).
+    """
+    R, D = _replica_counts(state, x)
+    H = R // D
+    rt = tm_mod.replica_ports(rt, R, state.ta_state.device)
+    k2 = rnd.split(key)                                      # [D, 2, 2]
+    k_sel, k_u = k2[:, 0], k2[:, 1]
+
+    lits = tm_mod.make_literals(x)                           # [D, L]
+    include = tm_mod.ta_actions(cfg, state, rt)              # [R, C, J, L]
+    backend = dispatch.resolve(cfg.backend)
+    clauses_tr = backend.clause_eval_replicated(include, lits, training=True)
+    clauses_tr = clauses_tr & rt.clause_mask[None, None, :]
+    votes = tm_mod.class_sums(cfg, clauses_tr)               # [R, C]
+
+    type1, type2 = _selection_core_replicated(
+        cfg, rt.T, rt.clause_mask, rt.class_mask, votes, y.repeat(H),
+        k_sel.repeat(H, 1))
+    u = rnd.uniform(k_u, (cfg.max_classes, cfg.max_clauses, cfg.n_literals))
+
+    new_ta = backend.feedback_step_replicated(
+        state.ta_state, lits, clauses_tr, type1, type2, u,
+        s=rt.s, n_states=cfg.n_states, s_policy=cfg.s_policy,
+        boost_true_positive=cfg.boost_true_positive,
+    )
+    changed = (new_ta != state.ta_state).reshape(R, -1).sum(-1)
+    activity = tm_mod.mean_of_count(changed, new_ta[0].numel())
+    return TMState(ta_state=new_ta), votes, activity
+
+
+def train_datapoints_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                                xs: torch.Tensor, ys: torch.Tensor,
+                                key: torch.Tensor,
+                                valid: Optional[torch.Tensor] = None
+                                ) -> tuple[TMState, torch.Tensor]:
+    """Stream the D data sets serially (xs [D, n, f], ys [D, n], keys
+    [D, 2], valid [D, n]) while updating all R replicas per step. Replica r
+    is gated by stream r % D's valid row, on the device. Returns
+    (final_state, activity [n, R])."""
+    R, D = _replica_counts(state, xs)
+    H = R // D
+    n = xs.shape[1]
+    rt = tm_mod.replica_ports(rt, R, state.ta_state.device)  # once a pass
+    keys = rnd.split(key, n).transpose(0, 1)                 # [n, D, 2]
+    acts = []
+    for i in range(n):
+        new_st, _, act = train_update_replicated(
+            cfg, state, rt, xs[:, i], ys[:, i], keys[i])
+        if valid is None:
+            state = new_st
+        else:
+            vR = valid[:, i].repeat(H)                       # replica r: r % D
+            state = TMState(torch.where(vR[:, None, None, None],
+                                        new_st.ta_state, state.ta_state))
+            act = torch.where(vR, act, 0.0)
+        acts.append(act)
+    return state, torch.stack(acts)
+
+
+def train_epochs_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                            xs: torch.Tensor, ys: torch.Tensor,
+                            key: torch.Tensor, n_epochs: int,
+                            valid: Optional[torch.Tensor] = None) -> TMState:
+    """Replica-first :func:`train_epochs`: epoch i keyed by
+    ``fold_in(keys, i)`` per stream."""
+    for i in range(int(n_epochs)):
+        state, _ = train_datapoints_replicated(
+            cfg, state, rt, xs, ys, rnd.fold_in(key, i), valid)
     return state

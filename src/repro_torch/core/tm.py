@@ -9,9 +9,11 @@ masks, and the fault controller's AND/OR masks on the TA actions.
 Everything is a plain function over explicit state. Tensors live on the
 device the state was made on; the entry points that make state
 (:func:`init_state`, :func:`init_runtime`) take ``device`` and default to
-the card. The scalar ports ``s`` and ``T`` are 0-dim CPU tensors: the
-host reads them (vote clipping, feedback probabilities) without waiting
-on the device.
+the card. The scalar ports ``s`` and ``T`` are CPU tensors (0-dim, or
+[R] for R replicas): the host reads them (vote clipping, feedback
+probabilities) without waiting on the device, and the replica-first
+engine copies them to the card once per pass over a set
+(:func:`replica_ports`).
 """
 from __future__ import annotations
 
@@ -100,7 +102,8 @@ class TMConfig:
 class TMRuntime(NamedTuple):
     """Runtime ports, adjustable without rebuilding anything.
 
-    * ``s``/``T``: the hyperparameter ports (0-dim CPU f32 / i32 tensors),
+    * ``s``/``T``: the hyperparameter ports (CPU f32 / i32 tensors, 0-dim,
+      or [R] per replica under the replica-first engine),
     * ``clause_mask`` [J] / ``class_mask`` [C]: over-provisioning gates,
     * ``ta_and_mask``/``ta_or_mask`` [C, J, L]: the fault controller,
       action' = (action AND and_mask) OR or_mask. Fault-free: and=1, or=0.
@@ -112,6 +115,17 @@ class TMRuntime(NamedTuple):
     class_mask: torch.Tensor
     ta_and_mask: torch.Tensor
     ta_or_mask: torch.Tensor
+
+
+def replica_ports(rt: TMRuntime, n: int, device) -> TMRuntime:
+    """``rt`` with its s/T ports as [n] float32 / int32 tensors on
+    ``device`` (a 0-dim port is broadcast). The replica-first engine calls
+    this once per pass over a set, so the ports cross to the card once per
+    pass and never inside the step loop; ports already there stay as
+    they are."""
+    return rt._replace(
+        s=torch.as_tensor(rt.s, dtype=torch.float32).to(device).expand(n),
+        T=torch.as_tensor(rt.T, dtype=torch.int32).to(device).expand(n))
 
 
 class TMState(NamedTuple):
@@ -253,3 +267,37 @@ def predict_batch(cfg: TMConfig, state: TMState, rt: TMRuntime,
     """Batch-first inference [B] i32: one ``clause_eval_batch`` call."""
     _, votes = forward_batch(cfg, state, rt, xs, training=False)
     return _masked_argmax(votes, rt.class_mask[None, :])
+
+
+# ---------------------------------------------------------------------------
+# Replica-first datapath: R machines, D data streams, replica r on r % D
+# ---------------------------------------------------------------------------
+
+
+def forward_batch_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                             xs: torch.Tensor, *, training: bool = False):
+    """R machines on their batches in one ``clause_eval_batch_replicated``
+    call: state leaves [R, ...], xs [D, B, f] bool (replica r reads batch
+    r % D). Returns (clause_out [R, B, C, J], votes [R, B, C]); replica r
+    equals :func:`forward_batch` on batch r % D bit for bit."""
+    lits = make_literals(xs)                                  # [D, B, 2f]
+    include = ta_actions(cfg, state, rt)                      # [R, C, J, L]
+    clauses = dispatch.resolve(cfg.backend).clause_eval_batch_replicated(
+        include, lits, training=training)
+    clauses = clauses & rt.clause_mask
+    return clauses, class_sums(cfg, clauses)
+
+
+def predict_batch_replicated_(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                              xs: torch.Tensor) -> torch.Tensor:
+    """Replica-first prediction [R, B] i32: :func:`forward_batch_replicated`
+    and the active-class argmax (inactive classes vote -inf)."""
+    _, votes = forward_batch_replicated(cfg, state, rt, xs, training=False)
+    return _masked_argmax(votes, rt.class_mask)
+
+
+def predict_batch_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                             xs: torch.Tensor) -> torch.Tensor:
+    """The fleet ``infer`` entry: :func:`predict_batch_replicated_` (the
+    reference jits it; the port runs eagerly)."""
+    return predict_batch_replicated_(cfg, state, rt, xs)

@@ -1,0 +1,204 @@
+"""Replica-first cross-validation engine (paper §3.6.1, §5), on torch.
+
+The paper's "inbuilt cross-validation infrastructure" re-runs every
+experiment over block orderings and sweeps (s, T). Here the whole sweep,
+orderings x s-grid x T-grid, runs over one leading *replica* axis on one
+card:
+
+* the replica layout is grid-major / ordering-minor,
+  ``r = (si*G + ti)*O + o``, so the ``D = O`` data streams (block
+  orderings) are the fastest-varying factor and every per-data operand
+  (rows, labels, RNG streams) is stored once per ordering and shared
+  across the (s, T) grid: the kernel contract's ``r % D`` rule;
+* training runs through
+  :func:`repro_torch.core.feedback.train_epochs_replicated`, a loop over
+  datapoints whose body advances all R TA banks in one K3 plane and one
+  fused K9 update;
+* analysis is one K4 launch for all replicas (and all three sets, in the
+  system flow).
+
+Results are bitwise the reference's ``repro.eval.crossval`` (and looping
+:func:`repro_torch.core.hpsearch._one_cell` over cells). The same machinery
+runs the paper's Fig-3 flow for all orderings at once:
+:meth:`CrossValRun.system`, which ``manager.run_orderings`` calls.
+
+The reference can shard the replica axis over a device mesh; the port runs
+on one card (``device``), and multi-GPU sharding is later work.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import random as rnd
+from repro_torch.core import accuracy as acc_mod
+from repro_torch.core import feedback as fb_mod
+from repro_torch.core import manager as mgr
+from repro_torch.core import tm as tm_mod
+from repro_torch.core.tm import TMConfig, TMRuntime, TMState
+
+
+class SweepResult(NamedTuple):
+    """One (s x T x orderings) sweep's output (mirrors hpsearch.GridResult)."""
+
+    s_grid: np.ndarray           # [S]
+    T_grid: np.ndarray           # [G]
+    val_accuracy: torch.Tensor   # [S, G, O] per-ordering validation accuracy
+    mean_accuracy: torch.Tensor  # [S, G]
+    replicas: int                # R = S * G * O
+    wall_s: float                # wall clock of the sweep, to a device sync
+    replicas_per_s: float
+
+
+class SystemResult(NamedTuple):
+    """All-orderings Fig-3 system run (mirrors manager.run_system outputs)."""
+
+    state: TMState               # leaves [O, ...]
+    accuracies: torch.Tensor     # [O, 1 + n_cycles, 3]
+    activity: torch.Tensor       # [O, n_cycles]
+    replicas: int
+    wall_s: float
+
+
+def replicate_state(cfg: TMConfig, n_replicas: int, device=None) -> TMState:
+    """R copies of the deterministic boundary init (init_state without key)."""
+    base = tm_mod.init_state(cfg, device=device).ta_state
+    return TMState(ta_state=base.expand((n_replicas,) + base.shape)
+                   .contiguous())
+
+
+def grid_layout(s_values, T_values, n_orderings: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-replica (s [R] f32, T [R] i32) host ports for the grid-major /
+    ordering-minor layout ``r = (si*G + ti)*O + o``."""
+    s_grid = torch.as_tensor(np.atleast_1d(np.asarray(s_values, np.float32)))
+    T_grid = torch.as_tensor(np.atleast_1d(np.asarray(T_values, np.int32)))
+    G, O = T_grid.shape[0], n_orderings
+    s_rep = s_grid.repeat_interleave(G * O)
+    T_rep = T_grid.repeat_interleave(O).repeat(s_grid.shape[0])
+    return s_rep, T_rep
+
+
+def _on(x, dtype, dev) -> torch.Tensor:
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.asarray(x))
+    return x.to(dev, dtype)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _analyze_all_replicated(cfg, state, ctl: mgr.CycleCtl) -> torch.Tensor:
+    # One K4 launch for the whole three-set analysis block: the include
+    # banks stream once per cycle.
+    s = ctl.sets
+    return acc_mod.analyze_sets_replicated(cfg, state, ctl.rt, [
+        (s.offline_x, s.offline_y, s.offline_valid),
+        (s.validation_x, s.validation_y, s.validation_valid),
+        (s.online_x, s.online_y, s.online_valid),
+    ])                                                 # [O, 3]
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossValRun:
+    """The cross-validation engine on one card (``device``, default the
+    card; ``"cpu"`` runs the plain versions)."""
+
+    cfg: TMConfig
+    device: object = None
+
+    @property
+    def dev(self) -> torch.device:
+        return tm_mod.resolve_device(self.device)
+
+    def sweep(self, off_x, off_y, val_x, val_y, s_values, T_values, *,
+              n_epochs: int = 10, seed: int = 0,
+              offline_valid=None) -> SweepResult:
+        """The full (s x T x orderings) sweep: off_x [O, n, f] / off_y
+        [O, n] per-ordering offline sets, val_x [O, m, f] / val_y [O, m]
+        validation sets, offline_valid [O, n] (masked rows skipped).
+
+        Bitwise the reference's sweep, and looping ``hpsearch._one_cell``
+        over every cell with the per-ordering keys
+        ``split(PRNGKey(seed), O)``.
+        """
+        cfg, dev = self.cfg, self.dev
+        O = off_x.shape[0]
+        s_rep, T_rep = grid_layout(s_values, T_values, O)
+        S = len(np.atleast_1d(s_values))
+        G = len(np.atleast_1d(T_values))
+        R = S * G * O
+        off = (_on(off_x, torch.bool, dev), _on(off_y, torch.int32, dev),
+               None if offline_valid is None
+               else _on(offline_valid, torch.bool, dev))
+        val = (_on(val_x, torch.bool, dev), _on(val_y, torch.int32, dev))
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        keys = rnd.split(rnd.PRNGKey(seed, dev), O)
+        rt = tm_mod.init_runtime(cfg, device=dev)._replace(s=s_rep, T=T_rep)
+        state = replicate_state(cfg, R, dev)
+        state = fb_mod.train_epochs_replicated(
+            cfg, state, rt, off[0], off[1], keys, n_epochs, valid=off[2])
+        acc = acc_mod.analyze_replicated(cfg, state, rt, *val)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+
+        val_accuracy = acc.reshape(S, G, O)
+        return SweepResult(
+            s_grid=np.atleast_1d(np.asarray(s_values, dtype=np.float32)),
+            T_grid=np.atleast_1d(np.asarray(T_values, dtype=np.int32)),
+            val_accuracy=val_accuracy,
+            mean_accuracy=torch.mean(val_accuracy, dim=-1),
+            replicas=R,
+            wall_s=wall,
+            replicas_per_s=R / max(wall, 1e-9),
+        )
+
+    def system(self, sys_cfg: mgr.SystemConfig, states: TMState,
+               rt: TMRuntime, sets: mgr.Sets, schedule: mgr.Schedule,
+               keys: torch.Tensor) -> SystemResult:
+        """All cross-validation orderings through the Fig-3 system flow:
+        states / sets leaves [O, ...] on the engine's device, rt shared
+        (scalar s/T, masks), keys [O, 2]. Bitwise ``manager.run_system``
+        per ordering (activity within a float reduction's rounding)."""
+        cfg, dev = self.cfg, self.dev
+        O = keys.shape[0]
+        _sync(dev)
+        t0 = time.perf_counter()
+        ks = rnd.split(keys)                               # [O, 2, 2]
+        k_off, k_onl = ks[:, 0], ks[:, 1]
+
+        # --- offline training phase (cycle index -1) ---
+        ctl0 = schedule(-1, rt, sets)
+        state = fb_mod.train_epochs_replicated(
+            cfg, states, ctl0.rt, ctl0.sets.offline_x, ctl0.sets.offline_y,
+            k_off, sys_cfg.n_offline_epochs, valid=mgr.train_valid(ctl0.sets))
+        accs = [_analyze_all_replicated(cfg, state, ctl0)]
+
+        # --- online cycles ---
+        activity = []
+        for cycle in range(sys_cfg.n_online_cycles):
+            ctl = schedule(cycle, rt, sets)
+            new_st, act = fb_mod.train_datapoints_replicated(
+                cfg, state, ctl.rt, ctl.sets.online_x, ctl.sets.online_y,
+                rnd.fold_in(k_onl, cycle), valid=ctl.sets.online_valid)
+            enabled = torch.tensor(ctl.online_enabled, device=dev)
+            state = TMState(torch.where(enabled, new_st.ta_state,
+                                        state.ta_state))
+            accs.append(_analyze_all_replicated(cfg, state, ctl))
+            activity.append(torch.where(enabled, torch.mean(act, dim=0),
+                                        0.0))
+        accuracies = torch.stack(accs, dim=1)              # [O, 1+cycles, 3]
+        act = (torch.stack(activity, dim=1) if activity
+               else torch.zeros((O, 0), dtype=torch.float32, device=dev))
+        _sync(dev)
+        return SystemResult(state=state, accuracies=accuracies,
+                            activity=act, replicas=O,
+                            wall_s=time.perf_counter() - t0)

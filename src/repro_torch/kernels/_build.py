@@ -31,13 +31,16 @@ _F = ctypes.c_float
 # C signature of every entry, by source: name -> (argtypes, restype).
 SIGNATURES = {
     "clause_eval": {
-        "clause_counts": ((_P, _P, _P, _P, _I, _I, _P), _I),
-        "clause_counts_batch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
+        "clause_counts_replicated": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
+        "clause_counts_batch_replicated": ((_P,) * 5 + (_I,) * 5 + (_P,),
+                                           _I),
         "clause_counts_batch_smem": ((_I,), _I),
     },
     "feedback": {
         "feedback_plane_i8": ((_P,) * 7 + (_F, _F, _I, _I, _I, _P), _I),
         "feedback_plane_i16": ((_P,) * 7 + (_F, _F, _I, _I, _I, _P), _I),
+        "feedback_plane_replicated_i8": ((_P,) * 9 + (_I,) * 5 + (_P,), _I),
+        "feedback_plane_replicated_i16": ((_P,) * 9 + (_I,) * 5 + (_P,), _I),
     },
 }
 

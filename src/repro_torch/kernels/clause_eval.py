@@ -1,20 +1,27 @@
-"""Clause-plane counts: the hand-written CUDA kernels K1 and K2.
+"""Clause-plane counts: the hand-written CUDA kernels K1 to K4.
 
-Replaces the Pallas kernels ``clause_counts`` (K1) and
-``clause_counts_batch`` (K2) of the reference package's
-``kernels/clause_eval.py``, which cast the counts as an int8 MXU matmul
-with a ones column. Here (``csrc/clause_eval.cu``) they are plain integer
-counts over 1-byte bools:
+Replaces the Pallas kernels ``clause_counts`` (K1), ``clause_counts_batch``
+(K2), ``clause_counts_replicated`` (K3) and
+``clause_counts_batch_replicated`` (K4) of the reference package's
+``kernels/clause_eval.py``, which cast the counts as int8 MXU matmuls with
+a ones column. Here (``csrc/clause_eval.cu``) they are plain integer counts
+over 1-byte bools:
 
-    violations[cj, b] = sum_l include[cj, l] & ~literal[b, l]
-    n_included[cj]    = sum_l include[cj, l]
+    violations[r, cj, b] = sum_l include[r, cj, l] & ~literal[r % D, b, l]
+    n_included[r, cj]    = sum_l include[r, cj, l]
 
-Bound on an H100: memory. K1 reads the [CJ, L] include plane once per
-datapoint (1.0 MB at the MNIST width) and does one add per byte; K2 reads
-it once per batch plus B x L literal bytes and writes CJ x B int32 counts.
-K1 gives each clause row a warp whose lanes stride over L; K2 packs both
-planes 32 bools to a word once, then counts AND-NOT popcounts over word
-tiles staged in shared memory. See the source for the layout.
+K1 and K2 are one bank (R = D = 1); K3 and K4 take R banks and D data
+streams (D | R), replica r reading stream r % D.
+
+Bound on an H100: memory. K1/K3 read each [CJ, L] include plane once per
+datapoint (1.0 MB a bank at the MNIST width, 8.0 MB at R = 8: about
+2.4 us) and do one add per byte; K2/K4 read them once per batch plus the
+D x B x L literal bytes and write R x CJ x B int32 counts (about 13 MB,
+3.9 us, at R = D = 8 and B = 150). K1/K3 give each clause row a warp whose
+lanes stride over L; K2/K4 pack the include planes and the D literal
+batches 32 bools to a word once, then count AND-NOT popcounts over word
+tiles staged in shared memory. At these shapes launch overhead and the
+counting loop, not the bytes, set the time; see the source for the layout.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for CPU
 tensors. For CUDA tensors it launches the kernel, counts the launch in
@@ -29,6 +36,17 @@ from repro_torch.kernels import _build
 # Shared memory one block may use on Hopper (bytes): it bounds the literal
 # width the batch kernel's word tiles take (L up to ~19 k).
 MAX_SMEM = 227 * 1024
+# The grid's replica axis (gridDim.z / gridDim.y) holds at most this many.
+MAX_REPLICAS = 65535
+
+
+def _streams(R: int, D: int) -> int:
+    if D < 1 or R % D:
+        raise ValueError(f"data replicas {D} must divide replicas {R}")
+    if R > MAX_REPLICAS:
+        raise ValueError(f"{R} replicas exceed the kernels' grid axis "
+                         f"({MAX_REPLICAS})")
+    return R // D
 
 
 def clause_counts_plain(include: torch.Tensor, literals: torch.Tensor):
@@ -49,6 +67,32 @@ def clause_counts_batch_plain(include: torch.Tensor, literals: torch.Tensor):
     return viol.to(torch.int32), include.to(torch.bool).sum(-1).to(torch.int32)
 
 
+def clause_counts_replicated_plain(include: torch.Tensor,
+                                   literals: torch.Tensor):
+    """K3's plain version: (violations [R, CJ] i32, n_included [R, CJ] i32),
+    replica r against literal row r % D."""
+    R, cj, L = include.shape
+    D = literals.shape[0]
+    inc = include.to(torch.bool).reshape(R // D, D, cj, L)
+    viol = (inc & ~literals.to(torch.bool)[None, :, None, :]).sum(-1)
+    return (viol.reshape(R, cj).to(torch.int32),
+            inc.sum(-1).reshape(R, cj).to(torch.int32))
+
+
+def clause_counts_batch_replicated_plain(include: torch.Tensor,
+                                         literals: torch.Tensor):
+    """K4's plain version: (violations [R, CJ, B] i32, n_included [R, CJ]
+    i32), replica r against batch r % D. One float32 batched product of
+    0/1 operands: exact, since counts <= L < 2**24."""
+    R, cj, L = include.shape
+    D, B, _ = literals.shape
+    inc = include.to(torch.float32).reshape(R // D, D, cj, L)
+    neg = 1.0 - literals.to(torch.float32)                    # [D, B, L]
+    viol = inc @ neg.transpose(-1, -2)[None]                  # [H, D, CJ, B]
+    return (viol.reshape(R, cj, B).to(torch.int32),
+            include.to(torch.bool).sum(-1).to(torch.int32))
+
+
 def _bytes(t: torch.Tensor, name: str) -> torch.Tensor:
     if t.dtype not in (torch.bool, torch.uint8, torch.int8):
         raise TypeError(f"{name} must be bool/uint8/int8, got {t.dtype}")
@@ -59,6 +103,43 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _same_device(*ts: torch.Tensor) -> None:
+    if any(t.device != ts[0].device for t in ts[1:]):
+        raise ValueError("kernel operands on different devices")
+
+
+def _launch_counts(include, literals, R, D, cj, L):
+    """One launch of K1/K3 over include [R, CJ, L], literals [D, L]."""
+    _same_device(include, literals)
+    inc, lit = _bytes(include, "include"), _bytes(literals, "literals")
+    viol = torch.empty((R, cj), dtype=torch.int32, device=include.device)
+    ninc = torch.empty((R, cj), dtype=torch.int32, device=include.device)
+    _build.check(_build.library("clause_eval").clause_counts_replicated(
+        inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), ninc.data_ptr(),
+        R, D, cj, L, _stream(inc)), "clause_counts")
+    return viol, ninc
+
+
+def _launch_counts_batch(include, literals, R, D, cj, L, B):
+    """One launch of K2/K4 over include [R, CJ, L], literals [D, B, L]."""
+    _same_device(include, literals)
+    lib = _build.library("clause_eval")
+    if lib.clause_counts_batch_smem(L) > MAX_SMEM:
+        raise ValueError(f"literal width {L} exceeds the batch kernel's "
+                         "shared-memory tile")
+    inc, lit = _bytes(include, "include"), _bytes(literals, "literals")
+    dev = include.device
+    viol = torch.empty((R, cj, B), dtype=torch.int32, device=dev)
+    ninc = torch.empty((R, cj), dtype=torch.int32, device=dev)
+    words = torch.empty((R * cj + D * B) * (-(-L // 32)), dtype=torch.int32,
+                        device=dev)   # the packed planes (kernel scratch)
+    _build.check(lib.clause_counts_batch_replicated(
+        inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), ninc.data_ptr(),
+        words.data_ptr(), R, D, cj, L, B, _stream(inc)),
+        "clause_counts_batch")
+    return viol, ninc
+
+
 def clause_counts(include: torch.Tensor, literals: torch.Tensor):
     """K1: include [CJ, L] x literals [L] -> (violations, n_included), both
     [CJ] i32."""
@@ -67,17 +148,9 @@ def clause_counts(include: torch.Tensor, literals: torch.Tensor):
         raise ValueError(f"literals {tuple(literals.shape)} != ({L},)")
     if include.device.type == "cpu":
         return clause_counts_plain(include, literals)
-    if include.device != literals.device:
-        raise ValueError("include and literals on different devices")
-    inc, lit = _bytes(include, "include"), _bytes(literals, "literals")
-    viol = torch.empty(cj, dtype=torch.int32, device=include.device)
-    ninc = torch.empty(cj, dtype=torch.int32, device=include.device)
-    lib = _build.library("clause_eval")
-    _build.check(lib.clause_counts(
-        inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), ninc.data_ptr(),
-        cj, L, _stream(inc)), "clause_counts")
+    viol, ninc = _launch_counts(include, literals, 1, 1, cj, L)
     clause_counts.launches += 1
-    return viol, ninc
+    return viol[0], ninc[0]
 
 
 clause_counts.launches = 0
@@ -92,26 +165,50 @@ def clause_counts_batch(include: torch.Tensor, literals: torch.Tensor):
         raise ValueError(f"literals {tuple(literals.shape)} != (B>=1, {L})")
     if include.device.type == "cpu":
         return clause_counts_batch_plain(include, literals)
-    if include.device != literals.device:
-        raise ValueError("include and literals on different devices")
-    lib = _build.library("clause_eval")
-    if lib.clause_counts_batch_smem(L) > MAX_SMEM:
-        raise ValueError(f"literal width {L} exceeds the batch kernel's "
-                         "shared-memory tile")
-    inc, lit = _bytes(include, "include"), _bytes(literals, "literals")
-    dev = include.device
-    viol = torch.empty((cj, B), dtype=torch.int32, device=dev)
-    ninc = torch.empty(cj, dtype=torch.int32, device=dev)
-    words = torch.empty((cj + B) * (-(-L // 32)), dtype=torch.int32,
-                        device=dev)   # the packed planes (kernel scratch)
-    _build.check(lib.clause_counts_batch(
-        inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), ninc.data_ptr(),
-        words.data_ptr(), cj, L, B, _stream(inc)), "clause_counts_batch")
+    viol, ninc = _launch_counts_batch(include, literals, 1, 1, cj, L, B)
     clause_counts_batch.launches += 1
-    return viol, ninc
+    return viol[0], ninc[0]
 
 
 clause_counts_batch.launches = 0
+
+
+def clause_counts_replicated(include: torch.Tensor, literals: torch.Tensor):
+    """K3: include [R, CJ, L] x literals [D, L] (D | R, replica r reads row
+    r % D) -> (violations [R, CJ] i32, n_included [R, CJ] i32)."""
+    R, cj, L = include.shape
+    D = literals.shape[0]
+    _streams(R, D)
+    if literals.shape != (D, L):
+        raise ValueError(f"literals {tuple(literals.shape)} != (D, {L})")
+    if include.device.type == "cpu":
+        return clause_counts_replicated_plain(include, literals)
+    out = _launch_counts(include, literals, R, D, cj, L)
+    clause_counts_replicated.launches += 1
+    return out
+
+
+clause_counts_replicated.launches = 0
+
+
+def clause_counts_batch_replicated(include: torch.Tensor,
+                                   literals: torch.Tensor):
+    """K4: include [R, CJ, L] x literals [D, B, L] (D | R, replica r reads
+    batch r % D) -> (violations [R, CJ, B] i32, n_included [R, CJ] i32)."""
+    R, cj, L = include.shape
+    D, B = literals.shape[:2]
+    _streams(R, D)
+    if B < 1 or literals.shape != (D, B, L):
+        raise ValueError(f"literals {tuple(literals.shape)} != "
+                         f"(D, B>=1, {L})")
+    if include.device.type == "cpu":
+        return clause_counts_batch_replicated_plain(include, literals)
+    out = _launch_counts_batch(include, literals, R, D, cj, L, B)
+    clause_counts_batch_replicated.launches += 1
+    return out
+
+
+clause_counts_batch_replicated.launches = 0
 
 
 def clause_eval(include: torch.Tensor, literals: torch.Tensor, *,
@@ -133,3 +230,28 @@ def clause_eval_batch(include: torch.Tensor, literals: torch.Tensor, *,
     fired = (viol == 0).T.reshape(B, C, J)
     empty = (n_inc == 0).reshape(C, J)
     return torch.where(empty[None], training, fired)
+
+
+def clause_eval_replicated(include: torch.Tensor, literals: torch.Tensor, *,
+                           training: bool) -> torch.Tensor:
+    """Kernel-backed replica-first clause outputs [R, C, J] bool (K3)."""
+    R, C, J, L = include.shape
+    viol, n_inc = clause_counts_replicated(include.reshape(R, C * J, L),
+                                           literals)
+    fired = viol == 0
+    empty = n_inc == 0
+    return torch.where(empty, training, fired).reshape(R, C, J)
+
+
+def clause_eval_batch_replicated(include: torch.Tensor,
+                                 literals: torch.Tensor, *,
+                                 training: bool) -> torch.Tensor:
+    """Kernel-backed replica-first batch clause outputs [R, B, C, J] bool
+    (K4)."""
+    R, C, J, L = include.shape
+    B = literals.shape[1]
+    viol, n_inc = clause_counts_batch_replicated(
+        include.reshape(R, C * J, L), literals)
+    fired = (viol == 0).transpose(1, 2).reshape(R, B, C, J)
+    empty = (n_inc == 0).reshape(R, 1, C, J)
+    return torch.where(empty, training, fired)

@@ -1,24 +1,32 @@
 // Clause-plane counts for Hopper (sm_90a): the CUDA twins of the Pallas
-// kernels clause_counts (K1) and clause_counts_batch (K2) in the reference
-// package's kernels/clause_eval.py.
+// kernels clause_counts (K1), clause_counts_batch (K2) and their
+// replica-first forms clause_counts_replicated (K3) and
+// clause_counts_batch_replicated (K4) in the reference package's
+// kernels/clause_eval.py.
 //
-//   violations[cj, b] = sum_l include[cj, l] & ~literal[b, l]
-//   n_included[cj]    = sum_l include[cj, l]
+//   violations[r, cj, b] = sum_l include[r, cj, l] & ~literal[r % D, b, l]
+//   n_included[r, cj]    = sum_l include[r, cj, l]
 //
-// Inputs are 1-byte bools: include [CJ, L], literals [B, L]. Outputs are
-// int32 violations [CJ, B] and n_included [CJ]. Both kernels are bound by
-// memory traffic at the main path's shapes (they read the include plane
-// once and do one add per byte), so neither uses the tensor cores.
+// Inputs are 1-byte bools: include [R, CJ, L], literals [D, B, L] with
+// D | R; replica r reads data stream r % D, so a hyperparameter grid over
+// one ordering shares its literal rows. Outputs are int32 violations
+// [R, CJ, B] and n_included [R, CJ]. K1 and K2 are the R = D = 1 launches
+// of the same kernels. All four are bound by memory traffic at the main
+// path's shapes (they read the include planes once and do one add per
+// byte), so none uses the tensor cores.
 //
-// K1 (one datapoint): one warp per clause row; the lanes stride over L with
-// coalesced byte loads, and __reduce_add_sync finishes both counts.
+// K1/K3 (one datapoint per replica): one warp per clause row on a grid of
+// (row block, replica); the lanes stride over L with coalesced byte loads,
+// and __reduce_add_sync finishes both counts.
 //
-// K2 (a batch): first the include and literal planes are packed once, 32
-// bools to a word, into scratch the wrapper allocates (one thread per
-// word). Then a block owns kRows = 64 clause rows and kTB = 32 batch
-// columns: it stages both word tiles in shared memory and lane t counts
-// column t as sum_w popc(inc_w & ~lit_w). Each byte of the planes is read
-// once; the words are re-read from L2 once per tile.
+// K2/K4 (a batch per replica): first the include planes of all R replicas
+// and the literal batches of the D streams are packed once, 32 bools to a
+// word, into scratch the wrapper allocates (one thread per word): the D
+// batches are packed once, not R times. Then a block owns kRows = 64
+// clause rows of one replica and kTB = 32 batch columns of its stream: it
+// stages both word tiles in shared memory and lane t counts column t as
+// sum_w popc(inc_w & ~lit_w). Each byte of the planes is read once; the
+// words are re-read from L2 once per tile.
 //
 // Each C entry returns cudaGetLastError() so the caller sees a refused
 // launch at once.
@@ -36,22 +44,25 @@ __global__ void clause_counts_kernel(const uint8_t* __restrict__ inc,
                                      const uint8_t* __restrict__ lit,
                                      int32_t* __restrict__ viol,
                                      int32_t* __restrict__ ninc,
-                                     int cj, int L) {
+                                     int cj, int L, int D) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= cj) return;  // whole warp leaves together
-  const uint8_t* r = inc + static_cast<int64_t>(row) * L;
+  const int r = blockIdx.y;
+  const int64_t out = static_cast<int64_t>(r) * cj + row;
+  const uint8_t* ir = inc + out * L;
+  const uint8_t* lr = lit + static_cast<int64_t>(r % D) * L;
   unsigned v = 0, n = 0;
   for (int l = lane; l < L; l += 32) {
-    const unsigned i = r[l] != 0;
+    const unsigned i = ir[l] != 0;
     n += i;
-    v += i & (lit[l] == 0);
+    v += i & (lr[l] == 0);
   }
   v = __reduce_add_sync(kFull, v);
   n = __reduce_add_sync(kFull, n);
   if (lane == 0) {
-    viol[row] = static_cast<int32_t>(v);
-    ninc[row] = static_cast<int32_t>(n);
+    viol[out] = static_cast<int32_t>(v);
+    ninc[out] = static_cast<int32_t>(n);
   }
 }
 
@@ -81,63 +92,66 @@ __global__ void pack_bits_kernel(const uint8_t* __restrict__ src,
   }
 }
 
-// Counts from packed words: a block stages its kRows include rows and kTB
-// literal rows (contiguous in the packed arrays) in shared memory, then
-// lane t of each warp counts column t for the warp's rows.
+// Counts from packed words: a block of replica r = blockIdx.z stages its
+// kRows include rows and kTB literal rows of stream r % D (contiguous in
+// the packed arrays) in shared memory, then lane t of each warp counts
+// column t for the warp's rows.
 __global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
                                            const uint32_t* __restrict__ litw,
                                            int32_t* __restrict__ viol,
                                            int32_t* __restrict__ ninc,
-                                           int cj, int B, int nw,
+                                           int cj, int B, int D, int nw,
                                            int stride) {
   extern __shared__ uint32_t smem[];
   uint32_t* lit_s = smem;                   // [kTB][stride]
   uint32_t* inc_s = smem + kTB * stride;    // [kRows][stride]
+  const int r = blockIdx.z;
   const int r0 = blockIdx.x * kRows;
   const int b0 = blockIdx.y * kTB;
   const int nr = min(kRows, cj - r0);
   const int nb = min(kTB, B - b0);
+  const int64_t row0 = static_cast<int64_t>(r) * cj + r0;  // replica's rows
+  const int64_t col0 = static_cast<int64_t>(r % D) * B + b0;
   for (int i = threadIdx.x; i < nb * nw; i += blockDim.x) {
     const int t = i / nw;
-    lit_s[t * stride + (i - t * nw)] =
-        litw[static_cast<int64_t>(b0) * nw + i];
+    lit_s[t * stride + (i - t * nw)] = litw[col0 * nw + i];
   }
   for (int i = threadIdx.x; i < nr * nw; i += blockDim.x) {
-    const int r = i / nw;
-    inc_s[r * stride + (i - r * nw)] =
-        incw[static_cast<int64_t>(r0) * nw + i];
+    const int q = i / nw;
+    inc_s[q * stride + (i - q * nw)] = incw[row0 * nw + i];
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const uint32_t* lw = lit_s + lane * stride;
-  for (int r = warp; r < nr; r += kWarps) {
-    const uint32_t* iw = inc_s + r * stride;
+  for (int q = warp; q < nr; q += kWarps) {
+    const uint32_t* iw = inc_s + q * stride;
     if (lane < nb) {
       unsigned v = 0;
       for (int w = 0; w < nw; ++w) v += __popc(iw[w] & ~lw[w]);
-      viol[static_cast<int64_t>(r0 + r) * B + b0 + lane] =
-          static_cast<int32_t>(v);
+      viol[(row0 + q) * B + b0 + lane] = static_cast<int32_t>(v);
     }
     if (blockIdx.y == 0) {
       unsigned n = 0;
       for (int w = lane; w < nw; w += 32) n += __popc(iw[w]);
       n = __reduce_add_sync(kFull, n);
-      if (lane == 0) ninc[r0 + r] = static_cast<int32_t>(n);
+      if (lane == 0) ninc[row0 + q] = static_cast<int32_t>(n);
     }
   }
 }
 
 }  // namespace
 
-extern "C" int clause_counts(const void* inc, const void* lit, void* viol,
-                             void* ninc, int cj, int L, void* stream) {
-  const dim3 grid((cj + kWarps - 1) / kWarps);
+// K1 (R = D = 1) and K3: include [R, CJ, L], literals [D, L].
+extern "C" int clause_counts_replicated(const void* inc, const void* lit,
+                                        void* viol, void* ninc, int R, int D,
+                                        int cj, int L, void* stream) {
+  const dim3 grid((cj + kWarps - 1) / kWarps, R);
   clause_counts_kernel<<<grid, kWarps * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(inc), static_cast<const uint8_t*>(lit),
-      static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc), cj, L);
+      static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc), cj, L, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -148,10 +162,12 @@ extern "C" int clause_counts_batch_smem(int L) {
   return (kTB + kRows) * stride * 4;
 }
 
-// scratch: (cj + B) * ceil(L / 32) uint32 words for the packed planes.
-extern "C" int clause_counts_batch(const void* inc, const void* lit,
-                                   void* viol, void* ninc, void* scratch,
-                                   int cj, int L, int B, void* stream) {
+// K2 (R = D = 1) and K4: include [R, CJ, L], literals [D, B, L].
+// scratch: (R * cj + D * B) * ceil(L / 32) uint32 words for the packed
+// planes.
+extern "C" int clause_counts_batch_replicated(
+    const void* inc, const void* lit, void* viol, void* ninc, void* scratch,
+    int R, int D, int cj, int L, int B, void* stream) {
   const int nw = (L + 31) / 32;
   const int stride = nw | 1;
   const int smem = clause_counts_batch_smem(L);
@@ -162,18 +178,20 @@ extern "C" int clause_counts_batch(const void* inc, const void* lit,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  const int inc_rows = R * cj;
+  const int lit_rows = D * B;
   uint32_t* incw = static_cast<uint32_t*>(scratch);
-  uint32_t* litw = incw + static_cast<int64_t>(cj) * nw;
-  const int64_t words = static_cast<int64_t>(cj + B) * nw;
+  uint32_t* litw = incw + static_cast<int64_t>(inc_rows) * nw;
+  const int64_t words = static_cast<int64_t>(inc_rows + lit_rows) * nw;
   const unsigned pack_blocks = static_cast<unsigned>(
       (words + 255) / 256 < 132 * 16 ? (words + 255) / 256 : 132 * 16);
   pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(inc), incw, cj, L, nw);
+      static_cast<const uint8_t*>(inc), incw, inc_rows, L, nw);
   pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(lit), litw, B, L, nw);
-  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB);
+      static_cast<const uint8_t*>(lit), litw, lit_rows, L, nw);
+  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB, R);
   clause_counts_batch_kernel<<<grid, kWarps * 32, smem, st>>>(
       incw, litw, static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc),
-      cj, B, nw, stride);
+      cj, B, D, nw, stride);
   return static_cast<int>(cudaGetLastError());
 }

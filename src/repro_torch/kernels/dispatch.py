@@ -9,7 +9,7 @@
 
 Every backend implements :class:`KernelBackend`. The entries are those of
 the reference's contract (``repro.kernels.dispatch``) that the port has
-reached; later slices add the replica-first, packed and pruned entries.
+reached; later slices add the packed and pruned entries.
 This module is the only place that knows which module backs which name.
 """
 from __future__ import annotations
@@ -32,12 +32,32 @@ class KernelBackend(NamedTuple):
       type1_sel [C,J], type2_sel [C,J], u [C,J,L], *, s, n_states,
       s_policy, boost_true_positive) -> new ta_state`` -- one datapoint's
       TA update.
+
+    Replica-first entries run R independent machines at once. Per-replica
+    state and control carry a leading R; per-data-stream operands
+    (literals, uniforms) a leading D with D | R, and replica r reads data
+    row r % D:
+
+    * ``clause_eval_replicated(include [R,C,J,L], literals [D,L], *,
+      training) -> [R,C,J]`` -- MUST equal stacking
+      ``clause_eval(include[r], literals[r % D])``.
+    * ``clause_eval_batch_replicated(include [R,C,J,L], literals [D,B,L],
+      *, training) -> [R,B,C,J]`` -- MUST equal stacking
+      ``clause_eval_batch(include[r], literals[r % D])``.
+    * ``feedback_step_replicated(ta_state [R,C,J,L], literals [D,L],
+      clause_out / type1_sel / type2_sel [R,C,J], u [D,C,J,L], *, s [R] or
+      0-dim, n_states, s_policy, boost_true_positive) -> [R,C,J,L]`` --
+      MUST equal stacking ``feedback_step(ta[r], literals[r % D], ...,
+      u[r % D], s=s[r])``.
     """
 
     name: str
     clause_eval: Callable[..., torch.Tensor]
     clause_eval_batch: Callable[..., torch.Tensor]
     feedback_step: Callable[..., torch.Tensor]
+    clause_eval_replicated: Callable[..., torch.Tensor]
+    clause_eval_batch_replicated: Callable[..., torch.Tensor]
+    feedback_step_replicated: Callable[..., torch.Tensor]
 
 
 _FACTORIES: dict[str, Callable[[], KernelBackend]] = {}
@@ -81,6 +101,9 @@ def _make_ref() -> KernelBackend:
         clause_eval=ref.clause_eval,
         clause_eval_batch=ref.clause_eval_batch,
         feedback_step=ref.feedback_step,
+        clause_eval_replicated=ref.clause_eval_replicated,
+        clause_eval_batch_replicated=ref.clause_eval_batch_replicated,
+        feedback_step_replicated=ref.feedback_step_replicated,
     )
 
 
@@ -92,6 +115,9 @@ def _make_cuda() -> KernelBackend:
         clause_eval=ops.clause_eval,
         clause_eval_batch=ops.clause_eval_batch,
         feedback_step=ops.feedback_step,
+        clause_eval_replicated=ops.clause_eval_replicated,
+        clause_eval_batch_replicated=ops.clause_eval_batch_replicated,
+        feedback_step_replicated=ops.feedback_step_replicated,
     )
 
 

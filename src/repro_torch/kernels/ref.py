@@ -1,8 +1,15 @@
-"""Plain PyTorch versions of the kernel-contract entries on the main path.
+"""Plain PyTorch versions of the kernel-contract entries the port runs.
 
 The twins of ``repro.kernels.ref``'s ``clause_eval``, ``clause_eval_batch``
-and ``feedback_step``: the ``"ref"`` backend on any device, and the
-semantic ground truth the hand-written kernels are held to.
+and ``feedback_step`` and of their replica-first forms: the ``"ref"``
+backend on any device, and the semantic ground truth the hand-written
+kernels are held to.
+
+Replica-first entries follow the contract's stacking rule: per-replica
+operands carry a leading R, per-data-stream operands (literals, uniforms) a
+leading D with D | R, and replica r reads data row r % D. A view as
+[H, D, ...] (H = R / D) puts replica r = h * D + d on row d, so the data is
+broadcast across H and never tiled.
 """
 from __future__ import annotations
 
@@ -90,3 +97,78 @@ def feedback_step(
              + type2_sel[:, :, None].to(torch.int32) * d2)
     new_state = torch.clamp(ta_state.to(torch.int32) + delta, 1, 2 * n_states)
     return new_state.to(ta_state.dtype)
+
+
+def _streams(R: int, D: int) -> int:
+    if R % D:
+        raise ValueError(f"data replicas {D} must divide replicas {R}")
+    return R // D
+
+
+def clause_eval_replicated(include: torch.Tensor, literals: torch.Tensor, *,
+                           training: bool) -> torch.Tensor:
+    """[R, C, J, L] bool x [D, L] bool -> [R, C, J] bool; replica r reads
+    literal row r % D. Equals stacking :func:`clause_eval` per replica."""
+    R, C, J, L = include.shape
+    D = literals.shape[0]
+    H = _streams(R, D)
+    inc = include.reshape(H, D, C, J, L)
+    fired = torch.all(~inc | literals[None, :, None, None, :], dim=-1)
+    empty = ~torch.any(inc, dim=-1)
+    return torch.where(empty, training, fired).reshape(R, C, J)
+
+
+def clause_eval_batch_replicated(include: torch.Tensor,
+                                 literals: torch.Tensor, *,
+                                 training: bool) -> torch.Tensor:
+    """[R, C, J, L] bool x [D, B, L] bool -> [R, B, C, J] bool; replica r
+    reads batch r % D. One float32 batched product, exact as in
+    :func:`clause_eval_batch`."""
+    R, C, J, L = include.shape
+    D, B, _ = literals.shape
+    H = _streams(R, D)
+    inc = include.reshape(H, D, C * J, L).to(torch.float32)
+    neg = 1.0 - literals.to(torch.float32)                    # [D, B, L]
+    viol = neg[None] @ inc.transpose(-1, -2)                  # [H, D, B, CJ]
+    fired = (viol == 0).reshape(H, D, B, C, J)
+    empty = ~torch.any(include, dim=-1).reshape(H, D, 1, C, J)
+    return torch.where(empty, training, fired).reshape(R, B, C, J)
+
+
+def feedback_step_replicated(
+    ta_state: torch.Tensor,    # [R, C, J, L] int8/int16 (pre-update)
+    literals: torch.Tensor,    # [D, L] bool, replica r reads row r % D
+    clause_out: torch.Tensor,  # [R, C, J] bool
+    type1_sel: torch.Tensor,   # [R, C, J] bool
+    type2_sel: torch.Tensor,   # [R, C, J] bool
+    u: torch.Tensor,           # [D, C, J, L] f32, replica r reads row r % D
+    *,
+    s: torch.Tensor,           # [R] (or 0-dim) f32
+    n_states: int,
+    s_policy: str,
+    boost_true_positive: bool,
+) -> torch.Tensor:
+    """R TA banks updated as one plane: replica r equals
+    ``feedback_step(ta[r], literals[r % D], ..., u[r % D], s=s[r])``.
+
+    The uniforms stay [D, C, J, L]: replicas that share a data stream (one
+    ordering under many (s, T) cells) read the same draws.
+    """
+    R, C, J, L = ta_state.shape
+    D = literals.shape[0]
+    H = _streams(R, D)
+    s = torch.as_tensor(s, dtype=torch.float32).to(ta_state.device)
+    p_strengthen, p_erase = feedback_probabilities(
+        s.expand(R).reshape(H, D, 1, 1, 1), s_policy=s_policy,
+        boost_true_positive=boost_true_positive)
+    ta = ta_state.reshape(H, D, C, J, L)
+    lit = literals[None, :, None, None, :]
+    c_out = clause_out.reshape(H, D, C, J)[..., None]
+    include = ta > n_states
+    d1 = torch.where(c_out & lit, (u[None] < p_strengthen).to(torch.int32),
+                     -(u[None] < p_erase).to(torch.int32))
+    d2 = (c_out & ~lit & ~include).to(torch.int32)
+    delta = (torch.where(type1_sel.reshape(H, D, C, J)[..., None], d1, 0)
+             + torch.where(type2_sel.reshape(H, D, C, J)[..., None], d2, 0))
+    new_state = torch.clamp(ta.to(torch.int32) + delta, 1, 2 * n_states)
+    return new_state.to(ta_state.dtype).reshape(R, C, J, L)

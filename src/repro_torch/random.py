@@ -11,6 +11,11 @@ reference's uint32 key data). All words live in int64 tensors masked to 32
 bits, because CPU torch has no uint32 shifts; the rotations stay below
 2**63, so no intermediate overflows. Every function takes its key
 explicitly; there is no global generator.
+
+Every function also takes a batch of keys ``[D, 2]`` (any leading shape)
+and then equals ``jax.vmap`` of the single-key function: the key words
+broadcast as ``[D, 1]`` against the counters, so one call costs the same
+launches whatever D is.
 """
 from __future__ import annotations
 
@@ -55,10 +60,17 @@ def _counters(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return i >> 32, i & _M32
 
 
+def _words(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two key words of ``key [..., 2]``, each ``[..., 1]`` so they
+    broadcast against a trailing counter axis."""
+    return key[..., 0:1], key[..., 1:2]
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``[num, 2]`` keys, row i = threefry(key, i)."""
+    """``jax.random.split``: ``[..., num, 2]`` keys, row i =
+    threefry(key, i)."""
     hi, lo = _counters(num, key.device)
-    b0, b1 = threefry2x32(key[0], key[1], hi, lo)
+    b0, b1 = threefry2x32(*_words(key), hi, lo)
     return torch.stack([b0, b1], dim=-1)
 
 
@@ -66,19 +78,20 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: threefry(key, (0, data)) as a new key."""
     x = torch.tensor([0, int(data) & _M32], dtype=torch.int64,
                      device=key.device)
-    b0, b1 = threefry2x32(key[0], key[1], x[:1], x[1:])
-    return torch.cat([b0, b1])
+    b0, b1 = threefry2x32(*_words(key), x[:1], x[1:])
+    return torch.cat([b0, b1], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit draws (int64 tensor of ``shape``): the XOR of the two words."""
+    """32-bit draws (int64 tensor ``[..., *shape]``): the XOR of the two
+    words."""
     shape = tuple(shape)
     n = 1
     for d in shape:
         n *= d
     hi, lo = _counters(n, key.device)
-    b0, b1 = threefry2x32(key[0], key[1], hi, lo)
-    return (b0 ^ b1).reshape(shape)
+    b0, b1 = threefry2x32(*_words(key), hi, lo)
+    return (b0 ^ b1).reshape(key.shape[:-1] + shape)
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
@@ -101,6 +114,8 @@ def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis of a MASK of logits.
 
+    With keys ``[R, 2]`` and logits ``[R, C]``, row r draws with key r.
+
     The reference samples ``argmax(gumbel + logits)`` with the low-mode
     gumbel ``-log(-log(uniform(minval=tiny)))``. Every logit here is 0
     (allowed) or -inf (masked), and the gumbel map is increasing, so the
@@ -109,5 +124,5 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     reference. No ``log`` enters the result, so CPU and GPU agree with the
     reference bit for bit. Other logit values are outside this contract.
     """
-    u = uniform(key, logits.shape)
+    u = uniform(key, logits.shape[key.dim() - 1:])
     return torch.argmax(torch.where(logits == 0, u, -1.0), dim=-1)

@@ -13,6 +13,9 @@ import torch
 pytestmark = pytest.mark.gpu
 
 SHAPES = [(48, 32), (12, 33), (12, 513), (640, 1568)]
+# Replica-first shapes (R, D, CJ, L): grids over shared streams (D < R).
+REP_SHAPES = [(6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513),
+              (8, 8, 640, 1568), (16, 4, 640, 1568)]
 
 
 @pytest.fixture
@@ -98,3 +101,117 @@ def test_service_through_kernels_equals_plain(cuda):
     assert [np.asarray(x[1]).tolist() for x in a[3]] == \
         [np.asarray(x[1]).tolist() for x in r[3]]
     assert all(n > 0 for n in a[4]) and not any(r[4])
+
+
+@pytest.mark.parametrize("shape", REP_SHAPES)
+def test_replicated_count_kernels_equal_plain(cuda, shape):
+    from repro_torch.kernels import clause_eval as ce
+
+    R, D, cj, L = shape
+    rng = np.random.default_rng([R, D, cj, L])
+    inc = torch.from_numpy(rng.random((R, cj, L)) < 0.05).to(cuda)
+    for B in (1, 7, 150):
+        lits = torch.from_numpy(rng.random((D, B, L)) < 0.5).to(cuda)
+        before = ce.clause_counts_batch_replicated.launches
+        got = ce.clause_counts_batch_replicated(inc, lits)
+        assert ce.clause_counts_batch_replicated.launches == before + 1
+        want = ce.clause_counts_batch_replicated_plain(inc, lits)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    before = ce.clause_counts_replicated.launches
+    got = ce.clause_counts_replicated(inc, lits[:, 0])
+    assert ce.clause_counts_replicated.launches == before + 1
+    want = ce.clause_counts_replicated_plain(inc, lits[:, 0])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", REP_SHAPES)
+@pytest.mark.parametrize("dtype,n_states", [(torch.int8, 63),
+                                            (torch.int16, 5000)])
+def test_replicated_feedback_kernel_equals_plain(cuda, shape, dtype,
+                                                 n_states):
+    from repro_torch.kernels import feedback as fb
+
+    R, D, cj, L = shape
+    rng = np.random.default_rng([R, D, cj, L, n_states])
+    ta = torch.from_numpy(rng.integers(1, 2 * n_states + 1, (R, cj, L))).to(
+        dtype).to(cuda)
+    lit = torch.from_numpy(rng.random((D, L)) < 0.5).to(cuda)
+    ctl = [torch.from_numpy(rng.random((R, cj)) < 0.5).to(cuda)
+           for _ in range(3)]
+    u = torch.from_numpy(rng.random((D, cj, L), dtype=np.float32)).to(cuda)
+    ps, pe = (torch.from_numpy(rng.random(R, dtype=np.float32)).to(cuda)
+              for _ in range(2))
+    args = (ta, lit, *ctl, u, ps, pe)
+    before = fb.feedback_plane_replicated.launches
+    got = fb.feedback_plane_replicated(*args, n_states=n_states)
+    assert fb.feedback_plane_replicated.launches == before + 1
+    assert torch.equal(got, fb.feedback_plane_replicated_plain(
+        *args, n_states=n_states))
+
+
+def test_sweep_through_kernels_equals_plain(cuda):
+    """A small iris sweep on the card: backend "cuda" (K3/K4/K9) against
+    backend "ref", bit for bit."""
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.data import blocks
+    from repro_torch.eval.crossval import CrossValRun
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.kernels import feedback as fb
+
+    osets, _ = blocks.iris_paper_sets(n_orderings=4)
+    out = {}
+    for backend in ("cuda", "ref"):
+        cfg = dataclasses.replace(CONFIG.tm, backend=backend)
+        before = (ce.clause_counts_replicated.launches,
+                  ce.clause_counts_batch_replicated.launches,
+                  fb.feedback_plane_replicated.launches)
+        res = CrossValRun(cfg, device=cuda).sweep(
+            osets.offline_x, osets.offline_y, osets.validation_x,
+            osets.validation_y, (1.375, 3.0), (5, 15), n_epochs=2)
+        launched = [b - a for a, b in zip(before, (
+            ce.clause_counts_replicated.launches,
+            ce.clause_counts_batch_replicated.launches,
+            fb.feedback_plane_replicated.launches))]
+        out[backend] = (res.val_accuracy.cpu(), launched)
+    assert torch.equal(out["cuda"][0], out["ref"][0])
+    assert out["cuda"][1] == [60, 1, 60] and out["ref"][1] == [0, 0, 0]
+
+
+def test_run_system_through_kernels_equals_plain(cuda):
+    """One machine's Fig-3 flow (K1/K2/K8) and the same flow over four
+    orderings (K3/K4/K9) on the card, with a fault injected: backend
+    "cuda" against backend "ref", bit for bit."""
+    from repro_torch import convert
+    from repro_torch import random as rnd
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import faults, manager
+    from repro_torch.core.tm import init_runtime, init_state
+    from repro_torch.data import blocks
+    from repro_torch.eval.crossval import replicate_state
+
+    osets, _ = blocks.iris_paper_sets(n_orderings=4)
+    n_off = osets.offline_y.shape[1]
+    sets = convert.sets_from_numpy(manager.Sets(
+        osets.offline_x, osets.offline_y, np.ones((4, n_off), bool),
+        osets.validation_x, osets.validation_y,
+        np.ones(osets.validation_y.shape, bool), osets.online_x,
+        osets.online_y, np.ones(osets.online_y.shape, bool)), cuda)
+    one = manager.Sets(*(v[0] for v in sets[:9]))
+    out = {}
+    for backend in ("cuda", "ref"):
+        cfg = dataclasses.replace(CONFIG.tm, backend=backend)
+        schedule = manager.make_schedule(
+            online_s=1.0, inject_at_cycle=1,
+            fault_masks=faults.even_spread_stuck_at(cfg, 0.2, 0))
+        rt = init_runtime(cfg, s=1.375, T=15, device=cuda)
+        sys_cfg = manager.SystemConfig(2, 2)
+        single = manager.run_system(cfg, sys_cfg, init_state(cfg, device=cuda),
+                                    rt, one, schedule,
+                                    rnd.PRNGKey(3, cuda))
+        many = manager.run_orderings(cfg, sys_cfg,
+                                     replicate_state(cfg, 4, cuda), rt, sets,
+                                     schedule, rnd.split(rnd.PRNGKey(3, cuda),
+                                                         4))
+        out[backend] = [t.cpu() for t in (single[0].ta_state, *single[1:],
+                                          many[0].ta_state, *many[1:])]
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"], out["ref"]))

@@ -71,6 +71,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert svc.serve(np.zeros((2, 16), dtype=bool)).shape == (1, 2)
 
 
+def test_engine_entry_points_default_to_cuda(no_cuda):
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import faults
+    from repro_torch.eval.crossval import CrossValRun, replicate_state
+
+    cfg = CONFIG.tm
+    for call in (lambda: replicate_state(cfg, 2),
+                 lambda: faults.fault_free_masks(cfg),
+                 lambda: CrossValRun(cfg).sweep(
+                     np.zeros((1, 5, 16), bool), np.zeros((1, 5), np.int32),
+                     np.zeros((1, 5, 16), bool), np.zeros((1, 5), np.int32),
+                     (1.0,), (5,), n_epochs=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_convert_defaults_to_cuda(no_cuda):
     from repro_torch import convert
 

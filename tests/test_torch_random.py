@@ -90,3 +90,53 @@ def test_key_schedule_chain():
         kj = jax.random.fold_in(jax.random.split(kj)[i % 2], i)
         kt = rnd.fold_in(rnd.split(kt)[i % 2], i)
     assert np.array_equal(_words(kj), kt.numpy())
+
+
+# Batched keys [D, 2]: each form equals jax.vmap of the single-key function.
+def _key_batch(seed, d):
+    kj = jax.random.split(jax.random.PRNGKey(seed), d)
+    return kj, torch.from_numpy(_words(kj))
+
+
+@CFG
+@given(seed=SEEDS, d=st.integers(1, 6), num=st.integers(1, 5))
+def test_split_batched(seed, d, num):
+    kj, kt = _key_batch(seed, d)
+    want = jax.vmap(lambda k: jax.random.split(k, num))(kj)
+    got = rnd.split(kt, num)
+    assert got.shape == (d, num, 2)
+    assert np.array_equal(_words(want), got.numpy())
+
+
+@CFG
+@given(seed=SEEDS, d=st.integers(1, 6), data=st.integers(0, 2**31 - 1))
+def test_fold_in_batched(seed, d, data):
+    kj, kt = _key_batch(seed, d)
+    want = jax.vmap(lambda k: jax.random.fold_in(k, data))(kj)
+    got = rnd.fold_in(kt, data)
+    assert got.shape == (d, 2)
+    assert np.array_equal(_words(want), got.numpy())
+
+
+@CFG
+@given(seed=SEEDS, d=st.integers(1, 6), shape=SHAPES)
+def test_uniform_batched(seed, d, shape):
+    kj, kt = _key_batch(seed, d)
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape))(kj))
+    got = rnd.uniform(kt, shape).numpy()
+    assert got.shape == (d,) + shape
+    assert np.array_equal(want.view(np.int32), got.view(np.int32))
+
+
+@CFG
+@given(seed=SEEDS, d=st.integers(1, 6), n=st.integers(1, 8), data=st.data())
+def test_categorical_batched(seed, d, n, data):
+    """Row r of a batched masked-logit draw uses key r, as a vmap does."""
+    mask = np.asarray(data.draw(st.lists(
+        st.lists(st.booleans(), min_size=n, max_size=n),
+        min_size=d, max_size=d)))
+    kj, kt = _key_batch(seed, d)
+    logits = np.where(mask, 0.0, -np.inf).astype(np.float32)
+    want = jax.vmap(jax.random.categorical)(kj, jnp.asarray(logits))
+    got = rnd.categorical(kt, torch.from_numpy(logits))
+    assert np.array_equal(np.asarray(want), got.numpy())

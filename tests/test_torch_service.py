@@ -8,6 +8,7 @@ drops, chunk monitoring and served predictions must agree exactly.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import tm_mnist as j_mnist_cfg
 from repro.configs.tm_iris import CONFIG as J_IRIS
@@ -30,6 +31,17 @@ from repro_torch.serve import TMService as TService
 import dataclasses
 
 BACKENDS = ["cuda", "ref"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch's CPU ops on one thread. The suite runs several pytest workers
+    at once; torch's intra-op threads on top of them oversubscribe the
+    cores, and an MNIST-width flow then ran 20-40x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(a):
