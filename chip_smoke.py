@@ -19,13 +19,21 @@ Phases, each with its seconds:
    median time of the kernel (CUDA graphs of back-to-back launches, timed
    by CUDA events), of its plain version and, for the clause counts, of
    one float32 ``torch.matmul``/``torch.bmm`` of the same contraction (a
-   yardstick the port never calls);
+   yardstick the port never calls). Then ``phase_parity_packed``: K5 ``clause_counts_batch_packed`` and
+   K6 ``clause_counts_batch_replicated_packed`` against their plain
+   versions and against K2/K4 on the same problem unpacked, at
+   f {16, 31, 33, 49, 196, 784} x CJ {12, 48, 640} x B {1, 7, 150, 1024}
+   and (R, D) {(1, 1), (4, 2), (3, 3), (16, 16), (16, 1)}, each bank with
+   an all-empty and an all-include clause row; K5 and K6 timed beside K2/K4
+   and their plain versions, bound by their popcounts;
 4. service -- the K = 1 ``TMService`` at the full MNIST width (f = 784):
    offline_train, submit + tick until drained with an ``on_chunk``
    monitor, and a 1024-row serve, through the kernels (backend "auto");
-   then the same sequence with backend "ref" on the card, which must give
-   the same TA bank, keys, reports, accuracies and predictions bit for bit.
-   K1, K2 and K8 must each have launched during the "auto" run;
+   then the same sequence with backend "ref" on the card, and packed
+   (``ServiceConfig(packed=True)``), both of which must give the same TA
+   bank, keys, reports, accuracies and predictions bit for bit. K1, K2
+   and K8 must each have launched during the "auto" run, and K5 exactly
+   as often as the packed run implies;
 5. paper   -- the paper's iris setup at full scale through the
    replica-first engine: ``manager.run_orderings`` over all 120 block
    orderings, SystemConfig(10, 16), for the three use cases (online
@@ -38,12 +46,20 @@ Phases, each with its seconds:
    O = 4 x s {1.5, 2.0} x T {24, 32} (R = 16), 1 epoch; "auto" then
    "ref", bitwise equal. K3, K4 and K9 must each have launched exactly as
    often as the code says during the "auto" runs of phases 5 and 6;
-7. profile -- torch.profiler over one more 16-point drain chunk of the
-   service, and over one offline epoch of the f = 784, O = 8 engine: wall
-   time, device busy time, idle share, launches (per step) and the top
-   kernels;
-8. kernels -- one JSON line with each kernel's launches (phase 4 for K1,
-   K2, K8; phase 6 for K3, K4, K9), error and times.
+7. fleet   -- ``TMService(replicas=16, packed=True)`` at f = 784 with a
+   4 x 4 grid of per-replica s and T: offline_train, each member's own
+   stream through ``submit_rows`` and tick until drained, a shared 1024-row
+   serve and a [16, 64] per-member serve; "auto", "ref" and unpacked, all
+   bitwise equal, with K3, K9 and K6 launched exactly as the code says;
+   then ``fleet_iris``: the reference's fleet geometry (K = 8 iris
+   machines, 64 points, chunk 16) through ``OnlineFleet`` ("auto" and
+   "ref") and through 8 K = 1 services, all bitwise equal;
+8. profile -- torch.profiler over one more 16-point drain chunk of the
+   service, over one offline epoch of the f = 784, O = 8 engine, and over
+   one drain chunk of the K = 16 fleet: wall time, device busy time, idle
+   share, launches (per step) and the top kernels;
+9. kernels -- one JSON line with each kernel's launches (phase 4 for K1,
+   K2, K5, K8; phase 6 for K3, K4, K9; phase 7 for K6), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits nonzero. Without a CUDA device, or without the
@@ -70,6 +86,20 @@ WIDE = (8, 8) + FULL
 REP_SHAPES = [(6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513), WIDE,
               (16, 4) + FULL]
 B_ANALYSIS = 150              # one fused three-set analysis: 30 + 60 + 60 rows
+
+
+# Peak 32-bit popcounts: 16 results per clock per SM on compute capability
+# 9.0 ("Arithmetic Instructions" throughput table of NVIDIA's CUDA C++
+# Programming Guide); times the SM count and the card's maximum SM clock
+# (nvidia-smi), both read in this run.
+POPC_PER_CLK_PER_SM = 16
+PACKED_F = (16, 31, 33, 49, 196, 784)   # W = 2, 2, 4, 4, 14, 50 words
+PACKED_CJ = (12, 48, 640)
+PACKED_B = (1, 7, 150, 1024)
+PACKED_RD = ((1, 1), (4, 2), (3, 3), (16, 16), (16, 1))
+FLEET_K = 16
+FLEET_S = (2.0, 3.0, 3.9, 5.0)          # a 4 x 4 grid of per-replica ports
+FLEET_T = (10, 15, 20, 25)
 
 
 def fail(msg: str) -> None:
@@ -113,6 +143,34 @@ def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def zero_counters(ce, fb) -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for k in (ce.clause_counts, ce.clause_counts_batch,
+              ce.clause_counts_replicated, ce.clause_counts_batch_replicated,
+              ce.clause_counts_batch_packed,
+              ce.clause_counts_batch_replicated_packed, fb.feedback_plane,
+              fb.feedback_plane_replicated):
+        k.launches = 0
+
+
+def counters(ce, fb) -> dict:
+    return {k.__name__: k.launches for k in (
+        ce.clause_counts, ce.clause_counts_batch, ce.clause_counts_replicated,
+        ce.clause_counts_batch_replicated, ce.clause_counts_batch_packed,
+        ce.clause_counts_batch_replicated_packed, fb.feedback_plane,
+        fb.feedback_plane_replicated)}
+
+
+def popc_per_s(torch) -> float:
+    """The card's peak 32-bit popcount rate at its maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLK_PER_SM * sms * mhz * 1e6
 
 
 def phase_parity(torch, np, ce, fb):
@@ -331,7 +389,106 @@ def phase_parity_replicated(torch, np, ce, fb):
     return recs
 
 
-def run_service(torch, np, cfg, data, on_chunk):
+def phase_parity_packed(torch, np, ce):
+    """K5/K6 against their plain versions and against K2/K4 on the same
+    problem unpacked (packed == unpacked), with an all-empty and an
+    all-include clause row in every bank; returns the kernel records at
+    the main path's shapes (K5: the 1024-row serve of one machine; K6: a
+    K = 16 fleet's three-set-sized batch, B = 150, D = 1)."""
+    from repro_torch.kernels import packing
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 13)
+    err = {"clause_counts_batch_packed": 0,
+           "clause_counts_batch_replicated_packed": 0}
+    n_checks = {k: 0 for k in err}
+
+    def operands(lead_i, lead_l, cj, f, B):
+        inc = torch.from_numpy(rng.random(lead_i + (cj, 2 * f)) < 0.05).to(dev)
+        inc[..., 0, :] = False                  # an empty clause row
+        inc[..., -1, :] = True                  # an all-include row
+        x = torch.from_numpy(rng.random(lead_l + (B, f)) < 0.5).to(dev)
+        return (packing.pack_include(inc, f), packing.pack_literals(x), inc,
+                torch.cat([x, ~x], -1))
+
+    def hold(name, got, plain, unpacked, what):
+        torch.cuda.synchronize()
+        ok = torch.equal(got, plain) and torch.equal(got, unpacked)
+        err[name] = max(err[name], *(int((got.long() - w.long()).abs().max())
+                                     for w in (plain, unpacked)))
+        n_checks[name] += 1
+        check(ok, f"{name} differs from its plain version or the unpacked "
+                  f"kernel at {what}")
+
+    for f in PACKED_F:
+        for cj in PACKED_CJ:
+            for B in PACKED_B:
+                inc_w, lit_w, inc, lits = operands((), (), cj, f, B)
+                hold("clause_counts_batch_packed",
+                     ce.clause_counts_batch_packed(inc_w, lit_w),
+                     ce.clause_counts_batch_packed_plain(inc_w, lit_w),
+                     ce.clause_counts_batch(inc, lits)[0],
+                     f"f={f} CJ={cj} B={B}")
+        print(f"parity K5 clause_counts_batch_packed f={f} "
+              f"W={packing.lit_words(f)} CJ {PACKED_CJ} x B {PACKED_B} "
+              "equal=True", flush=True)
+    for R, D in PACKED_RD:
+        for B in (1, 7, 150):
+            inc_w, lit_w, inc, lits = operands((R,), (D,), 640, 784, B)
+            hold("clause_counts_batch_replicated_packed",
+                 ce.clause_counts_batch_replicated_packed(inc_w, lit_w),
+                 ce.clause_counts_batch_replicated_packed_plain(inc_w, lit_w),
+                 ce.clause_counts_batch_replicated(inc, lits)[0],
+                 f"R={R} D={D} B={B}")
+        print(f"parity K6 clause_counts_batch_replicated_packed R={R} D={D} "
+              "CJ=640 W=50 B (1, 7, 150) equal=True", flush=True)
+    print(f"parity packed checks: {json.dumps(n_checks)}", flush=True)
+
+    rate = popc_per_s(torch)
+    recs = []
+    for name, replaces, rep, (R, D, B) in (
+        ("clause_counts_batch_packed", "src/repro/kernels/clause_eval.py:391",
+         False, (1, 1, 1024)),
+        ("clause_counts_batch_replicated_packed",
+         "src/repro/kernels/clause_eval.py:454", True,
+         (FLEET_K, 1, B_ANALYSIS)),
+    ):
+        inc_w, lit_w, inc, lits = operands((R,) if rep else (),
+                                           (D,) if rep else (), 640, 784, B)
+        kern, plain, unpacked = (
+            (lambda: ce.clause_counts_batch_replicated_packed(inc_w, lit_w),
+             lambda: ce.clause_counts_batch_replicated_packed_plain(
+                 inc_w, lit_w),
+             lambda: ce.clause_counts_batch_replicated(inc, lits))
+            if rep else
+            (lambda: ce.clause_counts_batch_packed(inc_w, lit_w),
+             lambda: ce.clause_counts_batch_packed_plain(inc_w, lit_w),
+             lambda: ce.clause_counts_batch(inc, lits)))
+        cj, W = inc_w.shape[-2:]
+        nbytes = 4 * (R * cj * W + D * B * W + R * cj * B)
+        b_ms, b_by = bound(nbytes, R * cj * B * W, rate)
+        rec = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/clause_eval.cu",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": err[name],
+            "ms": time_ms(torch, kern),
+            # the plain SWAR popcount holds ~3 GB of int64 temporaries a
+            # call at these shapes: fewer calls per captured graph
+            "plain_ms": time_ms(torch, plain, inner=4),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }
+        un_ms = time_ms(torch, unpacked)
+        print(f"time {name} (R={R} D={D} CJ={cj} W={W} B={B}): kernel "
+              f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms, unpacked "
+              f"{'K4' if rep else 'K2'} on the same problem {un_ms:.5f} "
+              f"ms, library None, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
+              f"{R * cj * B * W} popcounts at {rate:.4g}/s)", flush=True)
+        recs.append(rec)
+    return recs
+
+
+def run_service(torch, np, cfg, data, on_chunk, packed=False):
     """The main path: offline_train -> submit + tick -> serve. Returns
     the service, its reports, the served predictions and the timings."""
     from repro_torch import random as rnd
@@ -342,7 +499,8 @@ def run_service(torch, np, cfg, data, on_chunk):
     svc = TMService(
         cfg, init_state(cfg, rnd.PRNGKey(SEED, "cuda"), device="cuda"),
         ServiceConfig(replicas=1, buffer_capacity=128, chunk=16, s=2.0, T=32,
-                      policy=AdaptPolicy(analyze_every=32), seed=SEED),
+                      policy=AdaptPolicy(analyze_every=32), seed=SEED,
+                      packed=packed),
         eval_x=xs_ev, eval_y=ys_ev, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -377,20 +535,31 @@ def phase_main(torch, np, ce, fb):
           "the preset is not the full-width machine on backend auto")
 
     runs = {}
-    for backend in ("auto", "ref"):
+    for name, backend, packed in (("auto", "auto", False), ("ref", "ref", False),
+                                  ("packed", "auto", True)):
         chunks = []
         c = dataclasses.replace(cfg, backend=backend)
         if backend == "auto":
-            ce.clause_counts.launches = 0
-            ce.clause_counts_batch.launches = 0
-            fb.feedback_plane.launches = 0
-        runs[backend] = run_service(torch, np, c, data, chunks.append) + (
-            chunks,)
-        if backend == "auto":
+            zero_counters(ce, fb)
+        runs[name] = run_service(torch, np, c, data, chunks.append,
+                                 packed) + (chunks,)
+        if name == "auto":
             launches = {"clause_counts": ce.clause_counts.launches,
                         "clause_counts_batch": ce.clause_counts_batch.launches,
                         "feedback_plane": fb.feedback_plane.launches}
-    a, r = runs["auto"], runs["ref"]
+        if name == "packed":
+            launches["clause_counts_batch_packed"] = \
+                ce.clause_counts_batch_packed.launches
+            n_k5 = ce.clause_counts_batch_packed.launches
+            svc_p, _, rep_p, _, _, chunks_p = runs[name]
+            want_k5 = len(svc_p.history) + len(chunks_p) + 1
+            print(f"main packed K=1 launches: K5 {n_k5} (from the code: "
+                  f"{want_k5}: analyses + monitored chunks + 1 serve), K2 "
+                  f"{ce.clause_counts_batch.launches}", flush=True)
+            check(n_k5 == want_k5 and ce.clause_counts_batch.launches == 0,
+                  "the packed K = 1 service did not serve, analyze and "
+                  "monitor through K5 alone")
+    a, r, p = runs["auto"], runs["ref"], runs["packed"]
     svc_a, base_a, rep_a, served_a, timing, chunks_a = a
     svc_r, base_r, rep_r, served_r, _, chunks_r = r
 
@@ -419,6 +588,22 @@ def phase_main(torch, np, ce, fb):
         for x, y in zip(chunks_a, chunks_r) for f in x._fields),
         "chunk monitoring differs")
     check(same(served_a, served_r), "served predictions differ")
+    # The packed datapath: ring rows and the eval set as words, K5 for
+    # every batch pass; bit for bit the unpacked run.
+    svc_p, base_p, rep_p, served_p, timing_p, chunks_p = p
+    check(svc_p.ss.buf.data_x.dtype == torch.int32
+          and svc_p.ss.buf.data_x.shape[-1] == 25, "packed ring is not words")
+    check(torch.equal(svc_a.ss.tm.ta_state, svc_p.ss.tm.ta_state)
+          and same(svc_a.rng_keys, svc_p.rng_keys) and same(base_a, base_p)
+          and same(served_a, served_p) and len(rep_a) == len(rep_p)
+          and all(same(x.trained, y.trained)
+                  and (x.accuracy is None) == (y.accuracy is None)
+                  and (x.accuracy is None or same(x.accuracy, y.accuracy))
+                  for x, y in zip(rep_a, rep_p))
+          and len(chunks_a) == len(chunks_p) and all(
+              same(getattr(x, f).cpu(), getattr(y, f).cpu())
+              for x, y in zip(chunks_a, chunks_p) for f in x._fields),
+          "the packed K = 1 service differs from the unpacked one")
 
     accs = [float(acc[0]) for _, acc in svc_a.history]
     check(served_a.shape == (1, 1024) and served_a.min() >= 0
@@ -437,8 +622,267 @@ def phase_main(torch, np, ce, fb):
           f"{timing['offline_points_per_s']:.2f} points/s, drain "
           f"{timing['drain_points_per_s']:.2f} points/s, serve(1024) "
           f"{timing['serve_ms']:.3f} ms", flush=True)
+    print(f"main packed throughput: offline_train "
+          f"{timing_p['offline_points_per_s']:.2f} points/s, drain "
+          f"{timing_p['drain_points_per_s']:.2f} points/s, serve(1024) "
+          f"{timing_p['serve_ms']:.3f} ms; packed == unpacked bitwise: True",
+          flush=True)
     print(f"main launches: {json.dumps(launches)}", flush=True)
     return launches
+
+
+def run_fleet(torch, np, cfg, data, packed, on_chunk):
+    """The fleet's main path: a K = 16 TMService with a 4 x 4 grid of
+    per-replica (s, T) ports: offline_train (1 epoch), submit_rows of each
+    member's own stream then tick until drained, and a shared (D = 1) and
+    a per-member serve. Returns the service, its outputs and the timings."""
+    from repro_torch import random as rnd
+    from repro_torch.core import init_state
+    from repro_torch.serve import AdaptPolicy, ServiceConfig, TMService
+
+    xs_off, ys_off, xs_on, ys_on, xs_ev, ys_ev, xs_serve, xs_member = data
+    K, n_on = xs_on.shape[:2]
+    svc = TMService(
+        cfg, init_state(cfg, rnd.PRNGKey(SEED, "cuda"), device="cuda"),
+        ServiceConfig(replicas=K, packed=packed, buffer_capacity=64, chunk=16,
+                      s=[s for s in FLEET_S for _ in FLEET_T],
+                      T=[t for _ in FLEET_S for t in FLEET_T],
+                      policy=AdaptPolicy(analyze_every=32), seed=SEED),
+        eval_x=xs_ev, eval_y=ys_ev, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = svc.offline_train(xs_off, ys_off, n_epochs=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(n_on):
+        check(svc.submit_rows(xs_on[:, i], ys_on[:, i]).all(),
+              "a fleet row was refused")
+    svc.flush()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    reports = []
+    while svc.buffered.any():
+        reports.append(svc.tick(on_chunk=on_chunk))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    shared = svc.serve(xs_serve)
+    t4 = time.perf_counter()
+    member = svc.serve(xs_member)
+    t5 = time.perf_counter()
+    timing = {"offline_points_per_s": K * len(xs_off) / (t1 - t0),
+              "ingress_rows_per_s": K * n_on / (t2 - t1),
+              "drain_points_per_s": K * n_on / (t3 - t2),
+              "serve_ms": (t4 - t3) * 1e3, "serve_member_ms": (t5 - t4) * 1e3}
+    return svc, base, reports, shared, member, timing
+
+
+def phase_fleet(torch, np, ce, fb):
+    """The K = 16 packed fleet at the full MNIST width (f = 784), through
+    the kernels (backend "auto"), then backend "ref", then unpacked: all
+    three bitwise equal. Returns the K6 launches of the packed "auto"
+    run, which must match the counts the code implies."""
+    from repro_torch.configs import tm_mnist
+    from repro_torch.data import mnist
+    from repro_torch.kernels import packing
+
+    K = FLEET_K
+    xs, ys = mnist.load(seed=SEED + 5, n_points=200 + K * 64)
+    xs_serve, _ = mnist.load(seed=SEED + 6, n_points=1024)
+    on = 200 + np.arange(K * 64).reshape(K, 64)     # each member's stream
+    data = (xs[:100], ys[:100], xs[on], ys[on], xs[100:200], ys[100:200],
+            xs_serve, xs[on])
+    cfg = tm_mnist.CONFIG.tm
+    check(cfg.n_features == 784 and cfg.max_classes * cfg.max_clauses == 640,
+          "the preset is not the full-width machine")
+    runs = {}
+    for name, backend, packed in (("auto", "auto", True), ("ref", "ref", True),
+                                  ("unpacked", "auto", False)):
+        chunks = []
+        zero_counters(ce, fb)
+        out = run_fleet(torch, np, dataclasses.replace(cfg, backend=backend),
+                        data, packed, chunks.append)
+        runs[name] = out + (chunks, counters(ce, fb))
+        torch.cuda.synchronize()
+    svc, base, reps, shared, member, timing, chunks, launched = runs["auto"]
+
+    def same(x, y):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype == np.float32:
+            x, y = x.view(np.int32), y.view(np.int32)
+        return x.shape == y.shape and np.array_equal(x, y)
+
+    for name in ("ref", "unpacked"):
+        o, ob, orep, osh, omem, _, och, _ = runs[name]
+        ring, oring = svc.ss.buf, o.ss.buf
+        rows = (oring.data_x if name == "ref"
+                else packing.pack_bits(oring.data_x))
+        check(torch.equal(svc.ss.tm.ta_state, o.ss.tm.ta_state)
+              and torch.equal(ring.data_x, rows)
+              and all(torch.equal(getattr(ring, f), getattr(oring, f))
+                      for f in ("data_y", "head", "size"))
+              and same(svc.rng_keys, o.rng_keys) and same(svc.steps, o.steps)
+              and same(base, ob) and same(shared, osh) and same(member, omem)
+              and len(reps) == len(orep) and all(
+                  same(x.trained, y.trained) and same(x.rolled_back,
+                                                      y.rolled_back)
+                  and (x.accuracy is None) == (y.accuracy is None)
+                  and (x.accuracy is None or same(x.accuracy, y.accuracy))
+                  for x, y in zip(reps, orep))
+              and len(svc.history) == len(o.history) and all(
+                  same(s1, s2) and same(a1, a2) for (s1, a1), (s2, a2)
+                  in zip(svc.history, o.history))
+              and len(chunks) == len(och) and all(
+                  same(getattr(x, f).cpu(), getattr(y, f).cpu())
+                  for x, y in zip(chunks, och) for f in x._fields),
+              f"fleet: the packed 'auto' run differs from the {name} run")
+    check(svc.ss.buf.data_x.dtype == torch.int32, "fleet rings not packed")
+    check(shared.shape == (K, 1024) and member.shape == (K, 64)
+          and shared.min() >= 0 and shared.max() < cfg.max_classes,
+          "fleet predictions malformed")
+    accs = np.stack([a for _, a in svc.history])
+    check(np.isfinite(accs).all() and accs.min() >= 0 and accs.max() <= 1,
+          "fleet accuracies malformed")
+    check(all(int(x) == 64 for x in svc.steps) and not svc.buffered.any(),
+          "the fleet did not drain every submitted row")
+    # The counts the code implies: K3 + K9 per offline step (100) and per
+    # drain step (4 chunks x 16); K6 per analysis, monitored chunk and
+    # serve; nothing through the single-machine or unpacked kernels.
+    steps = 100 + len(chunks) * 16
+    want = {k: 0 for k in launched}
+    want.update(clause_counts_replicated=steps, feedback_plane_replicated=steps,
+                clause_counts_batch_replicated_packed=(
+                    len(svc.history) + len(chunks) + 2))
+    print(f"fleet launches (auto, packed): {json.dumps(launched)}, from the "
+          f"code: {json.dumps(want)}; unpacked run: "
+          f"{json.dumps(runs['unpacked'][-1])}", flush=True)
+    check(launched == want, "fleet: kernel launches differ from the counts "
+          "the code implies")
+    print(f"fleet K={K} f={cfg.n_features} packed: offline acc "
+          f"{np.round(base, 4).tolist()}"
+          f", final acc {np.round(accs[-1], 4).tolist()}, rollbacks "
+          f"{svc.rollbacks.tolist()}, ticks {len(reps)}; auto == ref == "
+          "unpacked bitwise: True", flush=True)
+    for name in ("auto", "ref", "unpacked"):
+        t = runs[name][5]
+        print(f"fleet throughput ({name}): offline_train "
+              f"{t['offline_points_per_s']:.2f} replica-points/s, ingress "
+              f"{t['ingress_rows_per_s']:.1f} rows/s, drain "
+              f"{t['drain_points_per_s']:.2f} points/s, serve(1024 shared) "
+              f"{t['serve_ms']:.3f} ms, serve([16, 64] per member) "
+              f"{t['serve_member_ms']:.3f} ms", flush=True)
+    return {"clause_counts_batch_replicated_packed":
+            launched["clause_counts_batch_replicated_packed"]}
+
+
+def phase_fleet_iris(torch, np, ce, fb):
+    """The reference's own fleet geometry (BENCH_fleet.json fleet_drain):
+    K = 8 iris machines, 64 points each, chunk 16, capacity 64, through
+    ``OnlineFleet`` ("auto" and "ref") and through 8 K = 1 ``TMService``s
+    seeded seed[r]: all bitwise equal (the stacking rule)."""
+    from repro_torch.configs import tm_iris
+    from repro_torch.core import init_runtime, init_state
+    from repro_torch.data import iris
+    from repro_torch.serve import OnlineFleet, ServiceConfig, TMService
+
+    K, n, cap, chunk = 8, 64, 64, 16
+    xs, ys = iris.load()
+    rows = [np.roll(np.arange(len(xs)), -7 * r)[:n] for r in range(K)]
+    out = {}
+    for backend in ("auto", "ref"):
+        cfg = dataclasses.replace(tm_iris.CONFIG.tm, backend=backend)
+        rt = init_runtime(cfg, s=3.0, T=15, device="cuda")
+        fleet = OnlineFleet(cfg, init_state(cfg, device="cuda"), rt,
+                            n_replicas=K, buffer_capacity=cap, chunk=chunk,
+                            seed=list(range(K)), device="cuda")
+        for i in range(n):
+            check(fleet.offer_rows(xs[[r[i] for r in rows]],
+                                   ys[[r[i] for r in rows]]).all(),
+                  "an iris fleet row was refused")
+        fleet.service.flush()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trained = fleet.drain(n)
+        torch.cuda.synchronize()
+        out[backend] = (fleet, trained, time.perf_counter() - t)
+    cfg = dataclasses.replace(tm_iris.CONFIG.tm, backend="auto")
+    singles, wall = [], 0.0
+    for r in range(K):
+        svc = TMService(cfg, init_state(cfg, device="cuda"), ServiceConfig(
+            replicas=1, buffer_capacity=cap, chunk=chunk, seed=[r], s=3.0,
+            T=15), device="cuda")
+        for i in rows[r]:
+            check(svc.submit(0, xs[i], int(ys[i])), "an iris row was refused")
+        svc.flush()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        check(int(svc.drain(n)[0]) == n, "a single machine did not drain")
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t
+        singles.append(svc)
+    fa, ta, wa = out["auto"]
+    fr, tr, wr = out["ref"]
+    check(list(ta) == [n] * K and list(tr) == [n] * K,
+          "the iris fleet did not drain")
+    check(torch.equal(fa.ss.tm.ta_state, fr.ss.tm.ta_state)
+          and np.array_equal(fa.service.rng_keys, fr.service.rng_keys),
+          "iris fleet: the kernels differ from the plain versions")
+    stacked = torch.stack([s.ss.tm.ta_state[0] for s in singles])
+    keys = np.concatenate([s.rng_keys for s in singles])
+    check(torch.equal(fa.ss.tm.ta_state, stacked)
+          and np.array_equal(fa.service.rng_keys, keys),
+          "iris fleet: OnlineFleet(8) differs from 8 K = 1 services")
+    q = xs[:50]
+    preds = fa.infer(q)
+    check(all(np.array_equal(preds[r], singles[r].serve(q)[0])
+              for r in range(K)), "iris fleet: served predictions differ")
+    print(f"fleet_iris K={K} x {n} points, chunk {chunk}: OnlineFleet "
+          f"{wa:.3f} s = {K * n / wa:.1f} points/s (ref {wr:.3f} s), 8 K = 1 "
+          f"services {wall:.3f} s = {K * n / wall:.1f} points/s, fleet / "
+          f"serial {wall / wa:.2f}x; fleet == 8 services == ref bitwise: "
+          "True", flush=True)
+
+
+def phase_profile_fleet(torch, np):
+    """Where one K = 16 packed fleet drain chunk goes (16 steps, f = 784):
+    torch.profiler over one tick, after the main paths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import tm_mnist
+    from repro_torch.core import init_state
+    from repro_torch.data import mnist
+    from repro_torch.serve import ServiceConfig, TMService
+
+    cfg = tm_mnist.CONFIG.tm
+    K = FLEET_K
+    xs, ys = mnist.load(seed=SEED + 7, n_points=32 * K)
+    svc = TMService(cfg, init_state(cfg, device="cuda"), ServiceConfig(
+        replicas=K, packed=True, chunk=16,
+        s=[s for s in FLEET_S for _ in FLEET_T],
+        T=[t for _ in FLEET_S for t in FLEET_T]), device="cuda")
+    for i in range(32):
+        svc.submit_rows(xs[i * K:(i + 1) * K], ys[i * K:(i + 1) * K])
+    svc.tick()                       # warm: first chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        svc.tick(on_chunk=lambda aux: None)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ka = prof.key_averages()
+    dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    launches = sum(e.count for e in ka if e.key.startswith("cudaLaunchKernel")
+                   or e.key.startswith("cuLaunchKernel"))
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profile fleet drain chunk (K={K}, 16 steps, f={cfg.n_features}, "
+          f"packed): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / wall:.4f}, kernel launches {launches} "
+          f"({launches / 16:.1f} per step)", flush=True)
+    print("profile fleet top device kernels: " + "; ".join(
+        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+        for e in top), flush=True)
 
 
 def _sets(np, osets, offline_limit):
@@ -764,13 +1208,17 @@ def main() -> int:
     recs = timed("parity", phase_parity, torch, np, ce, fb)
     recs += timed("parity_replicated", phase_parity_replicated, torch, np,
                   ce, fb)
+    recs += timed("parity_packed", phase_parity_packed, torch, np, ce)
     launches = timed("service", phase_main, torch, np, ce, fb)
     paper = timed("paper", phase_paper, torch, np, ce, fb)
     launches.update(timed("wide", phase_wide, torch, np, ce, fb))
     check(all(n > 0 for n in paper.values()),
           "a replica-first kernel never launched on the paper path")
+    launches.update(timed("fleet", phase_fleet, torch, np, ce, fb))
+    timed("fleet_iris", phase_fleet_iris, torch, np, ce, fb)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)
+    timed("profile_fleet", phase_profile_fleet, torch, np)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": recs}), flush=True)

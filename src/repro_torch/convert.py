@@ -2,9 +2,13 @@
 
 The reference package's ``TMState`` (one bank [C, J, L] or R replicas
 [R, C, J, L]), ``TMRuntime`` (scalar or per-replica [R] s/T ports), uint32
-key pairs ([2] or batches [D, 2]) and ``manager.Sets``, taken as numpy
-arrays (``jax.tree.map(np.asarray, x)``), become the port's on a given
-device; :func:`to_numpy` goes back. Both packages then compute
+key pairs ([2] or batches [D, 2]), ``manager.Sets``, packed np.uint32
+words and ``online.SessionState`` (one machine or a [K, ...] fleet, with
+bool or packed rings), taken as numpy arrays
+(``jax.tree.map(np.asarray, x)``), become the port's on a given device;
+:func:`to_numpy` and :func:`session_state_to_numpy` go back. Packed words
+are np.uint32 in the reference and int32 bit patterns in the port
+(:mod:`repro_torch.kernels.packing`). Both packages then compute
 the same thing from the same values. The port imports nothing of the
 reference: these functions read fields by name.
 """
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tm import TMRuntime, TMState, resolve_device
+from repro_torch.kernels.packing import words_to_numpy  # noqa: F401
 
 
 def state_from_numpy(state: Any, device=None) -> TMState:
@@ -77,3 +82,46 @@ def sets_from_numpy(sets: Any, device=None):
         dtype = np.int32 if name.endswith("_y") else bool
         out[name] = torch.from_numpy(np.array(v, dtype=dtype)).to(dev)
     return Sets(**out)
+
+
+def words_from_numpy(words, device=None) -> torch.Tensor:
+    """Packed np.uint32 words -> the port's int32 words on ``device``
+    (:func:`words_to_numpy` goes back)."""
+    from repro_torch.kernels import packing
+
+    return packing.words_from_numpy(words).to(resolve_device(device))
+
+
+def session_state_from_numpy(ss: Any, device=None):
+    """A reference ``SessionState`` of numpy arrays (one machine, or
+    [K, ...] leaves) -> the port's on ``device``: the bank as it is, ring
+    rows as bool or, when np.uint32, as the port's int32 words; labels,
+    head, size and step as int32."""
+    from repro_torch.core.online import SessionState
+    from repro_torch.data.buffer import RingBuffer
+
+    dev = resolve_device(device)
+    x = np.asarray(ss.buf.data_x)
+    data_x = (words_from_numpy(x, dev) if x.dtype == np.uint32
+              else torch.from_numpy(x.astype(bool)).to(dev))
+
+    def i32(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+
+    return SessionState(
+        tm=state_from_numpy(ss.tm, dev),
+        buf=RingBuffer(data_x=data_x, data_y=i32(ss.buf.data_y),
+                       head=i32(ss.buf.head), size=i32(ss.buf.size)),
+        step=i32(ss.step))
+
+
+def session_state_to_numpy(ss):
+    """The port's ``SessionState`` -> numpy in the reference's types:
+    packed ring rows come back as np.uint32."""
+    from repro_torch.core.tm import is_packed
+
+    out = to_numpy(ss)
+    if is_packed(ss.buf.data_x):
+        out = out._replace(buf=out.buf._replace(
+            data_x=words_to_numpy(ss.buf.data_x)))
+    return out

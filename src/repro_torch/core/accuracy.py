@@ -1,8 +1,10 @@
 """Accuracy-analysis block and history RAM (paper §3.3), on torch.
 
 ``analyze`` is the error-counting pass over a set in one batch-first
-clause plane (K2); ``analyze_replicated`` and ``analyze_sets_replicated``
-do the same for R machines in one replica-first plane (K4); ``History`` is
+clause plane (K2, or K5 for packed rows); ``analyze_replicated`` and
+``analyze_sets_replicated`` do the same for R machines in one
+replica-first plane (K4, or K6 for packed rows). Packed sets (the port's
+int32 words) route through ``core/tm``'s dtype routing. ``History`` is
 the fixed-capacity record of per-cycle accuracies that the FPGA keeps in
 RAM.
 """

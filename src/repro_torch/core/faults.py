@@ -7,8 +7,9 @@ are addressable per TA, and can be rewritten at run time, exactly the
 paper's microcontroller-programmable fault mappings. The masks are made
 with numpy, so both packages make the same masks from the same arguments.
 
-The packed-domain helpers (``packed_masks``, ``apply_packed``) belong to
-the bit-packed datapath, which the port has not reached yet.
+The fault controller is a bitwise circuit, so it commutes with packing:
+``packed_masks`` packs the runtime's masks to the literal-word layout and
+``apply_packed`` runs the AND/OR on include words.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tm import TMConfig, TMRuntime, resolve_device
+from repro_torch.kernels import packing
 
 
 def _shape(cfg: TMConfig) -> tuple[int, int, int]:
@@ -67,17 +69,20 @@ def random_stuck_at(cfg: TMConfig, fraction: float, stuck_value: int,
     return _masks(cfg, idx, stuck_value)
 
 
-def packed_masks(cfg: TMConfig, rt: TMRuntime):
-    raise NotImplementedError(
-        "packed fault masks belong to the bit-packed datapath, which the "
-        "port has not reached yet (the packed slice: K5/K6)")
+def packed_masks(cfg: TMConfig, rt: TMRuntime
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The runtime's fault masks packed to the literal-word layout (int32
+    words, :mod:`repro_torch.kernels.packing`). Both have zero tail bits,
+    so ``pack((inc & and) | or) == (pack(inc) & pack(and)) | pack(or)``."""
+    return (packing.pack_include(rt.ta_and_mask, cfg.n_features),
+            packing.pack_include(rt.ta_or_mask, cfg.n_features))
 
 
-def apply_packed(include_packed, and_packed, or_packed):
-    raise NotImplementedError(
-        "the packed-domain fault controller belongs to the bit-packed "
-        "datapath, which the port has not reached yet (the packed slice: "
-        "K5/K6)")
+def apply_packed(include_packed: torch.Tensor, and_packed: torch.Tensor,
+                 or_packed: torch.Tensor) -> torch.Tensor:
+    """The packed-domain fault controller: action' words from action
+    words."""
+    return (include_packed & and_packed) | or_packed
 
 
 def stuck_at_runtime(cfg: TMConfig, rt: TMRuntime, fraction: float,

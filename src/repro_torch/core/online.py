@@ -4,8 +4,14 @@ The FPGA's online path: datapoints arrive, pass through the cyclic buffer,
 and are consumed by the manager, which interleaves training with
 inference. :func:`_consume_many` drains one chunk for one machine: a
 serial loop of ``train_update`` (K1 + K8 per point) and, when monitored,
-one batch-first inference pass (K2) over the chunk under the post-chunk
-state. ``OnlineSession`` is the K = 1 shim over
+one batch-first inference pass (K2, or K5 for packed rows) over the chunk
+under the post-chunk state. :func:`_consume_many_replicated` is the fleet
+form: every step advances all R machines in one replica-first plane
+(K3 + K9, D = R), and the monitoring is one K4 (or K6) pass.
+
+Packed rings hold ceil(f/32) int32 words a row: each popped row unpacks
+once for the elementwise feedback, and the monitoring pass reads the
+packed rows as they are. ``OnlineSession`` is the K = 1 shim over
 :class:`repro_torch.serve.service.TMService`.
 """
 from __future__ import annotations
@@ -20,10 +26,12 @@ from repro_torch.core import feedback as fb_mod
 from repro_torch.core import tm as tm_mod
 from repro_torch.core.tm import TMConfig, TMRuntime, TMState
 from repro_torch.data import buffer as buf_mod
+from repro_torch.kernels import packing
 
 
 class SessionState(NamedTuple):
-    """Device-side state of one machine."""
+    """Device-side state of one machine, or of a fleet: under
+    :func:`_consume_many_replicated` every leaf carries a leading K."""
 
     tm: TMState
     buf: buf_mod.RingBuffer
@@ -31,12 +39,29 @@ class SessionState(NamedTuple):
 
 
 class ChunkAux(NamedTuple):
-    """Per-chunk observability from the drain (chunk size k)."""
+    """Per-chunk observability from the drain (chunk size k); the fleet
+    drain gives the same fields with a leading replica axis [R, k]."""
 
     predicted: torch.Tensor  # [k] i32: inference under the post-chunk state
     correct: torch.Tensor    # [k] bool: predicted == label, invalid rows False
     valid: torch.Tensor      # [k] bool: rows actually consumed
     activity: torch.Tensor   # [k] f32: per-step TA-update activity
+
+
+def replica_gate(valid: torch.Tensor):
+    """Per-leaf ``where(valid, new, old)`` with valid [R] broadcast over
+    each leaf's trailing axes: the replica-masked state update of the
+    fleet drain and of the per-replica rollback."""
+    def apply(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+        v = valid.reshape(valid.shape + (1,) * (new.ndim - valid.ndim))
+        return torch.where(v, new, old)
+    return apply
+
+
+def _feedback_rows(cfg: TMConfig, x: torch.Tensor) -> torch.Tensor:
+    """Popped rows as bool features: packed rows unpack once here."""
+    return packing.unpack_bits(x, cfg.n_features) if tm_mod.is_packed(x) \
+        else x
 
 
 def _consume_many(cfg: TMConfig, k: int, ss: SessionState, rt: TMRuntime,
@@ -60,7 +85,9 @@ def _consume_many(cfg: TMConfig, k: int, ss: SessionState, rt: TMRuntime,
     xs, ys, acts = [], [], []
     for i in range(n):
         buf, x, y, _ = buf_mod.pop(buf)
-        tm, _, activity = fb_mod.train_update(cfg, tm, rt, x, y, keys[i])
+        tm, _, activity = fb_mod.train_update(cfg, tm, rt,
+                                              _feedback_rows(cfg, x), y,
+                                              keys[i])
         xs.append(x)
         ys.append(y)
         acts.append(activity)
@@ -79,6 +106,70 @@ def _consume_many(cfg: TMConfig, k: int, ss: SessionState, rt: TMRuntime,
     preds = tm_mod.predict_batch(cfg, tm, rt, torch.stack(xs))
     aux = ChunkAux(predicted=preds, correct=(preds == ys) & valid,
                    valid=valid, activity=activity)
+    return out, n, aux
+
+
+def _consume_many_replicated(cfg: TMConfig, k: int, ss: SessionState,
+                             rt: TMRuntime, limit: np.ndarray,
+                             keys: torch.Tensor, *, monitor: bool = True
+                             ) -> tuple[SessionState, np.ndarray,
+                                        Optional[ChunkAux]]:
+    """Drain up to ``min(k, limit[r], buffered[r])`` rows from every
+    replica: the fleet form of :func:`_consume_many`.
+
+    ``ss`` leaves lead with R (R rings, banks and step counters), ``limit``
+    is a host [R] budget, ``keys`` [R, 2] the chunk keys. Each step pops
+    every ring in one gather, runs :func:`~repro_torch.core.feedback.
+    train_update_replicated` with D = R (K3 + K9 for all R machines), and
+    gates banks and rings by that step's valid mask. The chunk's step keys
+    come from one ``split(keys, k)``, ``[R, k, 2]``, as the reference's
+    vmapped split.
+
+    The host reads the ring sizes once, so it knows every replica's row
+    count n = min(k, limit, size) before the loop; the valid masks of all
+    steps cross to the card in one copy, and the loop runs max(n) steps
+    (the reference's later steps are all masked). Replica r is bitwise
+    :func:`_consume_many` on (ss[r], limit[r], keys[r]). Returns (state,
+    n [R] host int64, aux [R, k] or None).
+    """
+    R = ss.step.shape[0]
+    dev = ss.step.device
+    step_keys = rnd.split(keys, k).transpose(0, 1)            # [k, R, 2]
+    size = ss.buf.size.cpu().numpy().astype(np.int64)
+    n = np.minimum(np.minimum(k, np.asarray(limit, np.int64)),
+                   np.maximum(size, 0))
+    m = int(n.max(initial=0))
+    valid = torch.from_numpy(np.arange(k)[:, None] < n[None, :]).to(dev)
+    rt = tm_mod.replica_ports(rt, R, dev)                     # once a chunk
+    buf, tm = ss.buf, ss.tm
+    xs, ys, acts = [], [], []
+    for i in range(m):
+        new_buf, x, y, _ = buf_mod.pop_many(buf)
+        new_tm, _, act = fb_mod.train_update_replicated(
+            cfg, tm, rt, _feedback_rows(cfg, x), y, step_keys[i])
+        gate = replica_gate(valid[i])
+        tm = TMState(gate(new_tm.ta_state, tm.ta_state))
+        buf = buf._replace(head=gate(new_buf.head, buf.head),
+                           size=gate(new_buf.size, buf.size))
+        xs.append(x)
+        ys.append(y)
+        acts.append(torch.where(valid[i], act, 0.0))
+    out = SessionState(tm=tm, buf=buf,
+                       step=ss.step + torch.from_numpy(n).to(dev, torch.int32))
+    if not monitor:
+        return out, n, None
+    # Steps past every replica's count pop the row at each unmoved head,
+    # as the reference's masked steps do.
+    _, x_head, y_head, _ = buf_mod.pop_many(buf)
+    xs += [x_head] * (k - m)
+    ys += [y_head] * (k - m)
+    acts += [torch.zeros(R, device=dev)] * (k - m)
+    valid = valid.T                                           # [R, k]
+    ys = torch.stack(ys, dim=1)                               # [R, k]
+    preds = tm_mod.predict_batch_replicated_(cfg, tm, rt,
+                                             torch.stack(xs, dim=1))
+    aux = ChunkAux(predicted=preds, correct=(preds == ys) & valid,
+                   valid=valid, activity=torch.stack(acts, dim=1))
     return out, n, aux
 
 
@@ -105,6 +196,14 @@ class OnlineSession:
             replicas=1, buffer_capacity=buffer_capacity, chunk=chunk,
             seed=[int(seed)],
         ), rt=rt, device=device)
+
+    @classmethod
+    def _from_service(cls, svc) -> "OnlineSession":
+        if svc.n_replicas != 1:
+            raise ValueError("OnlineSession shims a K = 1 service only")
+        sess = cls.__new__(cls)
+        sess._svc = svc
+        return sess
 
     @property
     def service(self):

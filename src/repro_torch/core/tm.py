@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, packing
 
 INT32_MIN = -(2 ** 31)
 
@@ -178,18 +178,18 @@ def init_runtime(
 # ---------------------------------------------------------------------------
 
 
-def _unpacked(x: torch.Tensor) -> torch.Tensor:
-    if x.dtype == torch.uint32:
-        raise NotImplementedError(
-            "packed uint32 rows belong to the bit-packed datapath, which "
-            "the port has not reached yet (the packed slice: K5/K6)"
-        )
-    return x.to(torch.bool)
+def is_packed(xs: torch.Tensor) -> bool:
+    """True for rows of packed words. The port's words are int32 tensors
+    holding uint32 bits (:mod:`repro_torch.kernels.packing`), so the
+    datapath routes on that dtype where the reference routes on uint32; a
+    ``torch.uint32`` tensor counts as words too. Bool features are any
+    other dtype."""
+    return xs.dtype in (packing.WORD_DTYPE, torch.uint32)
 
 
 def make_literals(x: torch.Tensor) -> torch.Tensor:
     """Boolean features -> literal vector [x, ~x] (length 2f)."""
-    x = _unpacked(x)
+    x = x.to(torch.bool)
     return torch.cat([x, ~x], dim=-1)
 
 
@@ -197,6 +197,22 @@ def ta_actions(cfg: TMConfig, state: TMState, rt: TMRuntime) -> torch.Tensor:
     """Include bits with the fault controller applied (§3.1.2)."""
     include = state.ta_state > cfg.n_states
     return (include & rt.ta_and_mask) | rt.ta_or_mask
+
+
+def make_literals_packed(xs_packed: torch.Tensor,
+                         n_features: int) -> torch.Tensor:
+    """Packed features [..., ceil(f/32)] -> packed literals
+    [..., 2*ceil(f/32)]: the complement half is a word operation, so
+    buffered packed rows become literal words without unpacking."""
+    return packing.literals_from_packed(xs_packed, n_features)
+
+
+def ta_actions_packed(cfg: TMConfig, state: TMState,
+                      rt: TMRuntime) -> torch.Tensor:
+    """Post-fault include masks packed to words [..., C, J, 2*ceil(f/32)]:
+    the include plane packs once per batched clause-eval call, on the
+    device of the bank (one pack of the [..., 2, f] view)."""
+    return packing.pack_include(ta_actions(cfg, state, rt), cfg.n_features)
 
 
 def clause_polarity(cfg: TMConfig, device=None) -> torch.Tensor:
@@ -225,6 +241,17 @@ def eval_clauses_batch(cfg: TMConfig, include: torch.Tensor,
     return out & rt.clause_mask[None, None, :]
 
 
+def eval_clauses_batch_packed(cfg: TMConfig, include_packed: torch.Tensor,
+                              literals_packed: torch.Tensor, rt: TMRuntime, *,
+                              training: bool) -> torch.Tensor:
+    """Batch-first clause outputs [B, C, J] bool from packed words; bit for
+    bit :func:`eval_clauses_batch` on the unpacked operands."""
+    out = dispatch.resolve(cfg.backend).clause_eval_batch_packed(
+        include_packed, literals_packed, training=training
+    )
+    return out & rt.clause_mask[None, None, :]
+
+
 def class_sums(cfg: TMConfig, clause_out: torch.Tensor) -> torch.Tensor:
     """Per-class vote [..., C] i32 from clause outputs [..., C, J]."""
     pol = clause_polarity(cfg, clause_out.device)
@@ -243,10 +270,22 @@ def forward(cfg: TMConfig, state: TMState, rt: TMRuntime, x: torch.Tensor,
 
 def forward_batch(cfg: TMConfig, state: TMState, rt: TMRuntime,
                   xs: torch.Tensor, *, training: bool = False):
-    """A batch [B, f]. Returns (clause_out [B, C, J], votes [B, C])."""
-    lits = make_literals(xs)
-    include = ta_actions(cfg, state, rt)
-    clauses = eval_clauses_batch(cfg, include, lits, rt, training=training)
+    """A batch. Returns (clause_out [B, C, J], votes [B, C]).
+
+    ``xs`` is bool features [B, f] or packed words [B, ceil(f/32)] (the
+    port's int32 words, :func:`is_packed`); packed rows go through the
+    packed entry (K5), bit for bit the unpacked route.
+    """
+    if is_packed(xs):
+        lits = make_literals_packed(xs, cfg.n_features)
+        include = ta_actions_packed(cfg, state, rt)
+        clauses = eval_clauses_batch_packed(cfg, include, lits, rt,
+                                            training=training)
+    else:
+        lits = make_literals(xs)
+        include = ta_actions(cfg, state, rt)
+        clauses = eval_clauses_batch(cfg, include, lits, rt,
+                                     training=training)
     return clauses, class_sums(cfg, clauses)
 
 
@@ -276,14 +315,24 @@ def predict_batch(cfg: TMConfig, state: TMState, rt: TMRuntime,
 
 def forward_batch_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
                              xs: torch.Tensor, *, training: bool = False):
-    """R machines on their batches in one ``clause_eval_batch_replicated``
-    call: state leaves [R, ...], xs [D, B, f] bool (replica r reads batch
-    r % D). Returns (clause_out [R, B, C, J], votes [R, B, C]); replica r
-    equals :func:`forward_batch` on batch r % D bit for bit."""
-    lits = make_literals(xs)                                  # [D, B, 2f]
-    include = ta_actions(cfg, state, rt)                      # [R, C, J, L]
-    clauses = dispatch.resolve(cfg.backend).clause_eval_batch_replicated(
-        include, lits, training=training)
+    """R machines on their batches in one replica-first clause plane:
+    state leaves [R, ...], xs [D, B, f] bool or packed words
+    [D, B, ceil(f/32)] (:func:`is_packed`; replica r reads batch r % D).
+    Returns (clause_out [R, B, C, J], votes [R, B, C]); replica r equals
+    :func:`forward_batch` on batch r % D bit for bit. Bool rows go through
+    ``clause_eval_batch_replicated`` (K4), words through
+    ``clause_eval_batch_replicated_packed`` (K6)."""
+    backend = dispatch.resolve(cfg.backend)
+    if is_packed(xs):
+        lits = make_literals_packed(xs, cfg.n_features)       # [D, B, W]
+        include = ta_actions_packed(cfg, state, rt)           # [R, C, J, W]
+        clauses = backend.clause_eval_batch_replicated_packed(
+            include, lits, training=training)
+    else:
+        lits = make_literals(xs)                              # [D, B, 2f]
+        include = ta_actions(cfg, state, rt)                  # [R, C, J, L]
+        clauses = backend.clause_eval_batch_replicated(
+            include, lits, training=training)
     clauses = clauses & rt.clause_mask
     return clauses, class_sums(cfg, clauses)
 

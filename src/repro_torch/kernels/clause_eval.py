@@ -1,11 +1,12 @@
-"""Clause-plane counts: the hand-written CUDA kernels K1 to K4.
+"""Clause-plane counts: the hand-written CUDA kernels K1 to K6.
 
 Replaces the Pallas kernels ``clause_counts`` (K1), ``clause_counts_batch``
-(K2), ``clause_counts_replicated`` (K3) and
-``clause_counts_batch_replicated`` (K4) of the reference package's
-``kernels/clause_eval.py``, which cast the counts as int8 MXU matmuls with
-a ones column. Here (``csrc/clause_eval.cu``) they are plain integer counts
-over 1-byte bools:
+(K2), ``clause_counts_replicated`` (K3),
+``clause_counts_batch_replicated`` (K4), ``clause_counts_batch_packed``
+(K5) and ``clause_counts_batch_replicated_packed`` (K6) of the reference
+package's ``kernels/clause_eval.py``. K1-K4 there are int8 MXU matmuls
+with a ones column; here (``csrc/clause_eval.cu``) they are plain integer
+counts over 1-byte bools:
 
     violations[r, cj, b] = sum_l include[r, cj, l] & ~literal[r % D, b, l]
     n_included[r, cj]    = sum_l include[r, cj, l]
@@ -22,6 +23,14 @@ lanes stride over L; K2/K4 pack the include planes and the D literal
 batches 32 bools to a word once, then count AND-NOT popcounts over word
 tiles staged in shared memory. At these shapes launch overhead and the
 counting loop, not the bytes, set the time; see the source for the layout.
+
+K5 and K6 take the bit-packed planes (int32 words holding uint32 bits,
+:mod:`repro_torch.kernels.packing`): include [R, CJ, W] and literals
+[D, B, W], W = 2 * ceil(f / 32), and give violations [R, CJ, B] =
+sum_w popcount(include & ~literal). They launch K2/K4's counting kernel
+on the caller's words, with no pack and no n_included. Bound on an H100:
+the popcounts (33 M at 640 x 1024 x 50, about 7.8 us at 16 a clock per
+SM), not the 3 MB of operands.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for CPU
 tensors. For CUDA tensors it launches the kernel, counts the launch in
@@ -93,6 +102,27 @@ def clause_counts_batch_replicated_plain(include: torch.Tensor,
             include.to(torch.bool).sum(-1).to(torch.int32))
 
 
+def clause_counts_batch_packed_plain(include: torch.Tensor,
+                                     literals: torch.Tensor) -> torch.Tensor:
+    """K5's plain version: violations [CJ, B] i32 by a SWAR popcount."""
+    from repro_torch.kernels.ref import packed_violations
+
+    return packed_violations(include[:, None, :], literals[None, :, :])
+
+
+def clause_counts_batch_replicated_packed_plain(
+        include: torch.Tensor, literals: torch.Tensor) -> torch.Tensor:
+    """K6's plain version: violations [R, CJ, B] i32, replica r against
+    batch r % D, by a SWAR popcount."""
+    from repro_torch.kernels.ref import packed_violations
+
+    R, cj, W = include.shape
+    D, B, _ = literals.shape
+    inc = include.reshape(R // D, D, cj, 1, W)
+    viol = packed_violations(inc, literals[None, :, None, :, :])
+    return viol.reshape(R, cj, B)
+
+
 def _bytes(t: torch.Tensor, name: str) -> torch.Tensor:
     if t.dtype not in (torch.bool, torch.uint8, torch.int8):
         raise TypeError(f"{name} must be bool/uint8/int8, got {t.dtype}")
@@ -138,6 +168,29 @@ def _launch_counts_batch(include, literals, R, D, cj, L, B):
         words.data_ptr(), R, D, cj, L, B, _stream(inc)),
         "clause_counts_batch")
     return viol, ninc
+
+
+def _words(t: torch.Tensor, name: str) -> torch.Tensor:
+    if t.dtype not in (torch.int32, torch.uint32):
+        raise TypeError(f"{name} must be packed int32/uint32 words, got "
+                        f"{t.dtype}")
+    return t.contiguous()
+
+
+def _launch_counts_packed(include, literals, R, D, cj, W, B):
+    """One launch of K5/K6 over include words [R, CJ, W], literal words
+    [D, B, W]."""
+    _same_device(include, literals)
+    lib = _build.library("clause_eval")
+    if lib.clause_counts_batch_smem(32 * W) > MAX_SMEM:
+        raise ValueError(f"word width {W} exceeds the batch kernel's "
+                         "shared-memory tile")
+    inc, lit = _words(include, "include"), _words(literals, "literals")
+    viol = torch.empty((R, cj, B), dtype=torch.int32, device=inc.device)
+    _build.check(lib.clause_counts_batch_packed_replicated(
+        inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), R, D, cj, W, B,
+        _stream(inc)), "clause_counts_batch_packed")
+    return viol
 
 
 def clause_counts(include: torch.Tensor, literals: torch.Tensor):
@@ -211,6 +264,45 @@ def clause_counts_batch_replicated(include: torch.Tensor,
 clause_counts_batch_replicated.launches = 0
 
 
+def clause_counts_batch_packed(include: torch.Tensor,
+                               literals: torch.Tensor) -> torch.Tensor:
+    """K5: include words [CJ, W] x literal words [B, W] -> violations
+    [CJ, B] i32."""
+    cj, W = include.shape
+    B = literals.shape[0]
+    if B < 1 or literals.shape != (B, W):
+        raise ValueError(f"literals {tuple(literals.shape)} != (B>=1, {W})")
+    if include.device.type == "cpu":
+        return clause_counts_batch_packed_plain(include, literals)
+    viol = _launch_counts_packed(include, literals, 1, 1, cj, W, B)
+    clause_counts_batch_packed.launches += 1
+    return viol[0]
+
+
+clause_counts_batch_packed.launches = 0
+
+
+def clause_counts_batch_replicated_packed(include: torch.Tensor,
+                                          literals: torch.Tensor
+                                          ) -> torch.Tensor:
+    """K6: include words [R, CJ, W] x literal words [D, B, W] (D | R,
+    replica r reads batch r % D) -> violations [R, CJ, B] i32."""
+    R, cj, W = include.shape
+    D, B = literals.shape[:2]
+    _streams(R, D)
+    if B < 1 or literals.shape != (D, B, W):
+        raise ValueError(f"literals {tuple(literals.shape)} != "
+                         f"(D, B>=1, {W})")
+    if include.device.type == "cpu":
+        return clause_counts_batch_replicated_packed_plain(include, literals)
+    viol = _launch_counts_packed(include, literals, R, D, cj, W, B)
+    clause_counts_batch_replicated_packed.launches += 1
+    return viol
+
+
+clause_counts_batch_replicated_packed.launches = 0
+
+
 def clause_eval(include: torch.Tensor, literals: torch.Tensor, *,
                 training: bool) -> torch.Tensor:
     """Kernel-backed clause outputs [C, J] bool (the ref contract)."""
@@ -254,4 +346,32 @@ def clause_eval_batch_replicated(include: torch.Tensor,
         include.reshape(R, C * J, L), literals)
     fired = (viol == 0).transpose(1, 2).reshape(R, B, C, J)
     empty = (n_inc == 0).reshape(R, 1, C, J)
+    return torch.where(empty, training, fired)
+
+
+def clause_eval_batch_packed(include_packed: torch.Tensor,
+                             literals_packed: torch.Tensor, *,
+                             training: bool) -> torch.Tensor:
+    """Kernel-backed packed batch clause outputs [B, C, J] bool (K5);
+    emptiness from the include words."""
+    C, J, W = include_packed.shape
+    B = literals_packed.shape[0]
+    viol = clause_counts_batch_packed(include_packed.reshape(C * J, W),
+                                      literals_packed)
+    fired = (viol == 0).T.reshape(B, C, J)
+    empty = ~torch.any(include_packed != 0, dim=-1)
+    return torch.where(empty[None], training, fired)
+
+
+def clause_eval_batch_replicated_packed(include_packed: torch.Tensor,
+                                        literals_packed: torch.Tensor, *,
+                                        training: bool) -> torch.Tensor:
+    """Kernel-backed packed replica-first batch outputs [R, B, C, J] bool
+    (K6); emptiness from the include words."""
+    R, C, J, W = include_packed.shape
+    B = literals_packed.shape[1]
+    viol = clause_counts_batch_replicated_packed(
+        include_packed.reshape(R, C * J, W), literals_packed)
+    fired = (viol == 0).transpose(1, 2).reshape(R, B, C, J)
+    empty = ~torch.any(include_packed != 0, dim=-1).reshape(R, 1, C, J)
     return torch.where(empty, training, fired)

@@ -1,8 +1,9 @@
 // Clause-plane counts for Hopper (sm_90a): the CUDA twins of the Pallas
-// kernels clause_counts (K1), clause_counts_batch (K2) and their
+// kernels clause_counts (K1), clause_counts_batch (K2), their
 // replica-first forms clause_counts_replicated (K3) and
-// clause_counts_batch_replicated (K4) in the reference package's
-// kernels/clause_eval.py.
+// clause_counts_batch_replicated (K4), and the bit-packed
+// clause_counts_batch_packed (K5) and clause_counts_batch_replicated_packed
+// (K6) in the reference package's kernels/clause_eval.py.
 //
 //   violations[r, cj, b] = sum_l include[r, cj, l] & ~literal[r % D, b, l]
 //   n_included[r, cj]    = sum_l include[r, cj, l]
@@ -27,6 +28,14 @@
 // stages both word tiles in shared memory and lane t counts column t as
 // sum_w popc(inc_w & ~lit_w). Each byte of the planes is read once; the
 // words are re-read from L2 once per tile.
+//
+// K5/K6 (packed words): the caller's operands are already the packed
+// planes, 32 literals a uint32 word in the two-half layout with include
+// tail bits zero, so they go straight to K2/K4's counting kernel: no pack
+// pass, and no n_included (the contract takes emptiness from the include
+// words outside the kernel). The counting loop is __popc-bound here: at
+// the serving shapes (640 rows x 1024 columns x 50 words) it issues 33 M
+// popcounts against under 3 MB of operands and output.
 //
 // Each C entry returns cudaGetLastError() so the caller sees a refused
 // launch at once.
@@ -95,7 +104,7 @@ __global__ void pack_bits_kernel(const uint8_t* __restrict__ src,
 // Counts from packed words: a block of replica r = blockIdx.z stages its
 // kRows include rows and kTB literal rows of stream r % D (contiguous in
 // the packed arrays) in shared memory, then lane t of each warp counts
-// column t for the warp's rows.
+// column t for the warp's rows. A null ninc skips n_included (K5/K6).
 __global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
                                            const uint32_t* __restrict__ litw,
                                            int32_t* __restrict__ viol,
@@ -132,7 +141,7 @@ __global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
       for (int w = 0; w < nw; ++w) v += __popc(iw[w] & ~lw[w]);
       viol[(row0 + q) * B + b0 + lane] = static_cast<int32_t>(v);
     }
-    if (blockIdx.y == 0) {
+    if (ninc != nullptr && blockIdx.y == 0) {
       unsigned n = 0;
       for (int w = lane; w < nw; w += 32) n += __popc(iw[w]);
       n = __reduce_add_sync(kFull, n);
@@ -193,5 +202,27 @@ extern "C" int clause_counts_batch_replicated(
   clause_counts_batch_kernel<<<grid, kWarps * 32, smem, st>>>(
       incw, litw, static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc),
       cj, B, D, nw, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 (R = D = 1) and K6: packed include words [R, CJ, W] and literal words
+// [D, B, W] (uint32, the same word width W) -> violations [R, CJ, B].
+// Shared memory: clause_counts_batch_smem(32 * W).
+extern "C" int clause_counts_batch_packed_replicated(
+    const void* incw, const void* litw, void* viol, int R, int D, int cj,
+    int W, int B, void* stream) {
+  const int stride = W | 1;
+  const int smem = clause_counts_batch_smem(32 * W);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        clause_counts_batch_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB, R);
+  clause_counts_batch_kernel<<<grid, kWarps * 32, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(incw), static_cast<const uint32_t*>(litw),
+      static_cast<int32_t*>(viol), nullptr, cj, B, D, W, stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,7 @@
 
 Every backend implements :class:`KernelBackend`. The entries are those of
 the reference's contract (``repro.kernels.dispatch``) that the port has
-reached; later slices add the packed and pruned entries.
+reached; a later slice adds the pruned entries.
 This module is the only place that knows which module backs which name.
 """
 from __future__ import annotations
@@ -49,6 +49,19 @@ class KernelBackend(NamedTuple):
       0-dim, n_states, s_policy, boost_true_positive) -> [R,C,J,L]`` --
       MUST equal stacking ``feedback_step(ta[r], literals[r % D], ...,
       u[r % D], s=s[r])``.
+
+    Bit-packed entries take words: int32 tensors holding the uint32 bits
+    of the reference's packed rows (:mod:`repro_torch.kernels.packing`),
+    W = 2 * ceil(f / 32) words in the two-half layout, include tail bits
+    zero:
+
+    * ``clause_eval_batch_packed(include_packed [C,J,W], literals_packed
+      [B,W], *, training) -> [B,C,J]`` -- MUST equal
+      ``clause_eval_batch`` on the corresponding unpacked operands.
+    * ``clause_eval_batch_replicated_packed(include_packed [R,C,J,W],
+      literals_packed [D,B,W], *, training) -> [R,B,C,J]`` -- the same
+      ``r % D`` rule; MUST equal ``clause_eval_batch_replicated`` on the
+      unpacked operands.
     """
 
     name: str
@@ -58,6 +71,8 @@ class KernelBackend(NamedTuple):
     clause_eval_replicated: Callable[..., torch.Tensor]
     clause_eval_batch_replicated: Callable[..., torch.Tensor]
     feedback_step_replicated: Callable[..., torch.Tensor]
+    clause_eval_batch_packed: Callable[..., torch.Tensor]
+    clause_eval_batch_replicated_packed: Callable[..., torch.Tensor]
 
 
 _FACTORIES: dict[str, Callable[[], KernelBackend]] = {}
@@ -104,6 +119,9 @@ def _make_ref() -> KernelBackend:
         clause_eval_replicated=ref.clause_eval_replicated,
         clause_eval_batch_replicated=ref.clause_eval_batch_replicated,
         feedback_step_replicated=ref.feedback_step_replicated,
+        clause_eval_batch_packed=ref.clause_eval_batch_packed,
+        clause_eval_batch_replicated_packed=(
+            ref.clause_eval_batch_replicated_packed),
     )
 
 
@@ -118,6 +136,9 @@ def _make_cuda() -> KernelBackend:
         clause_eval_replicated=ops.clause_eval_replicated,
         clause_eval_batch_replicated=ops.clause_eval_batch_replicated,
         feedback_step_replicated=ops.feedback_step_replicated,
+        clause_eval_batch_packed=ops.clause_eval_batch_packed,
+        clause_eval_batch_replicated_packed=(
+            ops.clause_eval_batch_replicated_packed),
     )
 
 

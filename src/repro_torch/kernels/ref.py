@@ -1,9 +1,13 @@
 """Plain PyTorch versions of the kernel-contract entries the port runs.
 
 The twins of ``repro.kernels.ref``'s ``clause_eval``, ``clause_eval_batch``
-and ``feedback_step`` and of their replica-first forms: the ``"ref"``
-backend on any device, and the semantic ground truth the hand-written
-kernels are held to.
+and ``feedback_step``, of their replica-first forms and of the two
+bit-packed batch entries: the ``"ref"`` backend on any device, and the
+semantic ground truth the hand-written kernels are held to.
+
+Packed words are int32 tensors holding uint32 bits
+(:mod:`repro_torch.kernels.packing`); :func:`popcount` counts their bits
+with a SWAR sum on int64.
 
 Replica-first entries follow the contract's stacking rule: per-replica
 operands carry a leading R, per-data-stream operands (literals, uniforms) a
@@ -14,6 +18,8 @@ broadcast across H and never tiled.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.packing import as_words
 
 
 def clause_eval(include: torch.Tensor, literals: torch.Tensor, *,
@@ -172,3 +178,61 @@ def feedback_step_replicated(
              + torch.where(type2_sel.reshape(H, D, C, J)[..., None], d2, 0))
     new_state = torch.clamp(ta.to(torch.int32) + delta, 1, 2 * n_states)
     return new_state.to(ta_state.dtype).reshape(R, C, J, L)
+
+
+# ---------------------------------------------------------------------------
+# Bit-packed datapath: AND + popcount over 32-bit words
+# ---------------------------------------------------------------------------
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (its uint32 pattern), as int64: a SWAR
+    sum on the word widened to int64 and masked to its 32 bits, so no
+    step overflows or sign-extends."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def packed_violations(include_packed: torch.Tensor,
+                      literals_packed: torch.Tensor) -> torch.Tensor:
+    """sum_w popcount(include[..., w] & ~literal[..., w]) over the last
+    axis, in int32; the operands broadcast against each other."""
+    inc, lit = as_words(include_packed), as_words(literals_packed)
+    return popcount(inc & ~lit).sum(-1).to(torch.int32)
+
+
+def clause_eval_batch_packed(include_packed: torch.Tensor,
+                             literals_packed: torch.Tensor, *,
+                             training: bool) -> torch.Tensor:
+    """[C, J, W] words x [B, W] words -> [B, C, J] bool.
+
+    violations[b, c, j] = sum_w popcount(include[c, j, w] & ~literal[b, w]);
+    a clause fires when that is 0 and is empty when its include words are
+    all 0. Include tail bits are zero by the packing contract, so the
+    count equals the unpacked one bit for bit and the result equals
+    :func:`clause_eval_batch` on the unpacked operands.
+    """
+    viol = packed_violations(include_packed[None],
+                             literals_packed[:, None, None, :])  # [B, C, J]
+    empty = ~torch.any(include_packed != 0, dim=-1)              # [C, J]
+    return torch.where(empty[None], training, viol == 0)
+
+
+def clause_eval_batch_replicated_packed(include_packed: torch.Tensor,
+                                        literals_packed: torch.Tensor, *,
+                                        training: bool) -> torch.Tensor:
+    """[R, C, J, W] words x [D, B, W] words -> [R, B, C, J] bool; replica r
+    reads batch r % D. Equals stacking :func:`clause_eval_batch_packed`
+    per replica, and :func:`clause_eval_batch_replicated` on the unpacked
+    operands."""
+    R, C, J, W = include_packed.shape
+    D, B, _ = literals_packed.shape
+    H = _streams(R, D)
+    inc = include_packed.reshape(H, D, 1, C, J, W)
+    lit = literals_packed[None, :, :, None, None, :]          # [1, D, B, 1, 1, W]
+    viol = packed_violations(inc, lit)                        # [H, D, B, C, J]
+    empty = ~torch.any(include_packed != 0, dim=-1).reshape(H, D, 1, C, J)
+    return torch.where(empty, training, viol == 0).reshape(R, B, C, J)

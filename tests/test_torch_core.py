@@ -153,11 +153,22 @@ def test_convert_round_trip():
 
 
 def test_packed_rows_raise():
-    _, tc = _cfgs("cuda")
-    ts = t_tm.init_state(tc, device="cpu")
-    tr = t_tm.init_runtime(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="packed"):
-        t_tm.predict_batch(tc, ts, tr, torch.zeros(2, 1, dtype=torch.uint32))
+    """Packed rows route by the word dtype (the port's int32 words, or
+    torch.uint32) to the packed entry and predict what the reference's
+    packed route predicts; words of the wrong width raise."""
+    from repro.kernels import packing as j_packing
+    from repro_torch.kernels import packing as t_packing
+
+    (jc, js, jr), (tc, ts, tr) = _machines(5, "cuda")
+    xs, _ = j_iris.load()
+    words = j_packing.pack_bits_np(xs)                 # [150, 1] np.uint32
+    want = np.asarray(j_tm.predict_batch(jc, js, jr, jnp.asarray(words)))
+    tw = t_packing.words_from_numpy(words)
+    for rows in (tw, tw.view(torch.uint32)):
+        assert np.array_equal(t_tm.predict_batch(tc, ts, tr, rows).numpy(),
+                              want)
+    with pytest.raises((ValueError, RuntimeError)):
+        t_tm.predict_batch(tc, ts, tr, torch.zeros(2, 3, dtype=torch.int32))
 
 
 def test_analyze_and_history_match_reference():

@@ -259,8 +259,8 @@ def test_system_matches_reference(osets, cfg):
 
 def test_predict_batch_replicated_matches_reference(osets):
     """The replica-first inference entry (K4 through the contract) on a
-    trained [R = 2 * O] bank with a class masked out, and the packed-row
-    refusal."""
+    trained [R = 2 * O] bank with a class masked out, and its packed
+    route (K6): the same rows as words predict the same classes."""
     cfg, st, rt = _trained_state(osets)
     rt = rt._replace(class_mask=torch.tensor([True, False, True]))
     xs = osets.online_x                                     # [O, 60, 16]
@@ -273,6 +273,7 @@ def test_predict_batch_replicated_matches_reference(osets):
         jnp.asarray(xs))
     assert got.shape == (2 * O, 60) and not bool((got == 1).any())
     assert np.array_equal(np.asarray(want), got.numpy())
-    with pytest.raises(NotImplementedError, match="packed"):
-        t_tm.predict_batch_replicated(
-            cfg, st, rt, torch.zeros((O, 4, 1), dtype=torch.uint32))
+    from repro_torch.kernels import packing
+
+    words = packing.pack_bits(torch.from_numpy(xs))         # [O, 60, 1]
+    assert torch.equal(t_tm.predict_batch_replicated(cfg, st, rt, words), got)

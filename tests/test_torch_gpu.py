@@ -215,3 +215,97 @@ def test_run_system_through_kernels_equals_plain(cuda):
         out[backend] = [t.cpu() for t in (single[0].ta_state, *single[1:],
                                           many[0].ta_state, *many[1:])]
     assert all(torch.equal(a, b) for a, b in zip(out["cuda"], out["ref"]))
+
+
+# Packed shapes (f, CJ): W = 2 * ceil(f / 32) words per literal row.
+PACKED_SHAPES = [(16, 12), (33, 48), (49, 48), (784, 640)]
+# (R, D) grids for K6 at the MNIST width.
+PACKED_RD = [(1, 1), (4, 2), (3, 3), (16, 16), (16, 1)]
+
+
+def _packed_case(rng, f, cj, lead_inc, lead_lit, B, cuda):
+    from repro_torch.kernels import packing
+
+    inc = rng.random(lead_inc + (cj, 2 * f)) < 0.05
+    inc[..., 0, :] = False                    # an empty clause row
+    inc[..., 1, :] = True                     # an all-include row
+    x = rng.random(lead_lit + (B, f)) < 0.5
+    lits = np.concatenate([x, ~x], -1)
+    inc_t, x_t = torch.from_numpy(inc).to(cuda), torch.from_numpy(x).to(cuda)
+    return (packing.pack_include(inc_t, f), packing.pack_literals(x_t),
+            inc_t, torch.from_numpy(lits).to(cuda))
+
+
+@pytest.mark.parametrize("f,cj", PACKED_SHAPES)
+def test_packed_count_kernel_equals_plain_and_unpacked(cuda, f, cj):
+    """K5 against its plain version and against K2 on the unpacked
+    operands."""
+    from repro_torch.kernels import clause_eval as ce
+
+    rng = np.random.default_rng([f, cj])
+    for B in (1, 7, 150, 1024):
+        inc_w, lit_w, inc, lits = _packed_case(rng, f, cj, (), (), B, cuda)
+        before = ce.clause_counts_batch_packed.launches
+        got = ce.clause_counts_batch_packed(inc_w, lit_w)
+        assert ce.clause_counts_batch_packed.launches == before + 1
+        assert torch.equal(got, ce.clause_counts_batch_packed_plain(inc_w,
+                                                                    lit_w))
+        assert torch.equal(got, ce.clause_counts_batch(inc, lits)[0])
+
+
+@pytest.mark.parametrize("RD", PACKED_RD)
+def test_packed_replicated_count_kernel_equals_plain_and_unpacked(cuda, RD):
+    """K6 at 640 x 50 words against its plain version and K4."""
+    from repro_torch.kernels import clause_eval as ce
+
+    R, D = RD
+    rng = np.random.default_rng([R, D])
+    for B in (1, 150):
+        inc_w, lit_w, inc, lits = _packed_case(rng, 784, 640, (R,), (D,), B,
+                                               cuda)
+        before = ce.clause_counts_batch_replicated_packed.launches
+        got = ce.clause_counts_batch_replicated_packed(inc_w, lit_w)
+        assert ce.clause_counts_batch_replicated_packed.launches == before + 1
+        assert torch.equal(got, ce.clause_counts_batch_replicated_packed_plain(
+            inc_w, lit_w))
+        assert torch.equal(got, ce.clause_counts_batch_replicated(inc,
+                                                                  lits)[0])
+
+
+def test_packed_fleet_through_kernels_equals_plain(cuda):
+    """A packed K = 3 fleet with per-replica ports on the card: backend
+    "cuda" (K3/K9 training, K6 monitoring/serving/analysis) against
+    backend "ref", bit for bit."""
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import init_state
+    from repro_torch.data import iris
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.serve import AdaptPolicy, ServiceConfig, TMService
+
+    xs, ys = iris.load()
+    out = {}
+    for backend in ("cuda", "ref"):
+        cfg = dataclasses.replace(CONFIG.tm, backend=backend)
+        svc = TMService(cfg, init_state(cfg, device=cuda), ServiceConfig(
+            replicas=3, packed=True, chunk=4, buffer_capacity=16,
+            s=[1.375, 3.0, 5.0], T=[5, 15, 10], seed=[1, 2, 3],
+            policy=AdaptPolicy(8)), eval_x=xs[100:], eval_y=ys[100:],
+            device=cuda)
+        before = ce.clause_counts_batch_replicated_packed.launches
+        svc.offline_train(xs[:30], ys[:30], n_epochs=2)
+        chunks = []
+        for i in range(30, 70):
+            svc.submit_rows(xs[i], int(ys[i]))
+            if i % 4 == 3:
+                svc.tick(on_chunk=chunks.append)
+        served = svc.serve(xs[:50])
+        out[backend] = (svc.ss.tm.ta_state.cpu(), svc.rng_keys, served,
+                        [a.cpu() for c in chunks for a in c],
+                        [h[1].tolist() for h in svc.history],
+                        ce.clause_counts_batch_replicated_packed.launches
+                        - before)
+    a, r = out["cuda"], out["ref"]
+    assert torch.equal(a[0], r[0]) and np.array_equal(a[1], r[1])
+    assert np.array_equal(a[2], r[2]) and a[4] == r[4]
+    assert all(torch.equal(x, y) for x, y in zip(a[3], r[3]))
+    assert a[5] > 0 and r[5] == 0

@@ -104,3 +104,36 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
+
+
+def test_scan_covers_the_fleet_and_packed_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"kernels/packing.py", "serve/fleet.py", "serve/online_adapt.py",
+            "data/buffer.py", "serve/router.py", "convert.py"} <= names
+
+
+def test_fleet_entry_points_default_to_cuda(no_cuda):
+    from repro_torch import convert
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import init_runtime, init_state
+    from repro_torch.serve import (OnlineFleet, ServiceConfig,
+                                   TMFleetAdaptManager, TMService)
+
+    cfg = CONFIG.tm
+    state = init_state(cfg, device="cpu")
+    rt = init_runtime(cfg, device="cpu")
+    xs = np.zeros((4, 16), dtype=bool)
+    ys = np.zeros(4, dtype=np.int32)
+    for call in (
+            lambda: TMService(cfg, state, ServiceConfig(replicas=3,
+                                                        packed=True)),
+            lambda: OnlineFleet(cfg, state, rt, n_replicas=2),
+            lambda: TMFleetAdaptManager(cfg, state, rt, xs, ys,
+                                        n_replicas=2),
+            lambda: convert.words_from_numpy(np.zeros(2, np.uint32))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    svc = TMService(cfg, state, ServiceConfig(replicas=3, packed=True),
+                    device="cpu")
+    assert svc.serve(xs).shape == (3, 4)

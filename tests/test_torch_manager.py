@@ -210,5 +210,8 @@ def test_faults_helpers():
     cleared = t_faults.clear(T_CFG, even)
     assert bool(cleared.ta_and_mask.all()) and not bool(
         cleared.ta_or_mask.any())
-    with pytest.raises(NotImplementedError, match="packed"):
-        t_faults.packed_masks(T_CFG, rt)
+    # the packed masks (the packed datapath) equal the reference's words
+    j_rt = j_faults.inject(j_tm.init_runtime(J_CFG), j_and, j_or)
+    for got, want in zip(t_faults.packed_masks(T_CFG, even),
+                         j_faults.packed_masks(J_CFG, j_rt)):
+        assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))

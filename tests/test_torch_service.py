@@ -173,11 +173,25 @@ def test_online_session_shim_matches_reference():
 
 
 @pytest.mark.parametrize("sc", [
-    dict(replicas=2), dict(packed=True), dict(resident=1),
-    dict(tunable=object()), dict(s=[1.0]),
+    dict(resident=1), dict(resident="auto"), dict(replicas=4, resident=2),
+    dict(tunable=object()), dict(mesh=object()),
 ])
 def test_later_slices_raise(sc):
+    """Fleets, packing and per-replica ports are served (see
+    test_torch_fleet.py); residency, meshes and tunable serving still
+    raise, naming their slice."""
     cfg = T_IRIS.tm
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice|not ported"):
         TService(cfg, t_init_state(cfg, device="cpu"), TConfig(**sc),
                  device="cpu")
+
+
+def test_durable_state_raises():
+    """save/load/restore carry the residency manifest: a later slice."""
+    cfg = T_IRIS.tm
+    svc = TService(cfg, t_init_state(cfg, device="cpu"), TConfig(replicas=2),
+                   device="cpu")
+    for call in (lambda: svc.save("ckpt"), lambda: svc.load("ckpt"),
+                 lambda: TService.restore("ckpt")):
+        with pytest.raises(NotImplementedError, match="residency slice"):
+            call()
