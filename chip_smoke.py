@@ -25,7 +25,15 @@ Phases, each with its seconds:
    f {16, 31, 33, 49, 196, 784} x CJ {12, 48, 640} x B {1, 7, 150, 1024}
    and (R, D) {(1, 1), (4, 2), (3, 3), (16, 16), (16, 1)}, each bank with
    an all-empty and an all-include clause row; K5 and K6 timed beside K2/K4
-   and their plain versions, bound by their popcounts;
+   and their plain versions, bound by their popcounts. Then
+   ``phase_parity_pruned``: K7, the four pruned entries
+   ``clause_counts_batch_pruned{,_packed,_replicated,_replicated_packed}``,
+   against their plain versions, against the gather + K2/K4/K5/K6 kernels
+   and packed against unpacked, at f {16, 31, 33, 784} x (R, D) {(1, 1),
+   (4, 2), (16, 1), (16, 16)} x B {1, 7, 250, 1024} x M {1, 64, 128}
+   (permutation prefixes and ids with repeats) on the OVERPROVISIONED
+   10 x 128 clause plane; timed at f = 784, B = 1024, M = 32 and 128,
+   beside gather + K2/K4/K5/K6 and the full-bank kernel;
 4. service -- the K = 1 ``TMService`` at the full MNIST width (f = 784):
    offline_train, submit + tick until drained with an ``on_chunk``
    monitor, and a 1024-row serve, through the kernels (backend "auto");
@@ -54,12 +62,26 @@ Phases, each with its seconds:
    then ``fleet_iris``: the reference's fleet geometry (K = 8 iris
    machines, 64 points, chunk 16) through ``OnlineFleet`` ("auto" and
    "ref") and through 8 K = 1 services, all bitwise equal;
-8. profile -- torch.profiler over one more 16-point drain chunk of the
+8. tunable -- runtime-tunable serving: the OVERPROVISIONED preset (f =
+   784, J = 128) as a K = 16 fleet (4 x 4 s x T), offline-trained 200
+   rows x 2 epochs, calibrated on the train split, serving the 250-row
+   test split and a 1024-row batch at budgets {1, 0.5, 0.25, 0.125} x
+   weight_bits {0, 4} x early exit {off, group 16}: "auto" unpacked and
+   packed, "ref" unpacked, all bitwise equal; budget 1.0 with unit
+   weights equal to plain serve; ``serve_replicas`` equal to those rows;
+   member 0 through ``predict_batch_pruned``/``analyze_pruned``; save ->
+   restore -> serve and -> one drained tick equal to never stopping; the
+   adapt rule sheds and recovers the budget. Then ``traffic``: the iris
+   service at the reference's traffic geometry (K = 4 producers) with an
+   adapting tuner, steady and fault_injected threaded on the card, each
+   replayed from one thread to the same fingerprint;
+9. profile -- torch.profiler over one more 16-point drain chunk of the
    service, over one offline epoch of the f = 784, O = 8 engine, and over
    one drain chunk of the K = 16 fleet: wall time, device busy time, idle
    share, launches (per step) and the top kernels;
-9. kernels -- one JSON line with each kernel's launches (phase 4 for K1,
-   K2, K5, K8; phase 6 for K3, K4, K9; phase 7 for K6), error and times.
+10. kernels -- one JSON line with each kernel's launches (phase 4 for K1,
+   K2, K5, K8; phase 6 for K3, K4, K9; phase 7 for K6; phase 8 for the
+   four K7 entries), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits nonzero. Without a CUDA device, or without the
@@ -100,6 +122,12 @@ PACKED_RD = ((1, 1), (4, 2), (3, 3), (16, 16), (16, 1))
 FLEET_K = 16
 FLEET_S = (2.0, 3.0, 3.9, 5.0)          # a 4 x 4 grid of per-replica ports
 FLEET_T = (10, 15, 20, 25)
+# K7 parity grid: the OVERPROVISIONED clause plane (10 classes x 128
+# clauses) at f {16, 31, 33, 784}, (R, D) and B as listed.
+PRUNED_C, PRUNED_J = 10, 128
+PRUNED_F = (16, 31, 33, 784)
+PRUNED_RD = ((1, 1), (4, 2), (16, 1), (16, 16))
+PRUNED_B = (1, 7, 250, 1024)
 
 
 def fail(msg: str) -> None:
@@ -145,22 +173,27 @@ def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def wrappers(ce, fb) -> tuple:
+    """Every kernel wrapper (each counts its own launches)."""
+    return (ce.clause_counts, ce.clause_counts_batch,
+            ce.clause_counts_replicated, ce.clause_counts_batch_replicated,
+            ce.clause_counts_batch_packed,
+            ce.clause_counts_batch_replicated_packed,
+            ce.clause_counts_batch_pruned,
+            ce.clause_counts_batch_pruned_replicated,
+            ce.clause_counts_batch_pruned_packed,
+            ce.clause_counts_batch_pruned_replicated_packed,
+            fb.feedback_plane, fb.feedback_plane_replicated)
+
+
 def zero_counters(ce, fb) -> None:
     """Every kernel wrapper's launch count to 0."""
-    for k in (ce.clause_counts, ce.clause_counts_batch,
-              ce.clause_counts_replicated, ce.clause_counts_batch_replicated,
-              ce.clause_counts_batch_packed,
-              ce.clause_counts_batch_replicated_packed, fb.feedback_plane,
-              fb.feedback_plane_replicated):
+    for k in wrappers(ce, fb):
         k.launches = 0
 
 
 def counters(ce, fb) -> dict:
-    return {k.__name__: k.launches for k in (
-        ce.clause_counts, ce.clause_counts_batch, ce.clause_counts_replicated,
-        ce.clause_counts_batch_replicated, ce.clause_counts_batch_packed,
-        ce.clause_counts_batch_replicated_packed, fb.feedback_plane,
-        fb.feedback_plane_replicated)}
+    return {k.__name__: k.launches for k in wrappers(ce, fb)}
 
 
 def popc_per_s(torch) -> float:
@@ -1166,6 +1199,497 @@ def phase_profile(torch, np):
         for e in top), flush=True)
 
 
+def phase_parity_pruned(torch, np, ce):
+    """K7, the four pruned entries, against their plain versions, against
+    the gather + K2/K4/K5/K6 kernels on the compacted bank, and packed
+    against unpacked, with ``torch.equal``; then timed at the
+    OVERPROVISIONED f = 784 shapes (C = 10, J = 128, B = 1024; K = 1 and
+    the K = 16 fleet, D = 1) at M = 32 and M = 128, beside gather + K2/K4/
+    K5/K6 and the full-bank kernel. Returns the four kernel records."""
+    from repro_torch.kernels import packing
+    from repro_torch.kernels.ref import gather_include
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 14)
+    C, J = PRUNED_C, PRUNED_J
+    names = ("clause_counts_batch_pruned", "clause_counts_batch_pruned_packed",
+             "clause_counts_batch_pruned_replicated",
+             "clause_counts_batch_pruned_replicated_packed")
+    err = {k: 0 for k in names}
+    n_checks = {k: 0 for k in names}
+
+    def operands(R, D, f, B):
+        inc = torch.from_numpy(rng.random((R, C, J, 2 * f)) < 0.05).to(dev)
+        inc[:, :, 0, :] = False                 # an all-empty clause row
+        inc[:, :, -1, :] = True                 # an all-include row
+        x = torch.from_numpy(rng.random((D, B, f)) < 0.5).to(dev)
+        return (inc, torch.cat([x, ~x], -1), packing.pack_include(inc, f),
+                packing.pack_literals(x))
+
+    def sels(R):
+        """[R, C, M] on the card: permutation prefixes at M = 1, J/2, J
+        and ids with repeats at M = J/2 and J."""
+        out = []
+        for M in (1, J // 2, J):
+            out.append(np.stack([np.stack([rng.permutation(J)[:M]
+                                           for _ in range(C)])
+                                 for _ in range(R)]))
+        for M in (J // 2, J):
+            rep = rng.integers(0, J, (R, C, M))
+            rep[..., -1] = rep[..., 0]
+            out.append(rep)
+        return [torch.from_numpy(a.astype(np.int32)).to(dev) for a in out]
+
+    def hold(name, got, wants, what):
+        ok = all(torch.equal(g, w) for want in wants
+                 for g, w in zip(got, want))
+        err[name] = max(err[name], *(
+            int((g.long() - w.long()).abs().max()) for want in wants
+            for g, w in zip(got, want)))
+        n_checks[name] += 1
+        check(ok, f"{name} differs from its plain version, the gather + "
+                  f"kernel route or the other datapath at {what}")
+
+    for f in PRUNED_F:
+        for R, D in PRUNED_RD:
+            for B in PRUNED_B:
+                inc, lits, inc_w, lit_w = operands(R, D, f, B)
+                for sel in sels(R):
+                    M = sel.shape[-1]
+                    what = f"f={f} R={R} D={D} B={B} M={M}"
+                    got = ce.clause_counts_batch_pruned_replicated(inc, sel,
+                                                                   lits)
+                    gotw = ce.clause_counts_batch_pruned_replicated_packed(
+                        inc_w, sel, lit_w)
+                    gath = ce.clause_counts_batch_replicated(
+                        gather_include(inc, sel).reshape(R, C * M, -1), lits)
+                    gathw = ce.clause_counts_batch_replicated_packed(
+                        gather_include(inc_w, sel).reshape(R, C * M, -1),
+                        lit_w)
+                    # plain versions replica by replica: the packed one's
+                    # SWAR temporaries grow with R * C * M * B * W
+                    plain = [ce.clause_counts_batch_pruned_replicated_plain(
+                        inc[r:r + 1], sel[r:r + 1],
+                        lits[r % D:r % D + 1]) for r in range(R)]
+                    plainw = [
+                        ce.clause_counts_batch_pruned_replicated_packed_plain(
+                            inc_w[r:r + 1], sel[r:r + 1],
+                            lit_w[r % D:r % D + 1]) for r in range(R)]
+                    torch.cuda.synchronize()
+                    plain = [torch.cat([p[i] for p in plain])
+                             for i in range(2)]
+                    plainw = torch.cat(plainw)
+                    hold(names[2], got, [plain, gath], what)
+                    hold(names[3], [gotw], [[plainw], [gathw], [got[0]]],
+                         what)
+                    if R == 1:
+                        one = ce.clause_counts_batch_pruned(inc[0], sel[0],
+                                                            lits[0])
+                        onew = ce.clause_counts_batch_pruned_packed(
+                            inc_w[0], sel[0], lit_w[0])
+                        torch.cuda.synchronize()
+                        hold(names[0], one, [[got[0][0], got[1][0]],
+                                             ce.clause_counts_batch_pruned_plain(
+                                                 inc[0], sel[0], lits[0])],
+                             what)
+                        hold(names[1], [onew], [
+                            [gotw[0]],
+                            [ce.clause_counts_batch_pruned_packed_plain(
+                                inc_w[0], sel[0], lit_w[0])]], what)
+            print(f"parity K7 pruned f={f} (R, D) {PRUNED_RD} x B "
+                  f"{PRUNED_B} x M {{1, {J // 2}, {J}}} (prefixes and "
+                  "repeats) equal=True", flush=True)
+    print(f"parity pruned checks: {json.dumps(n_checks)}", flush=True)
+
+    rate = popc_per_s(torch)
+    f, B = 784, 1024
+    recs = []
+    for name, replaces, R, packed in (
+        (names[0], "src/repro/kernels/clause_eval.py:524", 1, False),
+        (names[1], "src/repro/kernels/clause_eval.py:546", 1, True),
+        (names[2], "src/repro/kernels/clause_eval.py:535", FLEET_K, False),
+        (names[3], "src/repro/kernels/clause_eval.py:557", FLEET_K, True),
+    ):
+        inc, lits, inc_w, lit_w = operands(R, 1, f, B)
+        bank, lit = (inc_w, lit_w) if packed else (inc, lits)
+        W = inc_w.shape[-1]
+        full_fn = (ce.clause_counts_batch_replicated_packed if packed
+                   else ce.clause_counts_batch_replicated)
+        kern_fn = getattr(ce, name)
+        plain_fn = getattr(ce, name + "_plain")
+        rec = None
+        for M in (J // 4, J):        # budgets 0.25 and 1.0
+            sel = torch.from_numpy(np.stack([np.stack([
+                rng.permutation(J)[:M] for _ in range(C)])
+                for _ in range(R)]).astype(np.int32)).to(dev)
+            if R == 1:
+                args = (bank[0], sel[0], lit[0])
+            else:
+                args = (bank, sel, lit)
+            kern_ms = time_ms(torch, lambda: kern_fn(*args))
+            gather_ms = time_ms(torch, lambda: full_fn(
+                gather_include(bank, sel).reshape(R, C * M, -1), lit))
+            full_ms = time_ms(torch, lambda: full_fn(
+                bank.reshape(R, C * J, -1), lit))
+            nbytes = (R * C * M * (W * 4 if packed else 2 * f) + R * C * M * 4
+                      + B * (W * 4 if packed else 2 * f) + R * C * M * B * 4
+                      + (0 if packed else R * C * M * 4))
+            # the popcounts the kernel runs: W words a row packed, and
+            # ceil(2f / 32) words for the rows the byte path packs itself
+            ops = R * C * M * B * (W if packed else -(-2 * f // 32))
+            b_ms, b_by = bound(nbytes, ops, rate)
+            plain_ms = (time_ms(torch, lambda: plain_fn(*args), inner=2,
+                                reps=5) if M < J else None)
+            print(f"time {name} (R={R} D=1 C={C} J={J} M={M} f={f} B={B}): "
+                  f"kernel {kern_ms:.5f} ms, plain "
+                  f"{'not measured' if plain_ms is None else f'{plain_ms:.5f} ms'}"
+                  f", gather + {'K6' if packed else 'K4'} {gather_ms:.5f} ms, "
+                  f"full-bank {'K6' if packed else 'K4'} {full_ms:.5f} ms, "
+                  f"library None, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
+                  f"{ops} popcounts at {rate:.4g}/s)", flush=True)
+            if M < J:
+                rec = {
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/clause_eval.cu",
+                    "replaces": replaces, "launches": 0,
+                    "max_abs_err": err[name], "ms": kern_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None, "shape": f"R={R} C={C} J={J} M={M} "
+                    f"f={f} B={B}", "gather_then_kernel_ms": gather_ms,
+                    "full_bank_kernel_ms": full_ms}
+            else:
+                rec.update(ms_full_budget=kern_ms, bound_ms_full_budget=b_ms,
+                           gather_then_kernel_ms_full_budget=gather_ms)
+        recs.append(rec)
+    return recs
+
+
+def _tunable_service(torch, cfg, bank, tc, packed, backend, data):
+    """A K = 16 tunable fleet on the trained ``bank`` with the 4 x 4 s x T
+    grid, calibrated on the train split."""
+    from repro_torch.core.tm import TMState
+    from repro_torch.serve import ServiceConfig, TMService
+
+    tr_x, tr_y = data[:2]
+    svc = TMService(
+        dataclasses.replace(cfg, backend=backend), TMState(bank.clone()),
+        ServiceConfig(replicas=FLEET_K, packed=packed, buffer_capacity=64,
+                      chunk=16, s=[s for s in FLEET_S for _ in FLEET_T],
+                      T=[t for _ in FLEET_S for t in FLEET_T], seed=SEED,
+                      tunable=tc),
+        eval_x=tr_x, eval_y=tr_y, device="cuda")
+    svc.calibrate(tr_x, tr_y)
+    return svc
+
+
+def phase_tunable(torch, np, ce, fb):
+    """Runtime-tunable serving at full width: configs/tm_mnist.
+    OVERPROVISIONED (f = 784, C = 10, J = 128) as a K = 16 fleet with a
+    4 x 4 s x T grid on procedural MNIST, offline-trained 200 rows x 2
+    epochs (cut from the preset's 10), calibrated on the 200-row train
+    split; the 250-row test split and a 1024-row batch served at budgets
+    {1, 0.5, 0.25, 0.125} x weight_bits {0, 4} x early exit {off, group
+    16}, unpacked and packed through the kernels ("auto") and unpacked on
+    "ref"; then member 0 as one machine through the reference benchmark's
+    K = 1 measurement (``predict_batch_pruned``, ``analyze_pruned``), the
+    save -> restore continuation and the adapt rule. Returns the K7
+    launches of this run."""
+    from repro_torch import random as rnd
+    from repro_torch.configs import tm_mnist
+    from repro_torch.core import accuracy as acc_mod
+    from repro_torch.core import init_state
+    from repro_torch.core import tm as tm_mod
+    from repro_torch.data import mnist
+    from repro_torch.serve import ServiceConfig, TMService, TunableConfig
+    from repro_torch.serve.tunable import m_for_budget
+
+    cfg = tm_mnist.OVERPROVISIONED.tm
+    check(cfg.n_features == 784 and cfg.max_clauses == 128
+          and cfg.max_classes == 10, "OVERPROVISIONED is not f=784, J=128")
+    tr_x, tr_y, te_x, te_y = mnist.splits(n_train=200, n_test=250, seed=SEED)
+    big, _ = mnist.load(seed=SEED + 9, n_points=1024)
+    data = (tr_x, tr_y, te_x, te_y, big)
+    K, J = FLEET_K, cfg.max_clauses
+    K7 = ("clause_counts_batch_pruned", "clause_counts_batch_pruned_packed",
+          "clause_counts_batch_pruned_replicated",
+          "clause_counts_batch_pruned_replicated_packed")
+    expect = dict.fromkeys(K7, 0)
+
+    def k7_call(what, fn, name=None, group=None):
+        """Run ``fn`` and hold its K7 launches to the count its path
+        implies: none on backend "ref" (``name`` None), one of ``name``
+        without early exit, and with it one a ranked group that the
+        slowest request needed, ceil(max evaluated / group) (``fn`` then
+        returns ``(preds, aux)``). Returns (``fn``'s result, launches)."""
+        before = counters(ce, fb)
+        out = fn()
+        after = counters(ce, fb)
+        got = {k: after[k] - before[k] for k in K7}
+        want = dict.fromkeys(K7, 0)
+        if name is not None:
+            want[name] = (1 if group is None
+                          else -(-int(out[1].evaluated.max()) // group))
+        check(got == want, f"{what}: K7 launches {got}, expected {want}")
+        for k in K7:
+            expect[k] += want[k]
+        return out, sum(got.values())
+
+    zero_counters(ce, fb)
+    t0 = time.perf_counter()
+    trainer = TMService(
+        cfg, init_state(cfg, rnd.PRNGKey(SEED, "cuda"), device="cuda"),
+        ServiceConfig(replicas=K, s=[s for s in FLEET_S for _ in FLEET_T],
+                      T=[t for _ in FLEET_S for t in FLEET_T], seed=SEED),
+        eval_x=te_x, eval_y=te_y, device="cuda")
+    base = trainer.offline_train(tr_x, tr_y, n_epochs=2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    bank = trainer.ss.tm.ta_state
+    print(f"tunable fleet K={K} f={cfg.n_features} J={J}: offline 200 rows "
+          f"x 2 epochs "
+          f"{train_s:.2f} s ({2 * 200 * K / train_s:.1f} replica-points/s), "
+          f"held-out acc {np.round(base, 4).tolist()}", flush=True)
+    plain = {name: trainer.serve(x) for name, x in (("test", te_x),
+                                                    ("big", big))}
+
+    BUDGETS = (1.0, 0.5, 0.25, 0.125)
+    runs = {}
+    for variant, packed, backend in (("auto", False, "auto"),
+                                     ("packed", True, "auto"),
+                                     ("ref", False, "ref")):
+        for wb in (0, 4):
+            for group in (None, 16):
+                tc = TunableConfig(budget=1.0, weight_bits=wb,
+                                   early_exit=group is not None,
+                                   group=group or 16)
+                svc = _tunable_service(torch, cfg, bank, tc, packed, backend,
+                                       data)
+                k7_name = (None if backend == "ref" else K7[3] if packed
+                           else K7[2])
+                for b in BUDGETS:
+                    for name, x in (("test", te_x), ("big", big)):
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        (preds, aux), k7 = k7_call(
+                            f"tunable {variant} wb={wb} exit={group} "
+                            f"budget={b} {name}",
+                            lambda: svc.serve(x, budget=b, return_aux=True),
+                            k7_name, group)
+                        ms = (time.perf_counter() - t) * 1e3
+                        runs[(variant, wb, group, b, name)] = (
+                            preds, aux.evaluated, ms, k7, svc.tuner.order,
+                            svc.tuner.weights)
+    # the checks
+    for key, (preds, ev, ms, k7, order, w) in runs.items():
+        variant, wb, group, b, name = key
+        ref = runs[("ref", wb, group, b, name)]
+        check(np.array_equal(preds, ref[0]) and np.array_equal(ev, ref[1])
+              and np.array_equal(order, ref[4])
+              and (w is None) == (ref[5] is None)
+              and (w is None or np.array_equal(w, ref[5])),
+              f"tunable {key}: differs from backend 'ref'")
+        un = runs[("auto", wb, group, b, name)]
+        check(np.array_equal(preds, un[0]) and np.array_equal(ev, un[1]),
+              f"tunable {key}: packed differs from unpacked")
+        off = runs[(variant, wb, None, b, name)]
+        check(np.array_equal(preds, off[0]),
+              f"tunable {key}: early exit changed a prediction")
+        check(preds.shape == (FLEET_K, len(ev[0])) and preds.min() >= 0
+              and preds.max() < cfg.max_classes, f"tunable {key}: malformed")
+    for name in ("test", "big"):
+        for variant in ("auto", "packed", "ref"):
+            check(np.array_equal(runs[(variant, 0, None, 1.0, name)][0],
+                                 plain[name]),
+                  f"tunable {variant} {name}: budget 1.0 with unit weights "
+                  "and no exit differs from plain serve")
+    for wb in (0, 4):
+        for group in (None, 16):
+            for b in BUDGETS:
+                row = runs[("auto", wb, group, b, "test")]
+                acc = float((row[0] == te_y[None]).mean())
+                big_row = runs[("auto", wb, group, b, "big")]
+                pk = runs[("packed", wb, group, b, "big")]
+                print(f"tunable serve wb={wb} exit={group} budget={b}: "
+                      f"test acc {acc:.4f} (mean of {K}), mean evaluated "
+                      f"{row[1].mean():.2f} / {m_for_budget(b, J)}; serve(250) "
+                      f"{row[2]:.3f} ms, serve(1024) {big_row[2]:.3f} ms "
+                      f"(packed {pk[2]:.3f} ms, ref "
+                      f"{runs[('ref', wb, group, b, 'big')][2]:.3f} ms), "
+                      f"K7 launches per call {big_row[3]}", flush=True)
+
+    # serve_replicas on a subset: those rows of serve
+    svc = _tunable_service(torch, cfg, bank, TunableConfig(
+        budget=0.25, weight_bits=4, early_exit=True, group=16), False,
+        "auto", data)
+    sub = [K - 1, K // 4, K // 2]
+    (whole, _), _ = k7_call("tunable serve", lambda: svc.serve(
+        big, return_aux=True), K7[2], 16)
+    (part, _), _ = k7_call("tunable serve_replicas",
+                           lambda: svc.serve_replicas(sub, big,
+                                                      return_aux=True),
+                           K7[2], 16)
+    check(np.array_equal(part, whole[sub]),
+          "tunable: serve_replicas differs from those rows of serve")
+
+    # member 0 as one machine: the reference benchmark's K = 1 curve
+    # (predict_batch_pruned on the 1024 rows, analyze_pruned on the test
+    # split), unpacked and packed
+    from repro_torch.kernels import packing
+    tm0 = tm_mod.TMState(bank[0])
+    rt0 = tm_mod.init_runtime(cfg, device="cuda")
+    order0 = svc.tuner.order[0]
+    xs_u = torch.from_numpy(big).to("cuda")
+    xs_p = packing.pack_bits(xs_u)
+    te_u = torch.from_numpy(te_x).to("cuda")
+    te_p = packing.pack_bits(te_u)
+    te_yt = torch.from_numpy(te_y.astype(np.int32)).to("cuda")
+    for b in BUDGETS:
+        m = m_for_budget(b, J)
+        sel = torch.from_numpy(np.ascontiguousarray(order0[:, :m]))
+        what = f"K = 1 pruned budget {b}"
+        pu, _ = k7_call(what, lambda: tm_mod.predict_batch_pruned(
+            cfg, tm0, rt0, xs_u, sel), K7[0])
+        pp, _ = k7_call(what, lambda: tm_mod.predict_batch_pruned(
+            cfg, tm0, rt0, xs_p, sel), K7[1])
+        au, _ = k7_call(what, lambda: acc_mod.analyze_pruned(
+            cfg, tm0, rt0, te_u, te_yt, sel), K7[0])
+        ap, _ = k7_call(what, lambda: acc_mod.analyze_pruned(
+            cfg, tm0, rt0, te_p, te_yt, sel), K7[1])
+        check(torch.equal(pu, pp) and torch.equal(au, ap),
+              f"K = 1 pruned: packed differs from unpacked at budget {b}")
+        if b == 1.0:
+            full = tm_mod.predict_batch(cfg, tm0, rt0, xs_u)
+            check(torch.equal(pu, full), "K = 1 pruned at budget 1.0 "
+                  "differs from predict_batch")
+        print(f"tunable K=1 member 0 budget={b} (M={m}): held-out acc "
+              f"{float(au):.4f} (analyze_pruned)", flush=True)
+
+    # save -> restore -> serve and -> one drained tick == never stopping
+    import tempfile
+    svc = _tunable_service(torch, cfg, bank, TunableConfig(
+        budget=0.5, weight_bits=4, early_exit=True, group=16), True, "auto",
+        data)
+    rows = np.arange(K * 8).reshape(K, 8) % 200
+    for i in range(8):
+        svc.submit_rows(tr_x[rows[:, i]], tr_y[rows[:, i]])
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        t = time.perf_counter()
+        svc.save(d)
+        t_save = time.perf_counter() - t
+        t = time.perf_counter()
+        other = TMService.restore(d, eval_x=tr_x, eval_y=tr_y, device="cuda")
+        t_restore = time.perf_counter() - t
+    def serve_big(s):
+        return k7_call("tunable restored serve", lambda: s.serve(
+            big, return_aux=True), K7[3], 16)[0][0]
+
+    check(np.array_equal(serve_big(svc), serve_big(other)),
+          "tunable: the restored service serves other predictions")
+    r1, r2 = svc.tick(max_points=64), other.tick(max_points=64)
+    check(not svc.buffered.any() and not other.buffered.any()
+          and np.array_equal(r1.trained, r2.trained)
+          and torch.equal(svc.ss.tm.ta_state, other.ss.tm.ta_state)
+          and np.array_equal(svc.rng_keys, other.rng_keys)
+          and np.array_equal(svc.steps, other.steps)
+          and np.array_equal(serve_big(svc), serve_big(other)),
+          "tunable: save -> restore -> tick differs from never stopping")
+    print(f"tunable save {t_save * 1e3:.1f} ms, restore "
+          f"{t_restore * 1e3:.1f} ms; restore -> serve and -> one drained "
+          "tick == never stopping: True", flush=True)
+
+    # the adapt rule under a deep queue: shed, then recover
+    svc = _tunable_service(torch, cfg, bank, TunableConfig(
+        budget=1.0, adapt=True, min_budget=0.125, high_water=32,
+        low_water=4), False, "auto", data)
+    for i in range(40):
+        svc.submit_rows(tr_x[rows[:, i % 8]], tr_y[rows[:, i % 8]])
+    traj = []
+    svc.tick(max_points=1)
+    traj.append(svc.tuner.budget)
+    while svc.buffered.any() or svc.tuner.budget < 1.0:
+        svc.tick()
+        traj.append(svc.tuner.budget)
+        check(len(traj) < 64, "tunable: the adapt rule never recovered")
+    check(traj[0] == 0.5 and min(traj) < 1.0 and traj[-1] == 1.0,
+          f"tunable: adapt trajectory {traj} did not shed and recover")
+    print(f"tunable adapt: budget per tick {traj}", flush=True)
+    launched = {k: v for k, v in counters(ce, fb).items() if k in K7}
+    print(f"tunable K7 launches: {json.dumps(launched)} (expected "
+          f"{json.dumps(expect)})", flush=True)
+    check(expect[K7[0]] == expect[K7[1]] == 2 * len(BUDGETS),
+          f"tunable: K = 1 member-0 launches {expect} != 2 a budget")
+    check(launched == expect, "tunable: the phase's K7 launches differ from "
+          "the sum of its calls' counts")
+    check(all(v > 0 for v in launched.values()),
+          "a K7 entry never launched on the tunable path")
+    return launched
+
+
+def phase_traffic(torch, np, ce, fb):
+    """The traffic harness on the card: the iris service at the
+    reference's traffic geometry (K = 4 producers, capacity 512, chunk
+    32, ingress block 32, analysis every 64) with an adapting tuner at a
+    budget of 0.5, offline-trained and calibrated; the steady and
+    fault_injected
+    schedules (256 offers per producer) run threaded, then a fresh twin
+    replays each from one thread and must land on the same fingerprint."""
+    from repro_torch.configs import tm_iris
+    from repro_torch.core import init_state
+    from repro_torch.data import iris
+    from repro_torch.serve import (SCENARIOS, AdaptPolicy, ServiceConfig,
+                                   TMService, TunableConfig, make_scripts,
+                                   replay_single_caller, run_threaded)
+    from repro_torch.serve.traffic import (fingerprint, fingerprints_equal,
+                                           slo_summary)
+
+    cfg = tm_iris.CONFIG.tm
+    xs, ys = iris.load()
+    K = 4
+
+    def service():
+        svc = TMService(cfg, init_state(cfg, device="cuda"), ServiceConfig(
+            replicas=K, buffer_capacity=512, chunk=32, ingress_block=32,
+            s=3.0, T=15, seed=0, policy=AdaptPolicy(analyze_every=64),
+            # a live budget below 1 from the start: every serve probe runs
+            # K7 under the producers' threads, and the queue rule may
+            # shed it further
+            tunable=TunableConfig(budget=0.5, adapt=True)),
+            eval_x=xs, eval_y=ys, device="cuda")
+        svc.offline_train(xs[:100], ys[:100], n_epochs=2)
+        svc.calibrate()
+        return svc
+
+    for name in ("steady", "fault_injected"):
+        sc = SCENARIOS[name]
+        scripts = make_scripts(sc, xs, ys, cfg.max_classes, K, seed=0)
+        live = service()
+        before = counters(ce, fb)
+        result = run_threaded(live, scripts, scenario=sc, pace=0.0)
+        after = counters(ce, fb)
+        twin = service()
+        replay_single_caller(twin, scripts, result, scenario=sc)
+        check(result.conserved(), f"traffic {name}: offers not conserved")
+        check(fingerprints_equal(fingerprint(live), fingerprint(twin)),
+              f"traffic {name}: the threaded run differs from its "
+              "single-caller replay")
+        if sc.fault_at is not None:
+            check(result.fault_tick is not None
+                  and bool(live.rt.ta_or_mask.any()),
+                  f"traffic {name}: the fault never landed")
+        s = slo_summary(result)
+        k7 = sum(after[k] - before[k] for k in after if "pruned" in k)
+        print(f"traffic {name} K={K} (tunable adapt, pace 0): "
+              f"{s['offers']} offers, {s['probes']} probes, "
+              f"{s['offers_per_s']:.1f} offers/s, serve p50 "
+              f"{s['serve_p50_s'] * 1e3:.3f} ms p99 "
+              f"{s['serve_p99_s'] * 1e3:.3f} ms, submit p99 "
+              f"{s['submit_p99_s'] * 1e3:.3f} ms, {s['ticks']} ticks, "
+              f"budget min {result.tick_budget.min()} max "
+              f"{result.tick_budget.max()}, K7 launches {k7}, "
+              f"rollbacks {s['rollbacks']}; replay fingerprint equal: True",
+              flush=True)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -1209,6 +1733,7 @@ def main() -> int:
     recs += timed("parity_replicated", phase_parity_replicated, torch, np,
                   ce, fb)
     recs += timed("parity_packed", phase_parity_packed, torch, np, ce)
+    recs += timed("parity_pruned", phase_parity_pruned, torch, np, ce)
     launches = timed("service", phase_main, torch, np, ce, fb)
     paper = timed("paper", phase_paper, torch, np, ce, fb)
     launches.update(timed("wide", phase_wide, torch, np, ce, fb))
@@ -1216,6 +1741,8 @@ def main() -> int:
           "a replica-first kernel never launched on the paper path")
     launches.update(timed("fleet", phase_fleet, torch, np, ce, fb))
     timed("fleet_iris", phase_fleet_iris, torch, np, ce, fb)
+    launches.update(timed("tunable", phase_tunable, torch, np, ce, fb))
+    timed("traffic", phase_traffic, torch, np, ce, fb)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)
     timed("profile_fleet", phase_profile_fleet, torch, np)

@@ -3,7 +3,8 @@
 ``analyze`` is the error-counting pass over a set in one batch-first
 clause plane (K2, or K5 for packed rows); ``analyze_replicated`` and
 ``analyze_sets_replicated`` do the same for R machines in one
-replica-first plane (K4, or K6 for packed rows). Packed sets (the port's
+replica-first plane (K4, or K6 for packed rows); ``analyze_pruned`` and
+``analyze_pruned_replicated`` measure the budgeted serve path (K7). Packed sets (the port's
 int32 words) route through ``core/tm``'s dtype routing. ``History`` is
 the fixed-capacity record of per-cycle accuracies that the FPGA keeps in
 RAM.
@@ -27,13 +28,43 @@ def analyze(cfg: TMConfig, state: TMState, rt: TMRuntime, xs: torch.Tensor,
     integer counts give its bits; the unmasked mean follows XLA's
     sum * (1/n) (:func:`~repro_torch.core.tm.mean_of_count`).
     """
-    preds = tm_mod.predict_batch(cfg, state, rt, xs)
+    return _reduce(tm_mod.predict_batch(cfg, state, rt, xs), ys, valid)
+
+
+def _reduce(preds: torch.Tensor, ys: torch.Tensor,
+            valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The accuracy reduction of :func:`analyze`: 0-dim f32."""
     ok = preds == ys.to(torch.int32)
     if valid is None:
         return tm_mod.mean_of_count(ok.sum(), ok.numel())
     v = valid.to(torch.bool)
     hits = (ok & v).sum().to(torch.float32)
     return hits / torch.clamp(v.sum().to(torch.float32), min=1.0)
+
+
+def analyze_pruned(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                   xs: torch.Tensor, ys: torch.Tensor, sel,
+                   weights: Optional[torch.Tensor] = None,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Accuracy of the budgeted serve path over a set: 0-dim f32, the
+    reduction of :func:`analyze` over ``predict_batch_pruned_``'s
+    predictions (only the ``sel``-elected clauses contracted, K7). With a
+    full-permutation ``sel`` and unit weights it is :func:`analyze`, bit
+    for bit."""
+    return _reduce(tm_mod.predict_batch_pruned_(cfg, state, rt, xs, sel,
+                                                weights), ys, valid)
+
+
+def analyze_pruned_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                              xs: torch.Tensor, ys: torch.Tensor, sel,
+                              weights: Optional[torch.Tensor] = None,
+                              valid: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Per-replica budgeted accuracy [R] f32: replica r analyzes set r % D
+    of xs [D, m, ...] through its own ranking sel[r]."""
+    preds = tm_mod.predict_batch_pruned_replicated_(cfg, state, rt, xs, sel,
+                                                    weights)
+    return _reduce_replicated(preds, ys, valid)
 
 
 def analyze_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
-from repro_torch.kernels import dispatch, packing
+from repro_torch.kernels import dispatch, packing, ref
 
 INT32_MIN = -(2 ** 31)
 
@@ -350,3 +350,121 @@ def predict_batch_replicated(cfg: TMConfig, state: TMState, rt: TMRuntime,
     """The fleet ``infer`` entry: :func:`predict_batch_replicated_` (the
     reference jits it; the port runs eagerly)."""
     return predict_batch_replicated_(cfg, state, rt, xs)
+
+
+# ---------------------------------------------------------------------------
+# Budgeted (pruned / weighted) inference
+# ---------------------------------------------------------------------------
+
+
+def vote_weights(cfg: TMConfig, rt: TMRuntime,
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Signed per-clause vote weights [.., C, J] i32: polarity x
+    clause_mask x |weight|, ``weights`` an optional [.., C, J] plane of
+    positive magnitudes (None = unit). With unit weights the budgeted vote
+    over a full permutation is :func:`class_sums` term for term."""
+    dev = rt.clause_mask.device
+    base = clause_polarity(cfg, dev) * rt.clause_mask.to(torch.int32)  # [J]
+    if weights is None:
+        return base.expand(cfg.max_classes, cfg.max_clauses)
+    return torch.as_tensor(weights).to(dev, torch.int32) * base
+
+
+def _pruned_votes(clauses: torch.Tensor, swt: torch.Tensor,
+                  sel: torch.Tensor) -> torch.Tensor:
+    """Budgeted class sums [.., B, C] i32: the elected clauses' outputs
+    [.., B, C, M] times their signed weights ``swt`` [.., C, J] gathered by
+    ``sel`` [.., C, M]."""
+    wsel = torch.take_along_dim(swt, sel.to(torch.int64), dim=-1)
+    return torch.sum(clauses.to(torch.int32) * wsel.unsqueeze(-3), dim=-1,
+                     dtype=torch.int32)
+
+
+def forward_batch_pruned(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                         xs: torch.Tensor, sel,
+                         weights: Optional[torch.Tensor] = None):
+    """Budgeted batch datapath: (clause_out [B, C, M], votes [B, C] i32).
+
+    Only the ``sel``-elected clauses ([C, M] ids) are contracted, through
+    the contract's pruned entries (K7), and the class vote folds the
+    signed :func:`vote_weights` of the elected clauses. With ``sel`` a
+    full permutation and unit weights the int32 sums reorder
+    :func:`forward_batch`'s: bitwise the same votes. Packed rows (the
+    port's int32 words) take the packed entry.
+    """
+    kb = dispatch.resolve(cfg.backend)
+    sel = ref.as_selection(sel, cfg.max_clauses, state.ta_state.device)
+    if is_packed(xs):
+        lits = make_literals_packed(xs, cfg.n_features)
+        include = ta_actions_packed(cfg, state, rt)
+        clauses = kb.clause_eval_batch_pruned_packed(include, sel, lits,
+                                                     training=False)
+    else:
+        lits = make_literals(xs)
+        include = ta_actions(cfg, state, rt)
+        clauses = kb.clause_eval_batch_pruned(include, sel, lits,
+                                              training=False)
+    return clauses, _pruned_votes(clauses, vote_weights(cfg, rt, weights),
+                                  sel)
+
+
+def predict_batch_pruned_(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                          xs: torch.Tensor, sel,
+                          weights: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Budgeted prediction [B] i32 (inactive classes vote int32 min)."""
+    _, votes = forward_batch_pruned(cfg, state, rt, xs, sel, weights)
+    return _masked_argmax(votes, rt.class_mask[None, :])
+
+
+def predict_batch_pruned(cfg: TMConfig, state: TMState, rt: TMRuntime,
+                         xs: torch.Tensor, sel,
+                         weights: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The budgeted serving entry: :func:`predict_batch_pruned_` (the
+    reference jits it; the port runs eagerly)."""
+    return predict_batch_pruned_(cfg, state, rt, xs, sel, weights)
+
+
+def forward_batch_pruned_replicated(cfg: TMConfig, state: TMState,
+                                    rt: TMRuntime, xs: torch.Tensor, sel,
+                                    weights: Optional[torch.Tensor] = None):
+    """Replica-first budgeted datapath: state leaves [R, ...], xs [D, B, ...]
+    (replica r reads batch r % D), sel [R, C, M], weights [R, C, J] or
+    None. Returns (clauses [R, B, C, M], votes [R, B, C] i32): every
+    replica serves from its own ranked subset in one K7 launch."""
+    kb = dispatch.resolve(cfg.backend)
+    sel = ref.as_selection(sel, cfg.max_clauses, state.ta_state.device)
+    if is_packed(xs):
+        lits = make_literals_packed(xs, cfg.n_features)
+        include = ta_actions_packed(cfg, state, rt)
+        clauses = kb.clause_eval_batch_pruned_replicated_packed(
+            include, sel, lits, training=False)
+    else:
+        lits = make_literals(xs)
+        include = ta_actions(cfg, state, rt)
+        clauses = kb.clause_eval_batch_pruned_replicated(
+            include, sel, lits, training=False)
+    swt = vote_weights(cfg, rt, weights)
+    if swt.ndim == 2:
+        swt = swt.expand((sel.shape[0],) + tuple(swt.shape))
+    return clauses, _pruned_votes(clauses, swt, sel)
+
+
+def predict_batch_pruned_replicated_(cfg: TMConfig, state: TMState,
+                                     rt: TMRuntime, xs: torch.Tensor, sel,
+                                     weights: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
+    """Replica-first budgeted prediction [R, B] i32."""
+    _, votes = forward_batch_pruned_replicated(cfg, state, rt, xs, sel,
+                                               weights)
+    return _masked_argmax(votes, rt.class_mask)
+
+
+def predict_batch_pruned_replicated(cfg: TMConfig, state: TMState,
+                                    rt: TMRuntime, xs: torch.Tensor, sel,
+                                    weights: Optional[torch.Tensor] = None
+                                    ) -> torch.Tensor:
+    """The fleet's budgeted serve entry:
+    :func:`predict_batch_pruned_replicated_` (eager in the port)."""
+    return predict_batch_pruned_replicated_(cfg, state, rt, xs, sel, weights)

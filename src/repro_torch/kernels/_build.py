@@ -37,6 +37,10 @@ SIGNATURES = {
         "clause_counts_batch_smem": ((_I,), _I),
         "clause_counts_batch_packed_replicated": ((_P,) * 3 + (_I,) * 5
                                                   + (_P,), _I),
+        "clause_counts_batch_pruned_replicated": ((_P,) * 6 + (_I,) * 6
+                                                  + (_P,), _I),
+        "clause_counts_batch_pruned_packed_replicated": (
+            (_P,) * 4 + (_I,) * 6 + (_P,), _I),
     },
     "feedback": {
         "feedback_plane_i8": ((_P,) * 7 + (_F, _F, _I, _I, _I, _P), _I),

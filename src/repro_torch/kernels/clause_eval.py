@@ -1,4 +1,4 @@
-"""Clause-plane counts: the hand-written CUDA kernels K1 to K6.
+"""Clause-plane counts: the hand-written CUDA kernels K1 to K7.
 
 Replaces the Pallas kernels ``clause_counts`` (K1), ``clause_counts_batch``
 (K2), ``clause_counts_replicated`` (K3),
@@ -32,6 +32,17 @@ on the caller's words, with no pack and no n_included. Bound on an H100:
 the popcounts (33 M at 640 x 1024 x 50, about 7.8 us at 16 a clock per
 SM), not the 3 MB of operands.
 
+K7 is the four pruned entries: the include bank [R, C, J, L | W] with a
+selection sel [R, C, M] of clause ids per class, counted as if the bank
+were compacted to [R, C, M, L | W] (the reference's ``gather_include``
+before a K2/K4/K5/K6 launch). Here the gather folds into the row loads
+through a row map built on the device from ``sel`` (:func:`_rowmap`), so
+the work shrinks with the budget M / J: bytes are packed for the elected
+rows only, words are staged through the map. Bound on an H100: the
+popcounts of the C * M elected rows (262 M at R = 16, M = 32, B = 1024,
+W = 50, about 63 us), with the int32 violations (21-84 MB) the largest
+byte term.
+
 Each wrapper takes its plain PyTorch version (``*_plain``) for CPU
 tensors. For CUDA tensors it launches the kernel, counts the launch in
 ``<wrapper>.launches``, or raises; it never falls back.
@@ -41,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import check_sel, gather_include
 
 # Shared memory one block may use on Hopper (bytes): it bounds the literal
 # width the batch kernel's word tiles take (L up to ~19 k).
@@ -123,6 +135,48 @@ def clause_counts_batch_replicated_packed_plain(
     return viol.reshape(R, cj, B)
 
 
+def clause_counts_batch_pruned_plain(include: torch.Tensor,
+                                     sel: torch.Tensor,
+                                     literals: torch.Tensor):
+    """K7's plain version on bytes: the gather, then K2's plain counts.
+    (violations [C*M, B] i32, n_included [C*M] i32)."""
+    C, J, L = include.shape
+    return clause_counts_batch_plain(
+        gather_include(include, sel).reshape(C * sel.shape[-1], L), literals)
+
+
+def clause_counts_batch_pruned_replicated_plain(include: torch.Tensor,
+                                                sel: torch.Tensor,
+                                                literals: torch.Tensor):
+    """The replica-first K7 on bytes: the gather, then K4's plain counts.
+    (violations [R, C*M, B] i32, n_included [R, C*M] i32)."""
+    R, C, J, L = include.shape
+    return clause_counts_batch_replicated_plain(
+        gather_include(include, sel).reshape(R, C * sel.shape[-1], L),
+        literals)
+
+
+def clause_counts_batch_pruned_packed_plain(include: torch.Tensor,
+                                            sel: torch.Tensor,
+                                            literals: torch.Tensor
+                                            ) -> torch.Tensor:
+    """K7 on words: the gather, then K5's plain counts. [C*M, B] i32."""
+    C, J, W = include.shape
+    return clause_counts_batch_packed_plain(
+        gather_include(include, sel).reshape(C * sel.shape[-1], W), literals)
+
+
+def clause_counts_batch_pruned_replicated_packed_plain(
+        include: torch.Tensor, sel: torch.Tensor,
+        literals: torch.Tensor) -> torch.Tensor:
+    """The replica-first K7 on words: the gather, then K6's plain counts.
+    [R, C*M, B] i32."""
+    R, C, J, W = include.shape
+    return clause_counts_batch_replicated_packed_plain(
+        gather_include(include, sel).reshape(R, C * sel.shape[-1], W),
+        literals)
+
+
 def _bytes(t: torch.Tensor, name: str) -> torch.Tensor:
     if t.dtype not in (torch.bool, torch.uint8, torch.int8):
         raise TypeError(f"{name} must be bool/uint8/int8, got {t.dtype}")
@@ -190,6 +244,67 @@ def _launch_counts_packed(include, literals, R, D, cj, W, B):
     _build.check(lib.clause_counts_batch_packed_replicated(
         inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), R, D, cj, W, B,
         _stream(inc)), "clause_counts_batch_packed")
+    return viol
+
+
+def _rowmap(sel: torch.Tensor, J: int, device) -> torch.Tensor:
+    """K7's row map [R * C * M] int32 on ``device``: compacted row
+    (r, c, m) reads row r*C*J + c*J + sel[r, c, m] of the flat full bank.
+    Index arithmetic on the card; nothing is read back."""
+    R, C, M = sel.shape
+    base = torch.arange(R * C, dtype=torch.int32, device=device) * J
+    sel = sel.to(device=device, dtype=torch.int32)
+    return (base.view(R, C, 1) + sel).reshape(-1).contiguous()
+
+
+def _check_pruned(include, sel, lead: tuple) -> None:
+    """Shape and range checks of a K7 call."""
+    if tuple(sel.shape[:-1]) != lead:
+        raise ValueError(f"sel {tuple(sel.shape)} != {lead} + (M,)")
+    if sel.shape[-1] < 1:
+        raise ValueError("sel elects no clause (M = 0)")
+    check_sel(sel, include.shape[-2])
+
+
+def _launch_counts_pruned(include, sel, literals, R, D, C, J, L, B):
+    """One K7 launch on bytes: include [R, C, J, L] through the row map of
+    sel [R, C, M], literals [D, B, L]."""
+    _same_device(include, literals)
+    lib = _build.library("clause_eval")
+    if lib.clause_counts_batch_smem(L) > MAX_SMEM:
+        raise ValueError(f"literal width {L} exceeds the batch kernel's "
+                         "shared-memory tile")
+    inc, lit = _bytes(include, "include"), _bytes(literals, "literals")
+    dev = include.device
+    cm = C * sel.shape[-1]
+    rowmap = _rowmap(sel, J, dev)
+    viol = torch.empty((R, cm, B), dtype=torch.int32, device=dev)
+    ninc = torch.empty((R, cm), dtype=torch.int32, device=dev)
+    words = torch.empty((R * cm + D * B) * (-(-L // 32)), dtype=torch.int32,
+                        device=dev)   # the packed elected rows (scratch)
+    _build.check(lib.clause_counts_batch_pruned_replicated(
+        inc.data_ptr(), rowmap.data_ptr(), lit.data_ptr(), viol.data_ptr(),
+        ninc.data_ptr(), words.data_ptr(), R, D, cm, R * C * J, L, B,
+        _stream(inc)), "clause_counts_batch_pruned")
+    return viol, ninc
+
+
+def _launch_counts_pruned_packed(include, sel, literals, R, D, C, J, W, B):
+    """One K7 launch on words: include words [R, C, J, W] through the row
+    map of sel [R, C, M], literal words [D, B, W]."""
+    _same_device(include, literals)
+    lib = _build.library("clause_eval")
+    if lib.clause_counts_batch_smem(32 * W) > MAX_SMEM:
+        raise ValueError(f"word width {W} exceeds the batch kernel's "
+                         "shared-memory tile")
+    inc, lit = _words(include, "include"), _words(literals, "literals")
+    cm = C * sel.shape[-1]
+    rowmap = _rowmap(sel, J, inc.device)
+    viol = torch.empty((R, cm, B), dtype=torch.int32, device=inc.device)
+    _build.check(lib.clause_counts_batch_pruned_packed_replicated(
+        inc.data_ptr(), rowmap.data_ptr(), lit.data_ptr(), viol.data_ptr(),
+        R, D, cm, R * C * J, W, B, _stream(inc)),
+        "clause_counts_batch_pruned_packed")
     return viol
 
 
@@ -303,6 +418,97 @@ def clause_counts_batch_replicated_packed(include: torch.Tensor,
 clause_counts_batch_replicated_packed.launches = 0
 
 
+def clause_counts_batch_pruned(include: torch.Tensor, sel: torch.Tensor,
+                               literals: torch.Tensor):
+    """K7 on bytes: include [C, J, L] x sel [C, M] x literals [B, L] ->
+    (violations [C*M, B] i32, n_included [C*M] i32) of the elected
+    clauses, row c*M + m for clause sel[c, m]."""
+    C, J, L = include.shape
+    _check_pruned(include, sel, (C,))
+    B = literals.shape[0]
+    if B < 1 or literals.shape != (B, L):
+        raise ValueError(f"literals {tuple(literals.shape)} != (B>=1, {L})")
+    if include.device.type == "cpu":
+        return clause_counts_batch_pruned_plain(include, sel, literals)
+    viol, ninc = _launch_counts_pruned(include, sel[None], literals, 1, 1, C,
+                                       J, L, B)
+    clause_counts_batch_pruned.launches += 1
+    return viol[0], ninc[0]
+
+
+clause_counts_batch_pruned.launches = 0
+
+
+def clause_counts_batch_pruned_replicated(include: torch.Tensor,
+                                          sel: torch.Tensor,
+                                          literals: torch.Tensor):
+    """K7 on bytes, replica-first: include [R, C, J, L] x sel [R, C, M] x
+    literals [D, B, L] (replica r reads batch r % D and its own ``sel[r]``)
+    -> (violations [R, C*M, B] i32, n_included [R, C*M] i32)."""
+    R, C, J, L = include.shape
+    D, B = literals.shape[:2]
+    _streams(R, D)
+    _check_pruned(include, sel, (R, C))
+    if B < 1 or literals.shape != (D, B, L):
+        raise ValueError(f"literals {tuple(literals.shape)} != "
+                         f"(D, B>=1, {L})")
+    if include.device.type == "cpu":
+        return clause_counts_batch_pruned_replicated_plain(include, sel,
+                                                           literals)
+    out = _launch_counts_pruned(include, sel, literals, R, D, C, J, L, B)
+    clause_counts_batch_pruned_replicated.launches += 1
+    return out
+
+
+clause_counts_batch_pruned_replicated.launches = 0
+
+
+def clause_counts_batch_pruned_packed(include: torch.Tensor,
+                                      sel: torch.Tensor,
+                                      literals: torch.Tensor) -> torch.Tensor:
+    """K7 on words: include words [C, J, W] x sel [C, M] x literal words
+    [B, W] -> violations [C*M, B] i32."""
+    C, J, W = include.shape
+    _check_pruned(include, sel, (C,))
+    B = literals.shape[0]
+    if B < 1 or literals.shape != (B, W):
+        raise ValueError(f"literals {tuple(literals.shape)} != (B>=1, {W})")
+    if include.device.type == "cpu":
+        return clause_counts_batch_pruned_packed_plain(include, sel, literals)
+    viol = _launch_counts_pruned_packed(include, sel[None], literals, 1, 1,
+                                        C, J, W, B)
+    clause_counts_batch_pruned_packed.launches += 1
+    return viol[0]
+
+
+clause_counts_batch_pruned_packed.launches = 0
+
+
+def clause_counts_batch_pruned_replicated_packed(include: torch.Tensor,
+                                                 sel: torch.Tensor,
+                                                 literals: torch.Tensor
+                                                 ) -> torch.Tensor:
+    """K7 on words, replica-first: include words [R, C, J, W] x sel
+    [R, C, M] x literal words [D, B, W] -> violations [R, C*M, B] i32."""
+    R, C, J, W = include.shape
+    D, B = literals.shape[:2]
+    _streams(R, D)
+    _check_pruned(include, sel, (R, C))
+    if B < 1 or literals.shape != (D, B, W):
+        raise ValueError(f"literals {tuple(literals.shape)} != "
+                         f"(D, B>=1, {W})")
+    if include.device.type == "cpu":
+        return clause_counts_batch_pruned_replicated_packed_plain(
+            include, sel, literals)
+    viol = _launch_counts_pruned_packed(include, sel, literals, R, D, C, J,
+                                        W, B)
+    clause_counts_batch_pruned_replicated_packed.launches += 1
+    return viol
+
+
+clause_counts_batch_pruned_replicated_packed.launches = 0
+
+
 def clause_eval(include: torch.Tensor, literals: torch.Tensor, *,
                 training: bool) -> torch.Tensor:
     """Kernel-backed clause outputs [C, J] bool (the ref contract)."""
@@ -374,4 +580,74 @@ def clause_eval_batch_replicated_packed(include_packed: torch.Tensor,
         include_packed.reshape(R, C * J, W), literals_packed)
     fired = (viol == 0).transpose(1, 2).reshape(R, B, C, J)
     empty = ~torch.any(include_packed != 0, dim=-1).reshape(R, 1, C, J)
+    return torch.where(empty, training, fired)
+
+
+def _empty_elected(include_packed: torch.Tensor,
+                   sel: torch.Tensor) -> torch.Tensor:
+    """Emptiness of the elected clauses [.., C, M]: no include word set."""
+    empty = ~torch.any(include_packed != 0, dim=-1)            # [.., C, J]
+    return torch.take_along_dim(
+        empty, sel.to(include_packed.device, torch.int64), dim=-1)
+
+
+def clause_eval_batch_pruned(include: torch.Tensor, sel: torch.Tensor,
+                             literals: torch.Tensor, *,
+                             training: bool) -> torch.Tensor:
+    """Kernel-backed budgeted outputs [B, C, M] bool (K7 on bytes)."""
+    C, J, L = include.shape
+    B = literals.shape[0]
+    M = sel.shape[-1]
+    viol, n_inc = clause_counts_batch_pruned(include, sel, literals)
+    fired = (viol == 0).T.reshape(B, C, M)
+    empty = (n_inc == 0).reshape(C, M)
+    return torch.where(empty[None], training, fired)
+
+
+def clause_eval_batch_pruned_replicated(include: torch.Tensor,
+                                        sel: torch.Tensor,
+                                        literals: torch.Tensor, *,
+                                        training: bool) -> torch.Tensor:
+    """Kernel-backed replica-first budgeted outputs [R, B, C, M] bool (K7
+    on bytes)."""
+    R, C, J, L = include.shape
+    B = literals.shape[1]
+    M = sel.shape[-1]
+    viol, n_inc = clause_counts_batch_pruned_replicated(include, sel,
+                                                        literals)
+    fired = (viol == 0).transpose(1, 2).reshape(R, B, C, M)
+    empty = (n_inc == 0).reshape(R, 1, C, M)
+    return torch.where(empty, training, fired)
+
+
+def clause_eval_batch_pruned_packed(include_packed: torch.Tensor,
+                                    sel: torch.Tensor,
+                                    literals_packed: torch.Tensor, *,
+                                    training: bool) -> torch.Tensor:
+    """Kernel-backed packed budgeted outputs [B, C, M] bool (K7 on words);
+    emptiness from the elected include words."""
+    C, J, W = include_packed.shape
+    B = literals_packed.shape[0]
+    M = sel.shape[-1]
+    viol = clause_counts_batch_pruned_packed(include_packed, sel,
+                                             literals_packed)
+    fired = (viol == 0).T.reshape(B, C, M)
+    empty = _empty_elected(include_packed, sel)
+    return torch.where(empty[None], training, fired)
+
+
+def clause_eval_batch_pruned_replicated_packed(include_packed: torch.Tensor,
+                                               sel: torch.Tensor,
+                                               literals_packed: torch.Tensor,
+                                               *, training: bool
+                                               ) -> torch.Tensor:
+    """Kernel-backed packed replica-first budgeted outputs [R, B, C, M]
+    bool (K7 on words); emptiness from the elected include words."""
+    R, C, J, W = include_packed.shape
+    B = literals_packed.shape[1]
+    M = sel.shape[-1]
+    viol = clause_counts_batch_pruned_replicated_packed(
+        include_packed, sel, literals_packed)
+    fired = (viol == 0).transpose(1, 2).reshape(R, B, C, M)
+    empty = _empty_elected(include_packed, sel).reshape(R, 1, C, M)
     return torch.where(empty, training, fired)

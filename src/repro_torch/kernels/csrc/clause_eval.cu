@@ -37,6 +37,20 @@
 // the serving shapes (640 rows x 1024 columns x 50 words) it issues 33 M
 // popcounts against under 3 MB of operands and output.
 //
+// K7 (the pruned entries clause_eval_batch_pruned{,_replicated,_packed,
+// _replicated_packed}): the reference gathers the include bank down to the
+// M elected clauses of each class (an XLA gather to [R, C, M, L|W]) and
+// then launches K2/K4/K5/K6 on the compacted bank. Here the gather folds
+// into the row loads: a row map rowmap[(r, c, m)] = r*C*J + c*J +
+// sel[r, c, m] names the row of the FULL bank that compacted row (r, c, m)
+// reads. On packed words the counting kernel's include-tile staging loop
+// reads through it; on bytes the pack pass packs only the R*C*M elected
+// rows (M/J of the bank's bytes), and the counting kernel then runs over
+// R x C*M rows with n_included on, exactly as K2/K4. A row id outside the
+// bank stages an all-zero (empty) row, so no load leaves the bank; the
+// wrappers reject such ids on the host before any launch. Bound: the
+// __popc rate, as K5/K6, on C*M instead of C*J rows.
+//
 // Each C entry returns cudaGetLastError() so the caller sees a refused
 // launch at once.
 #include <cuda_runtime.h>
@@ -77,10 +91,12 @@ __global__ void clause_counts_kernel(const uint8_t* __restrict__ inc,
 
 // Pack 32 one-byte bools per word, bit j of word w = element 32w + j; a
 // tail past L packs zeros. One thread per word, so every load is in flight
-// at once.
+// at once. With a row map, output row r packs source row rowmap[r] of the
+// n_src rows (K7); a row id outside them packs zeros.
 __global__ void pack_bits_kernel(const uint8_t* __restrict__ src,
                                  uint32_t* __restrict__ dst, int rows, int L,
-                                 int nw) {
+                                 int nw, const int32_t* __restrict__ rowmap,
+                                 int64_t n_src) {
   const int64_t n = static_cast<int64_t>(rows) * nw;
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -88,7 +104,12 @@ __global__ void pack_bits_kernel(const uint8_t* __restrict__ src,
        i < n; i += step) {
     const int64_t r = i / nw;
     const int l0 = static_cast<int>(i - r * nw) * 32;
-    const uint8_t* p = src + r * L + l0;
+    const int64_t sr = rowmap != nullptr ? rowmap[r] : r;
+    if (sr < 0 || sr >= n_src) {
+      dst[i] = 0u;
+      continue;
+    }
+    const uint8_t* p = src + sr * L + l0;
     uint32_t word = 0;
     if (l0 + 32 <= L) {
 #pragma unroll
@@ -104,13 +125,20 @@ __global__ void pack_bits_kernel(const uint8_t* __restrict__ src,
 // Counts from packed words: a block of replica r = blockIdx.z stages its
 // kRows include rows and kTB literal rows of stream r % D (contiguous in
 // the packed arrays) in shared memory, then lane t of each warp counts
-// column t for the warp's rows. A null ninc skips n_included (K5/K6).
+// column t for the warp's rows. A null ninc skips n_included (K5/K6/K7).
+// Include row q of the block stages word row rowmap[row0 + q] of the
+// n_src-row bank when kMapped (K7 on words; a row id outside the bank
+// stages zeros), else row row0 + q. kMapped is a template argument so that
+// the unmapped staging compiles without the map's load and bounds test.
+template <bool kMapped>
 __global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
                                            const uint32_t* __restrict__ litw,
                                            int32_t* __restrict__ viol,
                                            int32_t* __restrict__ ninc,
                                            int cj, int B, int D, int nw,
-                                           int stride) {
+                                           int stride,
+                                           const int32_t* __restrict__ rowmap,
+                                           int64_t n_src) {
   extern __shared__ uint32_t smem[];
   uint32_t* lit_s = smem;                   // [kTB][stride]
   uint32_t* inc_s = smem + kTB * stride;    // [kRows][stride]
@@ -127,7 +155,13 @@ __global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
   }
   for (int i = threadIdx.x; i < nr * nw; i += blockDim.x) {
     const int q = i / nw;
-    inc_s[q * stride + (i - q * nw)] = incw[row0 * nw + i];
+    const int w = i - q * nw;
+    const int64_t sr = kMapped ? rowmap[row0 + q] : row0 + q;
+    // unmapped rows are contiguous, so word i of the tile is word
+    // row0 * nw + i: cheaper than sr * nw + w (K5/K6 run ~4% faster)
+    const int64_t at = kMapped ? sr * nw + w : row0 * nw + i;
+    inc_s[q * stride + w] =
+        kMapped && (sr < 0 || sr >= n_src) ? 0u : incw[at];
   }
   __syncthreads();
 
@@ -171,22 +205,33 @@ extern "C" int clause_counts_batch_smem(int L) {
   return (kTB + kRows) * stride * 4;
 }
 
-// K2 (R = D = 1) and K4: include [R, CJ, L], literals [D, B, L].
-// scratch: (R * cj + D * B) * ceil(L / 32) uint32 words for the packed
-// planes.
-extern "C" int clause_counts_batch_replicated(
-    const void* inc, const void* lit, void* viol, void* ninc, void* scratch,
-    int R, int D, int cj, int L, int B, void* stream) {
+namespace {
+
+// Lift the batch kernel's dynamic shared-memory cap when a tile needs it.
+int allow_smem(int smem) {
+  if (smem <= 48 * 1024) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      clause_counts_batch_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(clause_counts_batch_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  return static_cast<int>(e);
+}
+
+// K2/K4 and K7 on bytes: pack the include rows (through rowmap when it is
+// set: inc_rows compacted rows of the n_src-row bank) and the D literal
+// batches, then count over R x cj rows with n_included.
+int counts_batch_bytes(const void* inc, const int32_t* rowmap, int64_t n_src,
+                       const void* lit, void* viol, void* ninc, void* scratch,
+                       int R, int D, int cj, int L, int B, void* stream) {
   const int nw = (L + 31) / 32;
   const int stride = nw | 1;
   const int smem = clause_counts_batch_smem(L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        clause_counts_batch_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const int e = allow_smem(smem);
+  if (e != 0) return e;
   const int inc_rows = R * cj;
   const int lit_rows = D * B;
   uint32_t* incw = static_cast<uint32_t*>(scratch);
@@ -195,14 +240,47 @@ extern "C" int clause_counts_batch_replicated(
   const unsigned pack_blocks = static_cast<unsigned>(
       (words + 255) / 256 < 132 * 16 ? (words + 255) / 256 : 132 * 16);
   pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(inc), incw, inc_rows, L, nw);
+      static_cast<const uint8_t*>(inc), incw, inc_rows, L, nw, rowmap,
+      rowmap != nullptr ? n_src : inc_rows);
   pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(lit), litw, lit_rows, L, nw);
+      static_cast<const uint8_t*>(lit), litw, lit_rows, L, nw, nullptr,
+      lit_rows);
   const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB, R);
-  clause_counts_batch_kernel<<<grid, kWarps * 32, smem, st>>>(
+  clause_counts_batch_kernel<false><<<grid, kWarps * 32, smem, st>>>(
       incw, litw, static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc),
-      cj, B, D, nw, stride);
+      cj, B, D, nw, stride, nullptr, inc_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5/K6 and K7 on words: count straight from the caller's words, include
+// rows through rowmap when it is set.
+int counts_batch_words(const void* incw, const int32_t* rowmap,
+                       int64_t n_src, const void* litw, void* viol, int R,
+                       int D, int cj, int W, int B, void* stream) {
+  const int stride = W | 1;
+  const int smem = clause_counts_batch_smem(32 * W);
+  const int e = allow_smem(smem);
+  if (e != 0) return e;
+  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB, R);
+  const auto kernel = rowmap != nullptr ? clause_counts_batch_kernel<true>
+                                        : clause_counts_batch_kernel<false>;
+  kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(incw), static_cast<const uint32_t*>(litw),
+      static_cast<int32_t*>(viol), nullptr, cj, B, D, W, stride, rowmap,
+      n_src);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2 (R = D = 1) and K4: include [R, CJ, L], literals [D, B, L].
+// scratch: (R * cj + D * B) * ceil(L / 32) uint32 words for the packed
+// planes.
+extern "C" int clause_counts_batch_replicated(
+    const void* inc, const void* lit, void* viol, void* ninc, void* scratch,
+    int R, int D, int cj, int L, int B, void* stream) {
+  return counts_batch_bytes(inc, nullptr, 0, lit, viol, ninc, scratch, R, D,
+                            cj, L, B, stream);
 }
 
 // K5 (R = D = 1) and K6: packed include words [R, CJ, W] and literal words
@@ -211,18 +289,29 @@ extern "C" int clause_counts_batch_replicated(
 extern "C" int clause_counts_batch_packed_replicated(
     const void* incw, const void* litw, void* viol, int R, int D, int cj,
     int W, int B, void* stream) {
-  const int stride = W | 1;
-  const int smem = clause_counts_batch_smem(32 * W);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        clause_counts_batch_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB, R);
-  clause_counts_batch_kernel<<<grid, kWarps * 32, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(incw), static_cast<const uint32_t*>(litw),
-      static_cast<int32_t*>(viol), nullptr, cj, B, D, W, stride);
-  return static_cast<int>(cudaGetLastError());
+  return counts_batch_words(incw, nullptr, 0, litw, viol, R, D, cj, W, B,
+                            stream);
+}
+
+// K7 on bytes (clause_eval_batch_pruned, R = D = 1, and
+// clause_eval_batch_pruned_replicated): include bytes [n_src = R*C*J, L],
+// rowmap [R * cm] int32 (cm = C * M compacted rows a replica), literals
+// [D, B, L] -> violations [R, cm, B] and n_included [R, cm]. scratch:
+// (R * cm + D * B) * ceil(L / 32) uint32 words.
+extern "C" int clause_counts_batch_pruned_replicated(
+    const void* inc, const void* rowmap, const void* lit, void* viol,
+    void* ninc, void* scratch, int R, int D, int cm, int n_src, int L, int B,
+    void* stream) {
+  return counts_batch_bytes(inc, static_cast<const int32_t*>(rowmap), n_src,
+                            lit, viol, ninc, scratch, R, D, cm, L, B, stream);
+}
+
+// K7 on words (clause_eval_batch_pruned_packed, R = D = 1, and
+// clause_eval_batch_pruned_replicated_packed): include words [n_src, W],
+// rowmap [R * cm], literal words [D, B, W] -> violations [R, cm, B].
+extern "C" int clause_counts_batch_pruned_packed_replicated(
+    const void* incw, const void* rowmap, const void* litw, void* viol, int R,
+    int D, int cm, int n_src, int W, int B, void* stream) {
+  return counts_batch_words(incw, static_cast<const int32_t*>(rowmap), n_src,
+                            litw, viol, R, D, cm, W, B, stream);
 }

@@ -7,9 +7,8 @@
   the kernel or raises.
 * ``"auto"`` -- ``"cuda"``, unless ``TM_BACKEND`` names another backend.
 
-Every backend implements :class:`KernelBackend`. The entries are those of
-the reference's contract (``repro.kernels.dispatch``) that the port has
-reached; a later slice adds the pruned entries.
+Every backend implements :class:`KernelBackend`, the twelve entries of
+the reference's contract (``repro.kernels.dispatch``).
 This module is the only place that knows which module backs which name.
 """
 from __future__ import annotations
@@ -62,6 +61,24 @@ class KernelBackend(NamedTuple):
       literals_packed [D,B,W], *, training) -> [R,B,C,J]`` -- the same
       ``r % D`` rule; MUST equal ``clause_eval_batch_replicated`` on the
       unpacked operands.
+
+    Pruned (budgeted) entries take a selection ``sel`` of clause ids per
+    class (int, within [0, J)) and contract only those clauses:
+
+    * ``clause_eval_batch_pruned(include [C,J,L], sel [C,M], literals
+      [B,L], *, training) -> [B,C,M]`` -- the include bank compacts to the
+      selected clauses (a gather along J) before the contraction, so the
+      work shrinks with the budget M. Column m MUST equal
+      ``clause_eval_batch(...)[:, c, sel[c, m]]`` bit for bit.
+    * ``clause_eval_batch_pruned_replicated(include [R,C,J,L], sel
+      [R,C,M], literals [D,B,L], *, training) -> [R,B,C,M]`` -- replica r
+      reads batch r % D and its own ranking ``sel[r]``.
+    * ``clause_eval_batch_pruned_packed(include_packed [C,J,W], sel [C,M],
+      literals_packed [B,W], *, training) -> [B,C,M]`` and
+      ``clause_eval_batch_pruned_replicated_packed([R,C,J,W], [R,C,M],
+      [D,B,W], *, training) -> [R,B,C,M]`` -- the packed twins: the gather
+      never touches the word axis, so packed pruned MUST equal unpacked
+      pruned bit for bit.
     """
 
     name: str
@@ -73,6 +90,10 @@ class KernelBackend(NamedTuple):
     feedback_step_replicated: Callable[..., torch.Tensor]
     clause_eval_batch_packed: Callable[..., torch.Tensor]
     clause_eval_batch_replicated_packed: Callable[..., torch.Tensor]
+    clause_eval_batch_pruned: Callable[..., torch.Tensor]
+    clause_eval_batch_pruned_replicated: Callable[..., torch.Tensor]
+    clause_eval_batch_pruned_packed: Callable[..., torch.Tensor]
+    clause_eval_batch_pruned_replicated_packed: Callable[..., torch.Tensor]
 
 
 _FACTORIES: dict[str, Callable[[], KernelBackend]] = {}
@@ -122,6 +143,12 @@ def _make_ref() -> KernelBackend:
         clause_eval_batch_packed=ref.clause_eval_batch_packed,
         clause_eval_batch_replicated_packed=(
             ref.clause_eval_batch_replicated_packed),
+        clause_eval_batch_pruned=ref.clause_eval_batch_pruned,
+        clause_eval_batch_pruned_replicated=(
+            ref.clause_eval_batch_pruned_replicated),
+        clause_eval_batch_pruned_packed=ref.clause_eval_batch_pruned_packed,
+        clause_eval_batch_pruned_replicated_packed=(
+            ref.clause_eval_batch_pruned_replicated_packed),
     )
 
 
@@ -139,6 +166,12 @@ def _make_cuda() -> KernelBackend:
         clause_eval_batch_packed=ops.clause_eval_batch_packed,
         clause_eval_batch_replicated_packed=(
             ops.clause_eval_batch_replicated_packed),
+        clause_eval_batch_pruned=ops.clause_eval_batch_pruned,
+        clause_eval_batch_pruned_replicated=(
+            ops.clause_eval_batch_pruned_replicated),
+        clause_eval_batch_pruned_packed=ops.clause_eval_batch_pruned_packed,
+        clause_eval_batch_pruned_replicated_packed=(
+            ops.clause_eval_batch_pruned_replicated_packed),
     )
 
 

@@ -12,11 +12,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import feedback as _fb
-# K1 to K6 already take the contract's [(R,) C, J, L | W] operands.
+# K1 to K7 already take the contract's [(R,) C, J, L | W] operands.
 from repro_torch.kernels.clause_eval import (  # noqa: F401
     clause_eval,
     clause_eval_batch,
     clause_eval_batch_packed,
+    clause_eval_batch_pruned,
+    clause_eval_batch_pruned_packed,
+    clause_eval_batch_pruned_replicated,
+    clause_eval_batch_pruned_replicated_packed,
     clause_eval_batch_replicated,
     clause_eval_batch_replicated_packed,
     clause_eval_replicated,

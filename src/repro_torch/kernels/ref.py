@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernel-contract entries the port runs.
 
 The twins of ``repro.kernels.ref``'s ``clause_eval``, ``clause_eval_batch``
-and ``feedback_step``, of their replica-first forms and of the two
-bit-packed batch entries: the ``"ref"`` backend on any device, and the
+and ``feedback_step``, of their replica-first forms, of the two
+bit-packed batch entries and of the four pruned (budgeted) entries with
+their ``gather_include``: the ``"ref"`` backend on any device, and the
 semantic ground truth the hand-written kernels are held to.
 
 Packed words are int32 tensors holding uint32 bits
@@ -236,3 +237,79 @@ def clause_eval_batch_replicated_packed(include_packed: torch.Tensor,
     viol = packed_violations(inc, lit)                        # [H, D, B, C, J]
     empty = ~torch.any(include_packed != 0, dim=-1).reshape(H, D, 1, C, J)
     return torch.where(empty, training, viol == 0).reshape(R, B, C, J)
+
+
+# ---------------------------------------------------------------------------
+# Budgeted (pruned) eval: the include bank compacted to the elected clauses
+# ---------------------------------------------------------------------------
+
+
+def check_sel(sel: torch.Tensor, n_clauses: int) -> None:
+    """Reject clause ids outside [0, J) with a ValueError. The check reads
+    ``sel`` only where it lies on the CPU, so no caller waits on the card:
+    the port makes its selections from numpy rankings on the host and
+    checks them there, before they cross to the device."""
+    if sel.dtype.is_floating_point or sel.dtype == torch.bool:
+        raise TypeError(f"sel must hold integer clause ids, got {sel.dtype}")
+    if sel.device.type == "cpu" and sel.numel() and (
+            int(sel.min()) < 0 or int(sel.max()) >= n_clauses):
+        raise ValueError(f"sel holds clause ids outside [0, {n_clauses})")
+
+
+def as_selection(sel, n_clauses: int, device) -> torch.Tensor:
+    """Clause ids (numpy or a tensor) checked by :func:`check_sel` where
+    they lie and moved to ``device``."""
+    sel = torch.as_tensor(sel)
+    check_sel(sel, n_clauses)
+    return sel.to(device)
+
+
+def gather_include(include: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Compact an include bank to the selected clauses: [..., C, J, L|W] x
+    sel [..., C, M] -> [..., C, M, L|W]. Works on bool banks and on int32
+    word banks alike: the gather never touches the last axis, so packed
+    tail bits stay zero. Column m equals full-bank clause ``sel[c, m]``
+    bit for bit, empty clauses included."""
+    check_sel(sel, include.shape[-2])
+    idx = sel.to(include.device, torch.int64)[..., None]
+    return torch.take_along_dim(include, idx, dim=-2)
+
+
+def clause_eval_batch_pruned(include: torch.Tensor, sel: torch.Tensor,
+                             literals: torch.Tensor, *,
+                             training: bool) -> torch.Tensor:
+    """[C, J, L] x sel [C, M] x [B, L] -> [B, C, M]: column m is clause
+    ``sel[c, m]``'s output, :func:`clause_eval_batch` on the compacted
+    bank."""
+    return clause_eval_batch(gather_include(include, sel), literals,
+                             training=training)
+
+
+def clause_eval_batch_pruned_replicated(include: torch.Tensor,
+                                        sel: torch.Tensor,
+                                        literals: torch.Tensor, *,
+                                        training: bool) -> torch.Tensor:
+    """[R, C, J, L] x sel [R, C, M] x [D, B, L] -> [R, B, C, M]; replica r
+    reads batch r % D and its own ranking ``sel[r]``."""
+    return clause_eval_batch_replicated(gather_include(include, sel),
+                                        literals, training=training)
+
+
+def clause_eval_batch_pruned_packed(include_packed: torch.Tensor,
+                                    sel: torch.Tensor,
+                                    literals_packed: torch.Tensor, *,
+                                    training: bool) -> torch.Tensor:
+    """[C, J, W] words x sel [C, M] x [B, W] words -> [B, C, M]; equals
+    :func:`clause_eval_batch_pruned` on the unpacked operands."""
+    return clause_eval_batch_packed(gather_include(include_packed, sel),
+                                    literals_packed, training=training)
+
+
+def clause_eval_batch_pruned_replicated_packed(
+        include_packed: torch.Tensor, sel: torch.Tensor,
+        literals_packed: torch.Tensor, *, training: bool) -> torch.Tensor:
+    """[R, C, J, W] words x sel [R, C, M] x [D, B, W] words ->
+    [R, B, C, M]."""
+    return clause_eval_batch_replicated_packed(
+        gather_include(include_packed, sel), literals_packed,
+        training=training)

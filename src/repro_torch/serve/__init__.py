@@ -1,5 +1,6 @@
 """Serving on torch: ``TMService`` (K >= 1), its batch router, the
-``OnlineFleet`` shim and the Fig-3 adapt managers."""
+``OnlineFleet`` shim, the Fig-3 adapt managers, runtime-tunable serving
+and the traffic harness."""
 from repro_torch.serve.router import BatchRouter  # noqa: F401
 from repro_torch.serve.service import (  # noqa: F401
     AdaptPolicy,
@@ -12,4 +13,19 @@ from repro_torch.serve.online_adapt import (  # noqa: F401
     TMFleetAdaptManager,
     TMOnlineAdaptConfig,
     TMOnlineAdaptManager,
+)
+from repro_torch.serve.tunable import (  # noqa: F401
+    ServeAux,
+    TunableConfig,
+    TuneController,
+)
+from repro_torch.serve.traffic import (  # noqa: F401
+    SCENARIOS,
+    ProducerScript,
+    Scenario,
+    TrafficResult,
+    make_script,
+    make_scripts,
+    replay_single_caller,
+    run_threaded,
 )

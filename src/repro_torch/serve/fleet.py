@@ -2,7 +2,8 @@
 
 The twin of ``repro.serve.fleet.OnlineFleet``: ``offer``/``offer_rows``
 map to the router-staged ``submit``/``submit_rows`` ingress, ``drain`` and
-``infer`` to ``TMService.drain``/``serve``. Replica r consumes exactly the
+``infer`` to ``TMService.drain``/``serve``, ``save``/``restore`` to the
+service's. Replica r consumes exactly the
 RNG stream of ``OnlineSession(seed=seed[r])`` when ``seed`` is a sequence,
 so a fleet is bitwise K independent sessions. The port runs one card:
 there is no ``mesh``, and passing one raises.
@@ -100,6 +101,21 @@ class OnlineFleet:
         """Consume up to ``max_points`` buffered rows per replica; [K]
         trained. See :meth:`TMService.drain`."""
         return self._svc.drain(max_points, on_chunk)
+
+    # -- durable state ----------------------------------------------------
+
+    def save(self, directory: str, *, step: Optional[int] = None,
+             keep: int = 3) -> str:
+        """Checkpoint the whole fleet (see :meth:`TMService.save`)."""
+        return self._svc.save(directory, step=step, keep=keep)
+
+    @classmethod
+    def restore(cls, directory: str, *, step: Optional[int] = None,
+                mesh=None, device=None) -> "OnlineFleet":
+        """Rebuild a fleet from a :meth:`save` checkpoint (of either
+        package); continuing equals never stopping, bit for bit."""
+        return cls._from_service(TMService.restore(
+            directory, step=step, mesh=mesh, device=device))
 
     def infer(self, xs) -> np.ndarray:
         """Fleet inference [K, B]: ``xs`` is [B, f] (one batch for all) or

@@ -7,13 +7,20 @@ machines (offer -> cyclic buffer -> interleaved train/infer, with the
 * ``submit`` / ``submit_rows`` -- labelled traffic, staged on the host by
   a :class:`~repro_torch.serve.router.BatchRouter` and flushed in
   ``[K, B_ingress]`` blocks.
-* ``serve`` -- fleet inference, one replica-first clause plane (K4, or K6
-  on packed rows; K = 1 with scalar ports: K2 or K5).
+* ``serve`` / ``serve_replicas`` -- fleet inference, one replica-first
+  clause plane (K4, or K6 on packed rows; K = 1 with scalar ports: K2 or
+  K5); with ``ServiceConfig(tunable=...)`` and a ``budget`` (or an active
+  tuner) the runtime-tunable path instead: only the top-ranked clauses of
+  each class, through the pruned entries (K7), with optional vote weights
+  and early exit (``calibrate`` ranks the clauses first).
 * ``tick`` -- one consumer cycle: flush ingress, drain every replica's
   budget through online training, advance the analysis cadence and apply
   :class:`AdaptPolicy` per replica.
 * ``offline_train`` / ``analyze`` / ``observe_rows`` -- the offline phase,
   the accuracy block and the legacy managers' per-point FSM step.
+* ``save`` / ``load`` / ``restore`` -- durable state in the reference's
+  checkpoint layout (:mod:`repro_torch.train.checkpoint`): a checkpoint
+  either package writes restores in the other and continues bit for bit.
 
 Device layout is the replicated kernel contract: state, rings, step
 counters and RNG keys all lead with K, and per-replica ``s``/``T`` ride
@@ -29,8 +36,8 @@ The seed and key schedule are the reference's: keys
 ``fold_in(PRNGKey(seed), r)`` (or ``PRNGKey(seed[r])`` for a sequence of
 seeds), one split per drained chunk for every active replica, and
 ``PRNGKey(seed=1)`` for ``offline_train``. So a run here is bitwise the
-reference's. Residency, meshes, tunable serving and ``save``/``restore``
-are later slices of the port and raise ``NotImplementedError``.
+reference's. Residency and meshes are later slices of the port and raise
+``NotImplementedError``.
 
 Threading: ``submit``/``submit_rows`` are safe from any number of
 producer threads (they touch only the router's staging state and the
@@ -46,6 +53,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch import random as rnd
 from repro_torch.core import accuracy as acc_mod
 from repro_torch.core import feedback as fb_mod
@@ -56,6 +64,14 @@ from repro_torch.core.tm import TMConfig, TMRuntime, TMState, init_runtime
 from repro_torch.data import buffer as buf_mod
 from repro_torch.kernels import packing
 from repro_torch.serve import router as router_mod
+from repro_torch.serve import tunable as tun_mod
+from repro_torch.train import checkpoint as ckpt_mod
+
+# Backend names as they cross checkpoints: the port's hand-written kernels
+# take the reference's kernel backend's name, so either package's
+# TMConfig accepts the other's manifest.
+_BACKEND_OUT = {"cuda": "pallas"}
+_BACKEND_IN = {"pallas": "cuda"}
 
 
 def _advance_keys(keys: torch.Tensor, active: np.ndarray
@@ -180,9 +196,10 @@ class ServiceConfig:
     ``packed`` switches the boolean datapath to packed words (ingress,
     rings, eval set, serving, monitoring), bit for bit the unpacked one.
     ``history_limit`` keeps only the most recent N analysis entries (None
-    keeps all). ``resident``, ``mesh`` and ``tunable`` keep the
-    reference's names; values other than their defaults belong to later
-    slices of the port and raise.
+    keeps all). ``tunable`` (a :class:`~repro_torch.serve.tunable.
+    TunableConfig`) arms runtime-tunable serving. ``resident`` and
+    ``mesh`` keep the reference's names; values other than their defaults
+    belong to later slices of the port and raise.
     """
 
     replicas: int = 1
@@ -222,8 +239,6 @@ def _not_yet(sc: ServiceConfig) -> Optional[str]:
         return f"resident={sc.resident!r} (the residency slice)"
     if sc.mesh is not None:
         return "mesh (multi-GPU replica sharding, not ported)"
-    if sc.tunable is not None:
-        return "tunable (the tunable-serving slice)"
     return None
 
 
@@ -299,6 +314,8 @@ class TMService:
         self._full_mask = np.ones(K, dtype=bool)
         self._ps = sc.policy.init(K)
         self.history: list = []            # (steps [K], accuracies [K])
+        self.tuner = (None if sc.tunable is None else
+                      tun_mod.TuneController(sc.tunable, K, cfg.max_clauses))
 
     def _ingest(self, xs) -> torch.Tensor:
         """Rows -> the service's wire representation on its device: bool
@@ -480,21 +497,136 @@ class TMService:
 
     # -- inference ----------------------------------------------------------------
 
-    def serve(self, xs) -> np.ndarray:
+    def serve(self, xs, *, budget=None, return_aux: bool = False):
         """Fleet inference [K, B] i32: ``xs`` is [B, f] (one batch for
         every member, stored once: D = 1) or [K, B, f] (one per member).
-        Packed services serve packed words through K5/K6."""
+        Packed services serve packed words through K5/K6.
+
+        ``budget`` (fraction of clauses, (0, 1]) routes the request through
+        the runtime-tunable path: only the top-m ranked clauses per class
+        are contracted (K7), with the configured weights and early exit.
+        It needs ``ServiceConfig(tunable=...)`` and a prior
+        :meth:`calibrate`. Without a budget, a tunable service serves at
+        the controller's live budget (the plain path when that is 1.0 with
+        unit weights and no early exit). ``return_aux`` also returns the
+        :class:`~repro_torch.serve.tunable.ServeAux` (tunable path only).
+        """
         xs = self._ingest(xs)
         with self._device_lock:
+            if not self._tunable(budget):
+                if return_aux:
+                    raise ValueError(
+                        "return_aux reports the budgeted path's compute: "
+                        "pass a budget (or configure an active tunable)")
+                tm = self._ss.tm
+                if xs.ndim == 2 and self._k1:
+                    preds = tm_mod.predict_batch(
+                        self.cfg, TMState(tm.ta_state[0]), self.rt, xs)
+                    return preds.cpu().numpy()[None]
+                if xs.ndim == 2:
+                    xs = xs[None]
+                return tm_mod.predict_batch_replicated(
+                    self.cfg, tm, self.rt, xs).cpu().numpy()
+            tuner = self._require_tuner()
+            preds, aux = self._serve_tunable(
+                self._ss.tm, xs, tuner.order, tuner.weights, budget)
+            return (preds, aux) if return_aux else preds
+
+    def _tunable(self, budget) -> bool:
+        """Does this request take the budgeted path?"""
+        return budget is not None or (self.tuner is not None
+                                      and self.tuner.active)
+
+    def _require_tuner(self) -> tun_mod.TuneController:
+        if self.tuner is None:
+            raise ValueError(
+                "budgeted serving needs ServiceConfig(tunable=TunableConfig"
+                "(...)): this service was built without it")
+        if not self.tuner.calibrated:
+            raise ValueError(
+                "budgeted serving needs clause ranks: call calibrate() "
+                "(after training) before serving with a budget")
+        return self.tuner
+
+    def _serve_tunable(self, tm_plane: TMState, xs: torch.Tensor,
+                       order: np.ndarray, weights: Optional[np.ndarray],
+                       budget) -> tuple[np.ndarray, tun_mod.ServeAux]:
+        """The budgeted serve body on a device plane whose rows align with
+        ``order``/``weights``."""
+        tc = self.sc.tunable
+        b = self.tuner.budget if budget is None else float(budget)
+        m = tun_mod.m_for_budget(b, self.cfg.max_clauses)
+        if xs.ndim == 2:
+            xs = xs[None]     # D = 1: one shared stream
+        preds, evaluated = tun_mod.predict_pruned_replicated_host(
+            self.cfg, tm_plane, self.rt, xs, order, weights, m,
+            group=tc.group if tc.early_exit else None)
+        aux = tun_mod.ServeAux(budget=b, m=m, sel=order[:, :, :m].copy(),
+                               evaluated=evaluated)
+        return preds, aux
+
+    def serve_replicas(self, replicas, xs, *, budget=None,
+                       return_aux: bool = False):
+        """Inference for the named replicas only: [n, B] i32. ``xs`` is
+        [B, f] (one batch for all named members) or [n, B, f] (one each).
+        The named members' banks are gathered into one plane and served in
+        one contraction; each serves from its own calibrated ranking on
+        the budgeted path. ``budget``/``return_aux`` as in :meth:`serve`.
+        """
+        xs = self._ingest(xs)
+        rids = np.asarray(replicas, dtype=np.int64).reshape(-1)
+        if rids.size == 0 or rids.min() < 0 or rids.max() >= self.n_replicas:
+            raise ValueError(f"replica ids must name members of "
+                             f"[0, {self.n_replicas}), got {rids.tolist()}")
+        tunable = self._tunable(budget)
+        if return_aux and not tunable:
+            raise ValueError(
+                "return_aux reports the budgeted path's compute: pass a "
+                "budget (or configure an active tunable)")
+        tuner = self._require_tuner() if tunable else None
+        with self._device_lock:
+            idx = torch.from_numpy(rids).to(self.device)
+            tm_c = TMState(self._ss.tm.ta_state[idx])
+            xs_c = xs[None] if xs.ndim == 2 else xs
+            if not tunable:
+                return tm_mod.predict_batch_replicated(
+                    self.cfg, tm_c, self.rt, xs_c).cpu().numpy()
+            w_c = None if tuner.weights is None else tuner.weights[rids]
+            preds, aux = self._serve_tunable(tm_c, xs_c, tuner.order[rids],
+                                             w_c, budget)
+        return (preds, aux) if return_aux else preds
+
+    def calibrate(self, xs=None, ys=None) -> np.ndarray:
+        """Rank every replica's clauses on a calibration set (default: the
+        eval set), polarity-balanced, and derive integer vote weights when
+        the tunable config asks for them. Returns the [K, C, J] i32 score
+        plane. Calibrate again when the banks have drifted; serving in
+        between uses the older ranks."""
+        if self.tuner is None:
+            raise ValueError(
+                "calibrate needs ServiceConfig(tunable=TunableConfig(...))")
+        xs = self.eval_x if xs is None else self._ingest(xs)
+        ys = self.eval_y if ys is None else self._labels(ys)
+        if xs is None or ys is None:
+            raise ValueError(
+                "calibrate needs a labelled set: pass (xs, ys) or build the "
+                "service with eval_x/eval_y")
+        with self._device_lock:
             tm = self._ss.tm
-            if xs.ndim == 2 and self._k1:
-                preds = tm_mod.predict_batch(
-                    self.cfg, TMState(tm.ta_state[0]), self.rt, xs)
-                return preds.cpu().numpy()[None]
-            if xs.ndim == 2:
-                xs = xs[None]
-            return tm_mod.predict_batch_replicated(
-                self.cfg, tm, self.rt, xs).cpu().numpy()
+            if self._k1:
+                scores = tun_mod.clause_scores(
+                    self.cfg, TMState(tm.ta_state[0]), self.rt, xs, ys)[None]
+            else:
+                scores = tun_mod.clause_scores_replicated(
+                    self.cfg, tm, self.rt, xs[None], ys[None])
+            scores = scores.cpu().numpy()
+            self.tuner.set_ranking(
+                tun_mod.rank_from_scores(
+                    scores, tm_mod.clause_polarity(self.cfg).numpy()),
+                tun_mod.weights_from_scores(scores,
+                                            self.sc.tunable.weight_bits),
+                score=scores)
+        return scores
 
     # -- analysis + the Fig-3 policy loop -----------------------------------------
 
@@ -571,6 +703,10 @@ class TMService:
             trained = self.drain(budget, on_chunk)
             self._ps.since += trained
             out = self._maybe_analyze()
+            if self.tuner is not None and self.sc.tunable.adapt:
+                # The queue depth after the drain is the observed backlog:
+                # deep queues shed serve compute, light ones restore it.
+                self.tuner.update(self.buffered)
         if out is None:
             return TickReport(trained, None,
                               np.zeros(self.n_replicas, dtype=bool))
@@ -596,23 +732,227 @@ class TMService:
             out = self._maybe_analyze()
         return None if out is None else out[0]
 
-    # -- durable state ---------------------------------------------------------
+    # -- durable state -------------------------------------------------------
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TMService.save writes the residency manifest and belongs to "
-            "the residency slice, which is not ported yet")
+    def save(self, directory: str, *, step: Optional[int] = None,
+             keep: int = 3) -> str:
+        """Write the full consumer-side state as one atomic checkpoint in
+        the reference's layout: TA banks, rings, step counters, RNG keys
+        (uint32), the runtime, the §5.3.2 policy with its known-good
+        banks, the analysis history, the router's loss counters and a
+        calibrated tuner. Staged ingress flushes first, so every accepted
+        row is in a saved ring or already consumed: save -> restore ->
+        continue equals never stopping, bit for bit. Returns the path."""
+        with self._device_lock:
+            self.flush()
+            ps = self._ps
+            K = self.n_replicas
+            if self.history:
+                hsteps = np.stack([np.asarray(h[0]) for h in self.history])
+                haccs = np.stack([np.asarray(h[1]) for h in self.history])
+            else:
+                hsteps = np.zeros((0, K), dtype=np.int32)
+                haccs = np.zeros((0, K), dtype=np.float32)
+            with self.router.lock:
+                router_state = {"dropped": self.router.dropped.copy(),
+                                "flushes": np.int64(self.router.flushes)}
+            tree = {
+                "ss": convert.session_state_to_numpy(self._ss),
+                "keys": self.rng_keys,
+                "rt": convert.to_numpy(self.rt),
+                "policy": {
+                    "since": ps.since, "best": ps.best,
+                    "rollbacks": ps.rollbacks, "lost": ps.lost,
+                    "best_state": convert.to_numpy(ps.best_state),
+                },
+                "router": router_state,
+                "history": {"steps": hsteps, "acc": haccs},
+            }
+            has_tun = self.tuner is not None and self.tuner.calibrated
+            if has_tun:
+                tree["tunable"] = {"order": self.tuner.order,
+                                   "score": self.tuner.score,
+                                   "weights": self.tuner.weights}
+            extra = {
+                "service": self._service_manifest(),
+                "has_best_state": ps.best_state is not None,
+                "has_tunable": has_tun,
+                "tunable_weighted": has_tun and self.tuner.weights is not None,
+                "tunable_scored": has_tun and self.tuner.score is not None,
+                "tunable_budget": (float(self.tuner.budget)
+                                   if self.tuner is not None else None),
+            }
+            if step is None:
+                step = int(self.steps.max(initial=0))
+            return ckpt_mod.save(directory, int(step), tree, keep=keep,
+                                 extra=extra)
 
-    def load(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TMService.load belongs to the residency slice, which is not "
-            "ported yet")
+    def _service_manifest(self) -> dict:
+        """JSON-able construction knobs, key for key the reference's, so
+        :meth:`restore` (of either package) rebuilds the service."""
+        sc = self.sc
+
+        def plain(v):
+            if v is None or isinstance(v, (bool, int, float, str)):
+                return v
+            return np.asarray(v).tolist()
+
+        cfg = dataclasses.asdict(self.cfg)
+        cfg["backend"] = _BACKEND_OUT.get(cfg["backend"], cfg["backend"])
+        return {
+            "cfg": cfg,
+            "replicas": sc.replicas,
+            "buffer_capacity": sc.buffer_capacity,
+            "chunk": sc.chunk,
+            "ingress_block": sc.ingress_block,
+            "packed": sc.packed,
+            "history_limit": sc.history_limit,
+            "s": plain(sc.s),
+            "T": plain(sc.T),
+            "seed": plain(sc.seed),
+            "resident": sc.resident,
+            "policy": {
+                "analyze_every": self.policy.analyze_every,
+                "rollback_threshold": self.policy.rollback_threshold,
+            },
+            "tunable": (None if sc.tunable is None
+                        else dataclasses.asdict(sc.tunable)),
+        }
+
+    def load(self, directory: str, *, step: Optional[int] = None) -> None:
+        """Restore a :meth:`save` checkpoint (of either package) into this
+        service. The service must match the writer structurally (TMConfig
+        shapes, replicas, capacity, packing; :meth:`restore` guarantees
+        it). Anything staged or held now is discarded: the checkpoint
+        defines the complete state."""
+        with self._device_lock:
+            while self.router.take_block() is not None:
+                pass  # drop staged rows (traffic from before the restore)
+            man = ckpt_mod.read_manifest(directory, step=step)
+            meta = man["extra"]["service"]
+            if meta["replicas"] != self.n_replicas:
+                raise ValueError(
+                    f"checkpoint carries {meta['replicas']} replicas, "
+                    f"this service has {self.n_replicas}")
+            if bool(meta["packed"]) != bool(self.sc.packed):
+                raise ValueError(
+                    "checkpoint and service disagree on the packed "
+                    "datapath: ring rows are not interchangeable")
+            has_best = bool(man["extra"].get("has_best_state"))
+            has_tun = bool(man["extra"].get("has_tunable"))
+            template = {
+                "ss": SessionState(tm=TMState(0),
+                                   buf=buf_mod.RingBuffer(0, 0, 0, 0),
+                                   step=0),
+                "keys": 0,
+                "rt": TMRuntime(0, 0, 0, 0, 0, 0),
+                "policy": {"since": 0, "best": 0, "rollbacks": 0, "lost": 0,
+                           "best_state": TMState(0) if has_best else None},
+                "router": {"dropped": 0, "flushes": 0},
+                "history": {"steps": 0, "acc": 0},
+            }
+            if has_tun:
+                template["tunable"] = {
+                    "order": 0,
+                    "score": 0 if man["extra"].get("tunable_scored") else None,
+                    "weights": (0 if man["extra"].get("tunable_weighted")
+                                else None),
+                }
+            tree, man = ckpt_mod.restore(directory, template, step=step)
+            self._check_shapes(tree)
+            dev = self.device
+            self.rt = convert.runtime_from_numpy(tree["rt"], dev)
+            pol = tree["policy"]
+            self._ps = _PolicyState(
+                since=np.asarray(pol["since"], dtype=np.int64),
+                best=np.asarray(pol["best"], dtype=np.float64),
+                rollbacks=np.asarray(pol["rollbacks"], dtype=np.int64),
+                lost=np.asarray(pol["lost"], dtype=np.int64),
+                best_state=(convert.state_from_numpy(pol["best_state"], dev)
+                            if has_best else None))
+            hsteps, haccs = tree["history"]["steps"], tree["history"]["acc"]
+            self.history = [(np.asarray(hsteps[i]), np.asarray(haccs[i]))
+                            for i in range(len(hsteps))]
+            if self.tuner is not None:
+                # A calibrated checkpoint restores the ranks; an
+                # uncalibrated one resets the controller.
+                if has_tun:
+                    tun = tree["tunable"]
+                    self.tuner.set_ranking(
+                        tun["order"], tun["weights"],
+                        score=(None if tun["score"] is None else
+                               np.asarray(tun["score"], dtype=np.int32)))
+                else:
+                    self.tuner.order = None
+                    self.tuner.weights = None
+                    self.tuner.score = None
+                saved_b = man["extra"].get("tunable_budget")
+                if saved_b is not None:
+                    self.tuner.budget = float(saved_b)
+            self._ss = convert.session_state_from_numpy(tree["ss"], dev)
+            self._keys = convert.key_from_numpy(tree["keys"], dev)
+            with self.router.lock:
+                self.router.dropped[:] = np.asarray(tree["router"]["dropped"])
+                self.router.flushes = int(tree["router"]["flushes"])
+                self._dev_size = np.asarray(
+                    tree["ss"].buf.size, dtype=np.int64).reshape(
+                        self.n_replicas).copy()
+
+    def _check_shapes(self, tree) -> None:
+        """A checkpoint whose device state would not fit this service's
+        (another TMConfig width, capacity or packing) is rejected."""
+        saved = ckpt_mod._flatten_with_paths({"ss": tree["ss"],
+                                              "keys": tree["keys"]})
+        mine = ckpt_mod._flatten_with_paths({"ss": self._ss,
+                                             "keys": self._keys})
+        for k, v in saved.items():
+            if tuple(v.shape) != tuple(mine[k].shape):
+                raise ValueError(
+                    f"checkpoint leaf {k} has shape {tuple(v.shape)}, this "
+                    f"service holds {tuple(mine[k].shape)}")
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "TMService.restore belongs to the residency slice, which is "
-            "not ported yet")
+    def restore(cls, directory: str, *, step: Optional[int] = None,
+                mesh=None, eval_x=None, eval_y=None,
+                resident: Union[int, None, str] = "saved",
+                device=None) -> "TMService":
+        """Rebuild a service from a :meth:`save` checkpoint of either
+        package: construction knobs from the manifest, arrays from the
+        npz. The eval set is a runtime resource and is passed fresh.
+        ``resident`` defaults to the saved budget; a checkpoint is
+        residency-agnostic, so ``resident=None`` migrates a residency
+        service's checkpoint onto a wholly device-resident one. Residency
+        budgets are the residency slice of the port and raise."""
+        man = ckpt_mod.read_manifest(directory, step=step)
+        meta = man["extra"]["service"]
+        res = meta["resident"] if resident == "saved" else resident
+        if res is not None:
+            raise NotImplementedError(
+                f"TMService.restore(resident={res!r}): residency belongs to "
+                "the residency slice, which is not ported yet; pass "
+                "resident=None to restore the whole fleet on the device")
+        cfgd = dict(meta["cfg"])
+        cfgd["backend"] = _BACKEND_IN.get(cfgd["backend"], cfgd["backend"])
+        cfg = TMConfig(**cfgd)
+        sc = ServiceConfig(
+            replicas=meta["replicas"],
+            buffer_capacity=meta["buffer_capacity"],
+            chunk=meta["chunk"],
+            ingress_block=meta["ingress_block"],
+            packed=meta["packed"],
+            history_limit=meta["history_limit"],
+            s=meta["s"],
+            T=meta["T"],
+            policy=AdaptPolicy(**meta["policy"]),
+            seed=meta["seed"],
+            mesh=mesh,
+            tunable=(None if meta.get("tunable") is None
+                     else tun_mod.TunableConfig(**meta["tunable"])),
+        )
+        svc = cls(cfg, tm_mod.init_state(cfg, device=device), sc,
+                  eval_x=eval_x, eval_y=eval_y, device=device)
+        svc.load(directory, step=step)
+        return svc
 
     # -- observability ------------------------------------------------------------
 

@@ -309,3 +309,112 @@ def test_packed_fleet_through_kernels_equals_plain(cuda):
     assert np.array_equal(a[2], r[2]) and a[4] == r[4]
     assert all(torch.equal(x, y) for x, y in zip(a[3], r[3]))
     assert a[5] > 0 and r[5] == 0
+
+
+# The pruned entries (K7): f, (R, D), selections of every kind.
+PRUNED_F = (16, 33, 784)
+PRUNED_RD = ((1, 1), (4, 2), (16, 1))
+
+
+def _pruned_sels(rng, R, C, J, cuda):
+    """Per-replica selections [R, C, M]: a permutation prefix at M = 1,
+    J/2 and J, and arbitrary ids with repeats at M = J/2."""
+    out = []
+    for M in (1, J // 2, J):
+        out.append(np.stack([np.stack([rng.permutation(J)[:M]
+                                       for _ in range(C)])
+                             for _ in range(R)]))
+    rep = rng.integers(0, J, (R, C, J // 2))
+    rep[..., -1] = rep[..., 0]
+    out.append(rep)
+    return [torch.from_numpy(s.astype(np.int32)).to(cuda) for s in out]
+
+
+@pytest.mark.parametrize("f", PRUNED_F)
+@pytest.mark.parametrize("RD", PRUNED_RD)
+def test_pruned_count_kernels_equal_plain_and_gathered(cuda, f, RD):
+    """K7 on bytes and on words against their plain versions, against
+    the gather + K4/K6 kernels, and packed against unpacked."""
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.kernels import ref
+
+    R, D = RD
+    C, J = 10, 16
+    rng = np.random.default_rng([f, R, D])
+    inc_w, lit_w, inc, lits = _packed_case(rng, f, C * J, (R,), (D,), 37,
+                                           cuda)
+    inc4, inc4_w = inc.reshape(R, C, J, -1), inc_w.reshape(R, C, J, -1)
+    for sel in _pruned_sels(rng, R, C, J, cuda):
+        M = sel.shape[-1]
+        before = (ce.clause_counts_batch_pruned_replicated.launches,
+                  ce.clause_counts_batch_pruned_replicated_packed.launches)
+        viol, ninc = ce.clause_counts_batch_pruned_replicated(inc4, sel, lits)
+        violw = ce.clause_counts_batch_pruned_replicated_packed(inc4_w, sel,
+                                                                lit_w)
+        assert (ce.clause_counts_batch_pruned_replicated.launches,
+                ce.clause_counts_batch_pruned_replicated_packed.launches) \
+            == (before[0] + 1, before[1] + 1)
+        pv, pn = ce.clause_counts_batch_pruned_replicated_plain(inc4, sel,
+                                                                lits)
+        assert torch.equal(viol, pv) and torch.equal(ninc, pn)
+        assert torch.equal(violw, viol)
+        gv, gn = ce.clause_counts_batch_replicated(
+            ref.gather_include(inc4, sel).reshape(R, C * M, -1), lits)
+        assert torch.equal(viol, gv) and torch.equal(ninc, gn)
+        assert torch.equal(violw, ce.clause_counts_batch_replicated_packed(
+            ref.gather_include(inc4_w, sel).reshape(R, C * M, -1), lit_w))
+        if R == 1:
+            v1, n1 = ce.clause_counts_batch_pruned(inc4[0], sel[0], lits[0])
+            assert torch.equal(v1, viol[0]) and torch.equal(n1, ninc[0])
+            assert torch.equal(ce.clause_counts_batch_pruned_packed(
+                inc4_w[0], sel[0], lit_w[0]), viol[0])
+
+
+def test_pruned_kernel_rejects_out_of_range_ids(cuda):
+    """Clause ids outside [0, J) made on the host are refused before any
+    launch."""
+    from repro_torch.kernels import clause_eval as ce
+
+    inc = torch.zeros((2, 3, 8, 10), dtype=torch.bool, device=cuda)
+    lits = torch.zeros((1, 4, 10), dtype=torch.bool, device=cuda)
+    sel = torch.full((2, 3, 2), 8, dtype=torch.int32)
+    before = ce.clause_counts_batch_pruned_replicated.launches
+    with pytest.raises(ValueError, match="outside"):
+        ce.clause_eval_batch_pruned_replicated(inc, sel, lits,
+                                               training=False)
+    assert ce.clause_counts_batch_pruned_replicated.launches == before
+
+
+def test_tunable_fleet_through_kernels_equals_plain(cuda):
+    """A K = 3 tunable fleet on the card: calibrate, then budgeted serves
+    with weights and early exit, backend "cuda" (K7) against "ref", and
+    full budget against plain serve."""
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import init_state
+    from repro_torch.data import iris
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.serve import ServiceConfig, TMService, TunableConfig
+
+    xs, ys = iris.load()
+    out = {}
+    for backend in ("cuda", "ref"):
+        cfg = dataclasses.replace(CONFIG.tm, backend=backend)
+        svc = TMService(cfg, init_state(cfg, device=cuda), ServiceConfig(
+            replicas=3, s=[1.375, 3.0, 5.0], T=[5, 15, 10],
+            tunable=TunableConfig(budget=0.5, weight_bits=4,
+                                  early_exit=True, group=2)),
+            eval_x=xs[100:], eval_y=ys[100:], device=cuda)
+        svc.offline_train(xs[:60], ys[:60], n_epochs=2)
+        before = ce.clause_counts_batch_pruned_replicated.launches
+        scores = svc.calibrate()
+        got = [svc.serve(xs[:50], budget=b, return_aux=True)
+               for b in (1.0, 0.5, 0.25)]
+        plain = svc.serve(xs[:50], budget=None)
+        out[backend] = (scores, [(p, a.evaluated) for p, a in got], plain,
+                        ce.clause_counts_batch_pruned_replicated.launches
+                        - before)
+    a, r = out["cuda"], out["ref"]
+    assert np.array_equal(a[0], r[0]) and np.array_equal(a[2], r[2])
+    assert all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+               for x, y in zip(a[1], r[1]))
+    assert a[3] > 0 and r[3] == 0

@@ -113,6 +113,36 @@ def test_scan_covers_the_fleet_and_packed_modules():
             "data/buffer.py", "serve/router.py", "convert.py"} <= names
 
 
+def test_scan_covers_the_tunable_slice_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"serve/tunable.py", "serve/traffic.py", "train/checkpoint.py",
+            "kernels/ref.py", "kernels/clause_eval.py"} <= names
+
+
+def test_tunable_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """The tunable service and restore run on the card unless told
+    otherwise; on the CPU the budgeted path serves through K7's plain
+    version."""
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import init_state
+    from repro_torch.serve import ServiceConfig, TMService, TunableConfig
+
+    cfg = CONFIG.tm
+    sc = ServiceConfig(replicas=2, tunable=TunableConfig(budget=0.5))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMService(cfg, init_state(cfg, device="cpu"), sc)
+    xs = np.zeros((4, 16), dtype=bool)
+    svc = TMService(cfg, init_state(cfg, device="cpu"), sc, eval_x=xs,
+                    eval_y=np.zeros(4, np.int32), device="cpu")
+    svc.calibrate()
+    assert svc.serve(xs).shape == (2, 4)
+    svc.save(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMService.restore(str(tmp_path))
+    assert TMService.restore(str(tmp_path), device="cpu").tuner.calibrated
+
+
 def test_fleet_entry_points_default_to_cuda(no_cuda):
     from repro_torch import convert
     from repro_torch.configs.tm_iris import CONFIG

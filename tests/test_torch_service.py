@@ -28,6 +28,7 @@ from repro_torch.core.online import OnlineSession as TSession
 from repro_torch.serve import AdaptPolicy as TPolicy
 from repro_torch.serve import ServiceConfig as TConfig
 from repro_torch.serve import TMService as TService
+from repro_torch.serve import TunableConfig as TTunable
 import dataclasses
 
 BACKENDS = ["cuda", "ref"]
@@ -174,24 +175,30 @@ def test_online_session_shim_matches_reference():
 
 @pytest.mark.parametrize("sc", [
     dict(resident=1), dict(resident="auto"), dict(replicas=4, resident=2),
-    dict(tunable=object()), dict(mesh=object()),
+    dict(replicas=4, resident=2, tunable=TTunable(budget=0.5)),
+    dict(mesh=object()),
 ])
 def test_later_slices_raise(sc):
-    """Fleets, packing and per-replica ports are served (see
-    test_torch_fleet.py); residency, meshes and tunable serving still
-    raise, naming their slice."""
+    """Fleets, packing, per-replica ports and tunable serving are served
+    (test_torch_fleet.py, test_torch_tunable.py); residency and meshes
+    still raise, naming their slice, tunable or not."""
     cfg = T_IRIS.tm
     with pytest.raises(NotImplementedError, match="slice|not ported"):
         TService(cfg, t_init_state(cfg, device="cpu"), TConfig(**sc),
                  device="cpu")
 
 
-def test_durable_state_raises():
-    """save/load/restore carry the residency manifest: a later slice."""
+def test_durable_state_raises(tmp_path):
+    """save/load/restore serve services that hold every replica on the
+    device (test_torch_checkpoint.py); restoring a residency budget still
+    raises, naming the residency slice."""
     cfg = T_IRIS.tm
     svc = TService(cfg, t_init_state(cfg, device="cpu"), TConfig(replicas=2),
                    device="cpu")
-    for call in (lambda: svc.save("ckpt"), lambda: svc.load("ckpt"),
-                 lambda: TService.restore("ckpt")):
+    svc.save(str(tmp_path))
+    svc.load(str(tmp_path))
+    for resident in (1, "auto"):
         with pytest.raises(NotImplementedError, match="residency slice"):
-            call()
+            TService.restore(str(tmp_path), resident=resident, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        svc.load(str(tmp_path / "missing"))
