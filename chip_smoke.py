@@ -2,6 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-from DIR
+
+The second form imports the port from DIR (a tree's ``src``, this one's
+or a parent's unpacked beside it, to time both trees' kernels with one
+script on one card) and runs only phases 1-3's K1-K4, K8 and K9 part and
+the launch floor; it prints no ok line.
 
 Phases, each with its seconds:
 
@@ -10,16 +16,21 @@ Phases, each with its seconds:
    (one nvcc per source, all started together);
 3. parity  -- every kernel held to its plain PyTorch version with
    ``torch.equal``: K1 ``clause_counts``, K2 ``clause_counts_batch`` and K8
-   ``feedback_plane`` at the iris, ragged and full MNIST widths (K8 on
-   int8 and int16 banks); K3 ``clause_counts_replicated``, K4
-   ``clause_counts_batch_replicated`` (B = 1, 7, 150) and K9
-   ``feedback_plane_replicated`` (int8 and int16) at (R, D, CJ, L) =
-   (6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513), (8, 8, 640, 1568)
-   and (16, 4, 640, 1568). Beside each, at the main path's shapes, the
-   median time of the kernel (CUDA graphs of back-to-back launches, timed
-   by CUDA events), of its plain version and, for the clause counts, of
-   one float32 ``torch.matmul``/``torch.bmm`` of the same contraction (a
-   yardstick the port never calls). Then ``phase_parity_packed``: K5 ``clause_counts_batch_packed`` and
+   ``feedback_plane`` at the iris, ragged and full MNIST widths and at
+   L = 1, 15, 16, 17, 98 (K8 on int8 and int16 banks); K3
+   ``clause_counts_replicated``, K4 ``clause_counts_batch_replicated``
+   (B = 1, 7, 150) and K9 ``feedback_plane_replicated`` (int8 and int16)
+   at (R, D, CJ, L) = (6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513),
+   (8, 8, 640, 1568), (16, 4, 640, 1568) and (4, 2, 12, L) at the same
+   five widths. K1, K3, K8 and K9 are held at every shape on aligned
+   operands, on views one element off a 16-byte boundary and with only
+   the literals off it, so both their vector and scalar paths run. Beside
+   each, at the main path's shapes, the median time of the kernel (CUDA
+   graphs of back-to-back launches, timed by CUDA events), of its plain
+   version and, for the clause counts, of one float32
+   ``torch.matmul``/``torch.bmm`` of the same contraction (a yardstick the
+   port never calls); then the launch floor, the time of a one-element
+   in-place ``add_`` timed the same way. Then ``phase_parity_packed``: K5 ``clause_counts_batch_packed`` and
    K6 ``clause_counts_batch_replicated_packed`` against their plain
    versions and against K2/K4 on the same problem unpacked, at
    f {16, 31, 33, 49, 196, 784} x CJ {12, 48, 640} x B {1, 7, 150, 1024}
@@ -89,6 +100,7 @@ port's sources beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -103,6 +115,13 @@ INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core rate
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 FULL = (640, 1568)            # MNIST preset: 10 x 64 clause rows, 2 x 784 literals
 SHAPES = [(48, 32), (12, 33), (12, 513), FULL]
+# Widths at the K1/K3/K8/K9 path boundaries: the vector path takes
+# L % 16 == 0 with 16-byte-aligned operands, the scalar path the rest.
+EDGE_L = (1, 15, 16, 17, 98)
+# K1/K3/K8/K9 are held on three placements of their operands (the
+# storage offset of each in elements): all aligned; all one element off a
+# 16-byte boundary (the scalar path at any width); only the literals off.
+PLACEMENTS = (("aligned", 0, 0), ("offset=1", 1, 1), ("literals+1", 0, 1))
 # Replica-first shapes (R, D, CJ, L); WIDE is the f = 784 system's step.
 WIDE = (8, 8) + FULL
 REP_SHAPES = [(6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513), WIDE,
@@ -167,6 +186,30 @@ def time_ms(torch, fn, inner: int = 20, reps: int = 15) -> float:
     return times[len(times) // 2]
 
 
+def at(torch, t, offset: int):
+    """``t`` as a contiguous view ``offset`` elements into a larger tensor
+    on its device (offset 0: ``t`` itself)."""
+    if not offset:
+        return t
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
+
+
+def placements(torch) -> list:
+    """(name, place an operand, place the literals) for each of
+    PLACEMENTS."""
+    return [(what, lambda t, o=o: at(torch, t, o),
+             lambda t, o=lo: at(torch, t, o)) for what, o, lo in PLACEMENTS]
+
+
+def launch_floor_ms(torch) -> float:
+    """The device time of the smallest launch: a one-element in-place
+    ``add_``, timed as the kernels are."""
+    one = torch.zeros(1, device="cuda")
+    return time_ms(torch, lambda: one.add_(1))
+
+
 def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -220,7 +263,7 @@ def phase_parity(torch, np, ce, fb):
         return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                    for g, w in zip(got, want))
 
-    for cj, L in SHAPES:
+    for cj, L in SHAPES + [(12, L) for L in EDGE_L]:
         inc = rand_bool((cj, L), 0.05)
         batches = (1, 128, 1024) if (cj, L) == FULL else (1, 7)
         for B in batches:
@@ -234,28 +277,36 @@ def phase_parity(torch, np, ce, fb):
             print(f"parity K2 clause_counts_batch CJ={cj} L={L} B={B} "
                   f"equal={ok}", flush=True)
             check(ok, f"K2 differs from its plain version at {cj, L, B}")
-        got = ce.clause_counts(inc, lits[0])
-        want = ce.clause_counts_plain(inc, lits[0])
-        torch.cuda.synchronize()
-        ok = all(torch.equal(g, w) for g, w in zip(got, want))
-        err["clause_counts"] = max(err["clause_counts"], max_err(got, want))
-        print(f"parity K1 clause_counts CJ={cj} L={L} equal={ok}", flush=True)
-        check(ok, f"K1 differs from its plain version at {cj, L}")
-        for dtype, n_states in ((torch.int8, 63), (torch.int16, 5000)):
-            ta = torch.from_numpy(rng.integers(
-                1, 2 * n_states + 1, (cj, L))).to(dtype).to(dev)
-            ctl = [rand_bool((cj,), 0.5) for _ in range(3)]
-            u = torch.from_numpy(rng.random((cj, L), dtype=np.float32)).to(dev)
-            args = (ta, lits[0], *ctl, u, 0.75, 1.0 / 3.0)
-            got = fb.feedback_plane(*args, n_states=n_states)
-            want = fb.feedback_plane_plain(*args, n_states=n_states)
+        # K1 and K8 on each placement of the operands (PLACEMENTS).
+        for what, view, lview in placements(torch):
+            got = ce.clause_counts(view(inc), lview(lits[0]))
+            want = ce.clause_counts_plain(inc, lits[0])
             torch.cuda.synchronize()
-            ok = torch.equal(got, want)
-            err["feedback_plane"] = max(err["feedback_plane"],
-                                        max_err([got], [want]))
-            print(f"parity K8 feedback_plane CJ={cj} L={L} {dtype} "
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            err["clause_counts"] = max(err["clause_counts"],
+                                       max_err(got, want))
+            print(f"parity K1 clause_counts CJ={cj} L={L} {what} "
                   f"equal={ok}", flush=True)
-            check(ok, f"K8 differs from its plain version at {cj, L, dtype}")
+            check(ok, f"K1 differs from its plain version at {cj, L, what}")
+            for dtype, n_states in ((torch.int8, 63), (torch.int16, 5000)):
+                ta = torch.from_numpy(rng.integers(
+                    1, 2 * n_states + 1, (cj, L))).to(dtype).to(dev)
+                ctl = [rand_bool((cj,), 0.5) for _ in range(3)]
+                u = torch.from_numpy(rng.random((cj, L),
+                                                dtype=np.float32)).to(dev)
+                args = (ta, lits[0], *ctl, u, 0.75, 1.0 / 3.0)
+                got = fb.feedback_plane(
+                    view(ta), lview(lits[0]), *map(view, ctl), view(u),
+                    0.75, 1.0 / 3.0, n_states=n_states)
+                want = fb.feedback_plane_plain(*args, n_states=n_states)
+                torch.cuda.synchronize()
+                ok = torch.equal(got, want)
+                err["feedback_plane"] = max(err["feedback_plane"],
+                                            max_err([got], [want]))
+                print(f"parity K8 feedback_plane CJ={cj} L={L} {dtype} "
+                      f"{what} equal={ok}", flush=True)
+                check(ok, f"K8 differs from its plain version at "
+                          f"{cj, L, dtype, what}")
 
     # Times at the main path's shapes: K1 and K8 once per training step,
     # K2 at the 1024-row serve.
@@ -333,7 +384,7 @@ def phase_parity_replicated(torch, np, ce, fb):
         print(f"parity {name} {what} equal={ok}", flush=True)
         check(ok, f"{name} differs from its plain version at {what}")
 
-    for R, D, cj, L in REP_SHAPES:
+    for R, D, cj, L in REP_SHAPES + [(4, 2, 12, L) for L in EDGE_L]:
         inc = rand_bool((R, cj, L), 0.05)
         for B in (1, 7, B_ANALYSIS):
             lits = rand_bool((D, B, L), 0.5)
@@ -341,24 +392,29 @@ def phase_parity_replicated(torch, np, ce, fb):
                  ce.clause_counts_batch_replicated(inc, lits),
                  ce.clause_counts_batch_replicated_plain(inc, lits),
                  f"R={R} D={D} CJ={cj} L={L} B={B}")
-        hold("clause_counts_replicated",
-             ce.clause_counts_replicated(inc, lits[:, 0]),
-             ce.clause_counts_replicated_plain(inc, lits[:, 0]),
-             f"R={R} D={D} CJ={cj} L={L}")
-        for dtype, n_states in ((torch.int8, 63), (torch.int16, 5000)):
-            ta = torch.from_numpy(rng.integers(
-                1, 2 * n_states + 1, (R, cj, L))).to(dtype).to(dev)
-            ctl = [rand_bool((R, cj), 0.5) for _ in range(3)]
-            u = torch.from_numpy(rng.random((D, cj, L),
-                                            dtype=np.float32)).to(dev)
-            ps, pe = (torch.from_numpy(rng.random(R, dtype=np.float32))
-                      .to(dev) for _ in range(2))
-            args = (ta, lits[:, 0], *ctl, u, ps, pe)
-            hold("feedback_plane_replicated",
-                 [fb.feedback_plane_replicated(*args, n_states=n_states)],
-                 [fb.feedback_plane_replicated_plain(*args,
-                                                     n_states=n_states)],
-                 f"R={R} D={D} CJ={cj} L={L} {dtype}")
+        lit = lits[:, 0].contiguous()
+        # K3 and K9 on each placement of the operands (PLACEMENTS).
+        for what, view, lview in placements(torch):
+            hold("clause_counts_replicated",
+                 ce.clause_counts_replicated(view(inc), lview(lit)),
+                 ce.clause_counts_replicated_plain(inc, lit),
+                 f"R={R} D={D} CJ={cj} L={L} {what}")
+            for dtype, n_states in ((torch.int8, 63), (torch.int16, 5000)):
+                ta = torch.from_numpy(rng.integers(
+                    1, 2 * n_states + 1, (R, cj, L))).to(dtype).to(dev)
+                ctl = [rand_bool((R, cj), 0.5) for _ in range(3)]
+                u = torch.from_numpy(rng.random((D, cj, L),
+                                                dtype=np.float32)).to(dev)
+                ps, pe = (torch.from_numpy(rng.random(R, dtype=np.float32))
+                          .to(dev) for _ in range(2))
+                args = (ta, lit, *ctl, u, ps, pe)
+                hold("feedback_plane_replicated",
+                     [fb.feedback_plane_replicated(
+                         view(ta), lview(lit), *map(view, ctl), view(u),
+                         view(ps), view(pe), n_states=n_states)],
+                     [fb.feedback_plane_replicated_plain(
+                         *args, n_states=n_states)],
+                     f"R={R} D={D} CJ={cj} L={L} {dtype} {what}")
 
     # Times at the f = 784 system's shapes: K3 and K9 once per training
     # step, K4 once per cycle over the three concatenated sets.
@@ -372,18 +428,21 @@ def phase_parity_replicated(torch, np, ce, fb):
     u = torch.from_numpy(rng.random((D, cj, L), dtype=np.float32)).to(dev)
     ps = torch.full((R,), 0.75, device=dev)
     pe = torch.full((R,), 1.0 / 3.0, device=dev)
-    fb_args = (ta, lits[:, 0], *ctl, u, ps, pe)
+    # the datapoint rows [D, L], contiguous as the engine passes them (a
+    # strided lits[:, 0] would add a copy kernel to every timed call)
+    lit = lits[:, 0].contiguous()
+    fb_args = (ta, lit, *ctl, u, ps, pe)
     rows = torch.arange(R, device=dev) % D
     inc_f = inc.to(torch.float32)
-    rhs1 = torch.stack([1.0 - lits[:, 0].float(),
+    rhs1 = torch.stack([1.0 - lit.float(),
                         torch.ones(D, L, device=dev)], -1)[rows]
     rhsb = torch.cat([(1.0 - lits.float()).transpose(1, 2),
                       torch.ones(D, L, 1, device=dev)], -1)[rows]
     recs = []
     for name, replaces, kern, plain, lib, nbytes, ops, rate in (
         ("clause_counts_replicated", "src/repro/kernels/clause_eval.py:193",
-         lambda: ce.clause_counts_replicated(inc, lits[:, 0]),
-         lambda: ce.clause_counts_replicated_plain(inc, lits[:, 0]),
+         lambda: ce.clause_counts_replicated(inc, lit),
+         lambda: ce.clause_counts_replicated_plain(inc, lit),
          lambda: torch.bmm(inc_f, rhs1),
          R * cj * L + D * L + 2 * R * cj * 4, 2.0 * R * cj * L * 2,
          INT8_OPS_PER_S),
@@ -419,6 +478,24 @@ def phase_parity_replicated(torch, np, ce, fb):
               f"{rec['library_ms']} ms, bound {b_ms:.5f} ms ({b_by})",
               flush=True)
         recs.append(rec)
+
+    # K9 where replicas share data streams (D < R: a grid over orderings),
+    # so a u row is read by R / D replicas: R = 16, D = 4.
+    R, D = 16, 4
+    ta = torch.from_numpy(rng.integers(1, 127, (R, cj, L))).to(
+        torch.int8).to(dev)
+    ctl = [rand_bool((R, cj), 0.5) for _ in range(3)]
+    u = torch.from_numpy(rng.random((D, cj, L), dtype=np.float32)).to(dev)
+    ps = torch.full((R,), 0.75, device=dev)
+    pe = torch.full((R,), 1.0 / 3.0, device=dev)
+    lit = rand_bool((D, L), 0.5)
+    ms = time_ms(torch, lambda: fb.feedback_plane_replicated(
+        ta, lit, *ctl, u, ps, pe, n_states=63))
+    b_ms, _ = bound(2 * R * cj * L + 4 * D * cj * L + D * L + 3 * R * cj
+                    + 8 * R, 10.0 * R * cj * L, F32_OPS_PER_S)
+    recs[-1].update(ms_r16_d4=ms, bound_ms_r16_d4=b_ms)
+    print(f"time feedback_plane_replicated (R={R} D={D} CJ={cj} L={L}): "
+          f"kernel {ms:.5f} ms, bound {b_ms:.5f} ms (bytes)", flush=True)
     return recs
 
 
@@ -1691,11 +1768,18 @@ def phase_traffic(torch, np, ce, fb):
 
 
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke: the port's sources (src/repro_torch) are not "
-              "beside this script", file=sys.stderr)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-from", type=Path, metavar="DIR",
+                    help="import repro_torch from DIR (a tree's src/), run "
+                    "only the device, build, parity and parity_replicated "
+                    "phases and the launch floor, and stop (no ok line)")
+    args = ap.parse_args()
+    src = args.kernels_from or ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources ({src}/repro_torch) are "
+              "not there", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src.resolve()))
     import numpy as np
     import torch
 
@@ -1732,6 +1816,11 @@ def main() -> int:
     recs = timed("parity", phase_parity, torch, np, ce, fb)
     recs += timed("parity_replicated", phase_parity_replicated, torch, np,
                   ce, fb)
+    print(f"launch floor: one-element add_ {launch_floor_ms(torch):.5f} ms",
+          flush=True)
+    if args.kernels_from:
+        print(json.dumps({"kernel_times": recs}), flush=True)
+        return 0
     recs += timed("parity_packed", phase_parity_packed, torch, np, ce)
     recs += timed("parity_pruned", phase_parity_pruned, torch, np, ce)
     launches = timed("service", phase_main, torch, np, ce, fb)

@@ -18,11 +18,14 @@ Bound on an H100: memory. K1/K3 read each [CJ, L] include plane once per
 datapoint (1.0 MB a bank at the MNIST width, 8.0 MB at R = 8: about
 2.4 us) and do one add per byte; K2/K4 read them once per batch plus the
 D x B x L literal bytes and write R x CJ x B int32 counts (about 13 MB,
-3.9 us, at R = D = 8 and B = 150). K1/K3 give each clause row a warp whose
-lanes stride over L; K2/K4 pack the include planes and the D literal
-batches 32 bools to a word once, then count AND-NOT popcounts over word
-tiles staged in shared memory. At these shapes launch overhead and the
-counting loop, not the bytes, set the time; see the source for the layout.
+3.9 us, at R = D = 8 and B = 150). K1/K3 give each clause row a group of
+lanes that load 16 include and 16 literal bytes at a time and count four
+literals a popcount (where L % 16 == 0 and both operands are 16-byte
+aligned; otherwise a warp per row strides over L a byte at a time); K2/K4
+pack the include planes and the D literal batches 32 bools to a word
+once, then count AND-NOT popcounts over word tiles staged in shared
+memory. At these shapes launch overhead and the counting loop, not the
+bytes, set the time; see the source for the layout.
 
 K5 and K6 take the bit-packed planes (int32 words holding uint32 bits,
 :mod:`repro_torch.kernels.packing`): include [R, CJ, W] and literals

@@ -5,11 +5,14 @@ Replaces the Pallas kernels ``feedback_plane`` (K8) and
 ``kernels/feedback.py``, which tiled the [CJ, L] planes in 32 x 512 blocks
 with the per-row control packed into an int8 tile. Here
 (``csrc/feedback.cu``) both are one elementwise pass over the flattened
-banks on a (literal block, clause row, replica) grid, for int8 and int16
-TAs, with the three per-row controls as bool planes. K8 is one bank with
-the two probabilities passed by value; K9 takes R banks, reads literals
-and uniforms at data stream r % D, and reads p_strengthen / p_erase from
-two [R] float32 device arrays.
+banks, for int8 and int16 TAs, with the three per-row controls as bool
+planes. K8 is one bank with the two probabilities passed by value; K9
+takes R banks, reads literals and uniforms at data stream r % D, and reads
+p_strengthen / p_erase from two [R] float32 device arrays. Where L % 16 ==
+0 and every operand is 16-byte aligned (iris and MNIST widths), a thread
+updates 16 TAs of a row from 16-byte loads; other widths, and views with a
+storage offset, take a one-thread-per-TA scalar path. The CUDA launcher
+picks the path from the shapes and pointers.
 
 Bound on an H100: memory. At the MNIST width K8 moves about 6.0 MB per
 datapoint (the TA bank in and out, 2.0 MB; the float32 uniforms u,

@@ -12,10 +12,28 @@ import torch
 
 pytestmark = pytest.mark.gpu
 
-SHAPES = [(48, 32), (12, 33), (12, 513), (640, 1568)]
-# Replica-first shapes (R, D, CJ, L): grids over shared streams (D < R).
-REP_SHAPES = [(6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513),
-              (8, 8, 640, 1568), (16, 4, 640, 1568)]
+# (CJ, L, offset). K1/K3 and K8/K9 take a vector path for L % 16 == 0 with
+# 16-byte-aligned operands (L = 16, 32, 1568) and a scalar path for the
+# rest: the other widths, and operands that are views ``offset`` elements
+# into a larger tensor (:func:`_at`; 33 is row 1 of a [2, 33] tensor).
+SHAPES = ([(48, 32, 0), (12, 33, 0), (12, 513, 0), (640, 1568, 0)]
+          + [(12, L, 0) for L in (1, 15, 16, 17, 98)]
+          + [(48, 32, 1), (12, 33, 33), (640, 1568, 3)])
+# Replica-first shapes (R, D, CJ, L, offset): grids over shared streams
+# (D < R), the same boundary widths and views.
+REP_SHAPES = ([(6, 3, 48, 32, 0), (3, 1, 12, 33, 0), (4, 2, 12, 513, 0),
+               (8, 8, 640, 1568, 0), (16, 4, 640, 1568, 0)]
+              + [(4, 2, 12, L, 0) for L in (1, 15, 16, 17, 98)]
+              + [(6, 3, 48, 32, 1), (3, 1, 12, 33, 33),
+                 (16, 4, 640, 1568, 3)])
+
+
+def _at(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t`` as a contiguous view ``offset`` elements into a larger
+    tensor on the same device."""
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
 
 
 @pytest.fixture
@@ -29,11 +47,11 @@ def cuda():
 def test_clause_count_kernels_equal_plain(cuda, shape):
     from repro_torch.kernels import clause_eval as ce
 
-    cj, L = shape
+    cj, L, off = shape
     rng = np.random.default_rng(cj * L)
-    inc = torch.from_numpy(rng.random((cj, L)) < 0.05).to(cuda)
+    inc = _at(torch.from_numpy(rng.random((cj, L)) < 0.05).to(cuda), off)
     for B in (1, 33, 300):
-        lits = torch.from_numpy(rng.random((B, L)) < 0.5).to(cuda)
+        lits = _at(torch.from_numpy(rng.random((B, L)) < 0.5).to(cuda), off)
         before = ce.clause_counts_batch.launches
         got = ce.clause_counts_batch(inc, lits)
         assert ce.clause_counts_batch.launches == before + 1
@@ -52,14 +70,14 @@ def test_clause_count_kernels_equal_plain(cuda, shape):
 def test_feedback_kernel_equals_plain(cuda, shape, dtype, n_states):
     from repro_torch.kernels import feedback as fb
 
-    cj, L = shape
+    cj, L, off = shape
     rng = np.random.default_rng(cj + L)
     ta = torch.from_numpy(rng.integers(1, 2 * n_states + 1, (cj, L))).to(
         dtype).to(cuda)
     lit = torch.from_numpy(rng.random(L) < 0.5).to(cuda)
     ctl = [torch.from_numpy(rng.random(cj) < 0.5).to(cuda) for _ in range(3)]
     u = torch.from_numpy(rng.random((cj, L), dtype=np.float32)).to(cuda)
-    args = (ta, lit, *ctl, u, 0.75, 0.25)
+    args = (*(_at(t, off) for t in (ta, lit, *ctl, u)), 0.75, 0.25)
     before = fb.feedback_plane.launches
     got = fb.feedback_plane(*args, n_states=n_states)
     assert fb.feedback_plane.launches == before + 1
@@ -107,11 +125,12 @@ def test_service_through_kernels_equals_plain(cuda):
 def test_replicated_count_kernels_equal_plain(cuda, shape):
     from repro_torch.kernels import clause_eval as ce
 
-    R, D, cj, L = shape
+    R, D, cj, L, off = shape
     rng = np.random.default_rng([R, D, cj, L])
-    inc = torch.from_numpy(rng.random((R, cj, L)) < 0.05).to(cuda)
+    inc = _at(torch.from_numpy(rng.random((R, cj, L)) < 0.05).to(cuda), off)
     for B in (1, 7, 150):
-        lits = torch.from_numpy(rng.random((D, B, L)) < 0.5).to(cuda)
+        lits = _at(torch.from_numpy(rng.random((D, B, L)) < 0.5).to(cuda),
+                   off)
         before = ce.clause_counts_batch_replicated.launches
         got = ce.clause_counts_batch_replicated(inc, lits)
         assert ce.clause_counts_batch_replicated.launches == before + 1
@@ -131,7 +150,7 @@ def test_replicated_feedback_kernel_equals_plain(cuda, shape, dtype,
                                                  n_states):
     from repro_torch.kernels import feedback as fb
 
-    R, D, cj, L = shape
+    R, D, cj, L, off = shape
     rng = np.random.default_rng([R, D, cj, L, n_states])
     ta = torch.from_numpy(rng.integers(1, 2 * n_states + 1, (R, cj, L))).to(
         dtype).to(cuda)
@@ -141,7 +160,7 @@ def test_replicated_feedback_kernel_equals_plain(cuda, shape, dtype,
     u = torch.from_numpy(rng.random((D, cj, L), dtype=np.float32)).to(cuda)
     ps, pe = (torch.from_numpy(rng.random(R, dtype=np.float32)).to(cuda)
               for _ in range(2))
-    args = (ta, lit, *ctl, u, ps, pe)
+    args = tuple(_at(t, off) for t in (ta, lit, *ctl, u, ps, pe))
     before = fb.feedback_plane_replicated.launches
     got = fb.feedback_plane_replicated(*args, n_states=n_states)
     assert fb.feedback_plane_replicated.launches == before + 1

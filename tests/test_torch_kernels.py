@@ -30,6 +30,14 @@ SHAPES = [
     (2, 6, 513),
 ]
 BACKENDS = ["cuda", "ref"]
+# The K1/K2/K8 cases (C, J, L, offset): SHAPES, then the widths at the CUDA
+# kernels' path boundaries (the vector path takes L % 16 == 0 with
+# 16-byte-aligned operands, the scalar path the rest: L = 1, 15, 16, 17 and
+# 98, f = 49), then operands that are views with a storage offset of
+# ``offset`` elements (:func:`_at`), which start off a 16-byte boundary.
+KERNEL_SHAPES = ([(*s, 0) for s in SHAPES]
+                 + [(2, 3, L, 0) for L in (1, 15, 16, 17, 98)]
+                 + [(3, 16, 32, 1), (3, 8, 33, 33), (2, 5, 98, 3)])
 
 
 def _t(a) -> torch.Tensor:
@@ -38,6 +46,15 @@ def _t(a) -> torch.Tensor:
 
 def _seed(*parts) -> int:
     return abs(hash(parts)) % 2**31
+
+
+def _at(a, offset: int) -> torch.Tensor:
+    """``a`` as a contiguous view ``offset`` elements into a larger
+    tensor (row 1 of a [2, L] literal tensor is ``offset = L``)."""
+    a = np.asarray(a)
+    flat = torch.zeros(a.size + offset, dtype=_t(a).dtype)
+    flat[offset:] = _t(a.ravel())
+    return flat[offset:].view(a.shape)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -73,19 +90,19 @@ def test_clause_eval_batch_matches_pallas(shape, training):
         assert np.array_equal(want, got.numpy()), name
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
 def test_clause_counts_kernels_match_pallas(shape):
     """K1 and K2 themselves: the counts, not only the derived outputs."""
-    C, J, L = shape
+    C, J, L, off = shape
     rng = np.random.default_rng(_seed(shape, "cc"))
     inc = rng.random((C * J, L)) < 0.2
     lits = rng.random((5, L)) < 0.5
     v1, n1 = j_ce.clause_counts(jnp.asarray(inc), jnp.asarray(lits[0]))
-    v2, n2 = t_ce.clause_counts(_t(inc), _t(lits[0]))
+    v2, n2 = t_ce.clause_counts(_at(inc, off), _at(lits[0], off))
     assert np.array_equal(np.asarray(v1), v2.numpy())
     assert np.array_equal(np.asarray(n1), n2.numpy())
     vb1, nb1 = j_ce.clause_counts_batch(jnp.asarray(inc), jnp.asarray(lits))
-    vb2, nb2 = t_ce.clause_counts_batch(_t(inc), _t(lits))
+    vb2, nb2 = t_ce.clause_counts_batch(_at(inc, off), _at(lits, off))
     assert vb2.dtype == torch.int32 and nb2.dtype == torch.int32
     assert np.array_equal(np.asarray(vb1), vb2.numpy())
     assert np.array_equal(np.asarray(nb1), nb2.numpy())
@@ -118,20 +135,34 @@ def test_feedback_matches_pallas(shape, policy, dtype):
             assert np.array_equal(want, got.numpy()), (name, boost)
 
 
-@pytest.mark.parametrize("shape", [(3, 16, 32), (2, 6, 513)])
+# The K8 cases (C, J, L, TA type, offset): int8 and int16 banks at the
+# widths of KERNEL_SHAPES' boundaries and as views with a storage offset.
+FEEDBACK_SHAPES = (
+    [(3, 16, 32, "int8", 0), (2, 6, 513, "int8", 0),
+     (3, 16, 32, "int16", 0), (2, 6, 513, "int16", 0)]
+    + [(2, 3, L, dt, 0) for L in (1, 15, 16, 17, 98)
+       for dt in ("int8", "int16")]
+    + [(3, 16, 32, dt, off) for dt in ("int8", "int16") for off in (1, 32)]
+    + [(3, 8, 33, "int8", 33), (2, 5, 98, "int16", 3)])
+
+
+@pytest.mark.parametrize("shape", FEEDBACK_SHAPES)
 def test_feedback_plane_kernel_matches_pallas(shape):
     """K8 itself, on the flattened plane with explicit probabilities."""
-    C, J, L = shape
+    C, J, L, dtype, off = shape
+    n_states = 16 if dtype == "int8" else 5000
     rng = np.random.default_rng(_seed(shape, "fp"))
-    ta = rng.integers(1, 33, (C * J, L)).astype(np.int8)
+    ta = rng.integers(1, 2 * n_states + 1, (C * J, L)).astype(dtype)
     lits = rng.random((L,)) < 0.5
     ctl = [rng.random((C * J,)) < 0.5 for _ in range(3)]
     u = rng.random((C * J, L)).astype(np.float32)
     ps, pe = np.float32(0.6), np.float32(0.3)
     want = j_fb.feedback_plane(*map(jnp.asarray, (ta, lits, *ctl, u)),
-                               jnp.float32(ps), jnp.float32(pe), n_states=16)
-    got = t_fb.feedback_plane(*map(_t, (ta, lits, *ctl, u)), float(ps),
-                              float(pe), n_states=16)
+                               jnp.float32(ps), jnp.float32(pe),
+                               n_states=n_states)
+    got = t_fb.feedback_plane(*(_at(a, off) for a in (ta, lits, *ctl, u)),
+                              float(ps), float(pe), n_states=n_states)
+    assert got.dtype == getattr(torch, dtype)
     assert np.array_equal(np.asarray(want), got.numpy())
 
 

@@ -31,6 +31,15 @@ REP_SHAPES = [
     (4, 2, 2, 6, 513),
 ]
 BACKENDS = ["cuda", "ref"]
+# The K3/K4/K9 cases (R, D, C, J, L, offset): REP_SHAPES, then the widths
+# at the CUDA kernels' path boundaries (the vector path takes L % 16 == 0
+# with 16-byte-aligned operands, the scalar path the rest), all with
+# D < R, then operands that are views with a storage offset of ``offset``
+# elements (:func:`_at`), which start off a 16-byte boundary.
+KERNEL_SHAPES = ([(*s, 0) for s in REP_SHAPES]
+                 + [(4, 2, 2, 3, L, 0) for L in (1, 15, 16, 17, 98)]
+                 + [(6, 3, 3, 16, 32, 1), (3, 1, 2, 6, 33, 33),
+                    (4, 2, 2, 5, 98, 3)])
 
 
 def _t(a) -> torch.Tensor:
@@ -39,6 +48,15 @@ def _t(a) -> torch.Tensor:
 
 def _rng(shape, tag) -> np.random.Generator:
     return np.random.default_rng([*shape, tag])
+
+
+def _at(a, offset: int) -> torch.Tensor:
+    """``a`` as a contiguous view ``offset`` elements into a larger
+    tensor (row 1 of a [2, L] literal tensor is ``offset = L``)."""
+    a = np.asarray(a)
+    flat = torch.zeros(a.size + offset, dtype=_t(a).dtype)
+    flat[offset:] = _t(a.ravel())
+    return flat[offset:].view(a.shape)
 
 
 @pytest.mark.parametrize("shape", REP_SHAPES)
@@ -73,22 +91,22 @@ def test_clause_eval_batch_replicated_matches_pallas(shape, training):
         assert np.array_equal(want, got.numpy()), name
 
 
-@pytest.mark.parametrize("shape", REP_SHAPES)
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
 def test_replicated_count_kernels_match_pallas(shape):
     """K3 and K4 themselves: the counts, not only the derived outputs."""
-    R, D, C, J, L = shape
-    rng = _rng(shape, 3)
+    R, D, C, J, L, off = shape
+    rng = _rng(shape[:5], 3)
     inc = rng.random((R, C * J, L)) < 0.2
     lits = rng.random((D, 7, L)) < 0.5
     want = j_ce.clause_counts_replicated(jnp.asarray(inc),
                                          jnp.asarray(lits[:, 0]))
-    got = t_ce.clause_counts_replicated(_t(inc), _t(lits[:, 0]))
+    got = t_ce.clause_counts_replicated(_at(inc, off), _at(lits[:, 0], off))
     for w, g in zip(want, got):
         assert g.dtype == torch.int32
         assert np.array_equal(np.asarray(w), g.numpy())
     want = j_ce.clause_counts_batch_replicated(jnp.asarray(inc),
                                                jnp.asarray(lits))
-    got = t_ce.clause_counts_batch_replicated(_t(inc), _t(lits))
+    got = t_ce.clause_counts_batch_replicated(_at(inc, off), _at(lits, off))
     for w, g in zip(want, got):
         assert g.dtype == torch.int32
         assert np.array_equal(np.asarray(w), g.numpy())
@@ -127,20 +145,36 @@ def test_feedback_step_replicated_matches_pallas(shape, policy, dtype,
             assert np.array_equal(want, got.numpy()), (name, boost)
 
 
-@pytest.mark.parametrize("shape", REP_SHAPES)
+# The K9 cases (R, D, C, J, L, TA type, offset): int8 banks at REP_SHAPES,
+# then int8 and int16 at the path-boundary widths (D < R) and as views
+# with a storage offset.
+FEEDBACK_SHAPES = (
+    [(*s, np.int8, 0) for s in REP_SHAPES]
+    + [(6, 3, 3, 16, 32, np.int16, 0), (4, 2, 2, 6, 513, np.int16, 0)]
+    + [(4, 2, 2, 3, L, dt, 0) for L in (1, 15, 16, 17, 98)
+       for dt in (np.int8, np.int16)]
+    + [(6, 3, 3, 16, 32, dt, off) for dt in (np.int8, np.int16)
+       for off in (1, 32)]
+    + [(3, 1, 2, 6, 33, np.int8, 33), (4, 2, 2, 5, 98, np.int16, 3)])
+
+
+@pytest.mark.parametrize("shape", FEEDBACK_SHAPES)
 def test_feedback_plane_replicated_matches_pallas(shape):
     """K9 itself over the flattened planes, with per-replica p."""
-    R, D, C, J, L = shape
-    a = _feedback_inputs(shape, np.int8, 63, 5)
-    rng = _rng(shape, 6)
+    R, D, C, J, L, dtype, off = shape
+    n_states = 63 if dtype == np.int8 else 5000
+    a = _feedback_inputs(shape[:5], dtype, n_states, 5)
+    rng = _rng(shape[:5], 6)
     ps = rng.random(R).astype(np.float32)
     pe = rng.random(R).astype(np.float32)
     args = (a["ta"].reshape(R, C * J, L), a["lits"],
             a["c_out"].reshape(R, -1), a["t1"].reshape(R, -1),
             a["t2"].reshape(R, -1), a["u"].reshape(D, C * J, L), ps, pe)
     want = np.asarray(j_fb.feedback_plane_replicated(
-        *(jnp.asarray(x) for x in args), n_states=63))
-    got = t_fb.feedback_plane_replicated(*(_t(x) for x in args), n_states=63)
+        *(jnp.asarray(x) for x in args), n_states=n_states))
+    got = t_fb.feedback_plane_replicated(*(_at(x, off) for x in args),
+                                         n_states=n_states)
+    assert got.dtype == _t(a["ta"]).dtype
     assert np.array_equal(want, got.numpy())
 
 
