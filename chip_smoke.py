@@ -6,8 +6,8 @@
 
 The second form imports the port from DIR (a tree's ``src``, this one's
 or a parent's unpacked beside it, to time both trees' kernels with one
-script on one card) and runs only phases 1-3's K1-K4, K8 and K9 part and
-the launch floor; it prints no ok line.
+script on one card) and runs only phases 1-3's K1-K4, K8 and K9 part, the
+launch floor and the two K7 byte entries' times; it prints no ok line.
 
 Phases, each with its seconds:
 
@@ -24,12 +24,19 @@ Phases, each with its seconds:
    (8, 8, 640, 1568), (16, 4, 640, 1568) and (4, 2, 12, L) at the same
    five widths. K1, K3, K8 and K9 are held at every shape on aligned
    operands, on views one element off a 16-byte boundary and with only
-   the literals off it, so both their vector and scalar paths run. Beside
+   the literals off it, so both their vector and scalar paths run. K2,
+   K4 and K7 on bytes (one int8 tensor-core body) are held at L in
+   BYTE_L (1 to 1568) x B in BYTE_B (1 to 1024) x the same placements x
+   bool, uint8 and int8 operands whose set bytes are 1, 2, 255 or -1,
+   each call one launch, and on the body's 128 x 128 tiles at R = 16;
+   then ``one_launch``: torch.profiler sees one CUDA kernel in a K2 call
+   and in a K = 1 K7 call on bytes. Beside
    each, at the main path's shapes, the median time of the kernel (CUDA
    graphs of back-to-back launches, timed by CUDA events), of its plain
    version and, for the clause counts, of one float32
    ``torch.matmul``/``torch.bmm`` of the same contraction (a yardstick the
-   port never calls); then the launch floor, the time of a one-element
+   port never calls; K2 also beside ``torch._int_mm`` of the int8
+   contraction); then the launch floor, the time of a one-element
    in-place ``add_`` timed the same way. Then ``phase_parity_packed``: K5 ``clause_counts_batch_packed`` and
    K6 ``clause_counts_batch_replicated_packed`` against their plain
    versions and against K2/K4 on the same problem unpacked, at
@@ -122,6 +129,17 @@ EDGE_L = (1, 15, 16, 17, 98)
 # storage offset of each in elements): all aligned; all one element off a
 # 16-byte boundary (the scalar path at any width); only the literals off.
 PLACEMENTS = (("aligned", 0, 0), ("offset=1", 1, 1), ("literals+1", 0, 1))
+# K2, K4 and K7 on bytes (one int8 tensor-core body) are held at widths
+# and batches on its boundaries: the 16-byte cp.async segment, the 64-byte
+# chunk, the 8-column MMA tile and the 64-column block tile; on bool
+# operands and on bytes whose set values are 1, 2 or 255 (uint8) or 1, 2
+# or -1 (int8), since any nonzero byte counts as 1.
+BYTE_L = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 98, 513, 1568)
+BYTE_B = (1, 7, 8, 9, 150, 1024)
+BYTE_KINDS = ("bool", "uint8", "int8")
+# Grids of 8 or more 64 x 64 tiles an SM take the body's 128 x 128 tiles:
+# held at R = 16 banks of 300 ragged rows against B = 1000.
+BIG_R, BIG_ROWS, BIG_B = 16, 300, 1000
 # Replica-first shapes (R, D, CJ, L); WIDE is the f = 784 system's step.
 WIDE = (8, 8) + FULL
 REP_SHAPES = [(6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513), WIDE,
@@ -201,6 +219,62 @@ def placements(torch) -> list:
     PLACEMENTS."""
     return [(what, lambda t, o=o: at(torch, t, o),
              lambda t, o=lo: at(torch, t, o)) for what, o, lo in PLACEMENTS]
+
+
+def byte_operand(torch, np, rng, shape, p, kind, dev, bank=False):
+    """A random 0/1 plane at density ``p`` as ``kind`` (BYTE_KINDS): bools,
+    or bytes whose set values are drawn from 1, 2 and 255 (uint8) or 1, 2
+    and -1 (int8). A ``bank`` gets an all-empty first and an all-include
+    last row (axis -2)."""
+    bits = rng.random(shape) < p
+    if kind == "bool":
+        t = torch.from_numpy(bits)
+    else:
+        vals = rng.choice((1, 2, 255) if kind == "uint8" else (1, 2, -1),
+                          size=shape)
+        t = torch.from_numpy(np.where(bits, vals, 0).astype(kind))
+    if bank:
+        t[..., 0, :] = 0
+        t[..., -1, :] = {"bool": 1, "uint8": 255, "int8": -1}[kind]
+    return t.to(dev)
+
+
+def byte_edges(torch, np, rng, dev, hold, bank_shape, lit_lead,
+               batches=BYTE_B):
+    """Hold ``hold(inc, lits, view, lview, what)`` at every BYTE_L x
+    BYTE_KINDS x ``batches`` x PLACEMENTS: a bank [*bank_shape, L] with an
+    empty and an all-include row, literals [*lit_lead, B, L]."""
+    for L in BYTE_L:
+        for kind in BYTE_KINDS:
+            inc = byte_operand(torch, np, rng, tuple(bank_shape) + (L,), 0.1,
+                               kind, dev, bank=True)
+            for B in batches:
+                lits = byte_operand(torch, np, rng,
+                                    tuple(lit_lead) + (B, L), 0.5, kind, dev)
+                for what, view, lview in placements(torch):
+                    hold(inc, lits, view, lview,
+                         f"L={L} {kind} B={B} {what}")
+
+
+def int_mm_ms(torch, a, b):
+    """(ms, None): the time of one ``torch._int_mm(a, b)`` (int8 x int8 ->
+    int32), a yardstick the port never calls; (None, why) where it does
+    not run on this card."""
+    try:
+        torch._int_mm(a, b)
+        torch.cuda.synchronize()
+    except Exception as e:  # reported in the record, never a fallback
+        return None, f"{type(e).__name__}: {e}".splitlines()[0][:160]
+    return time_ms(torch, lambda: torch._int_mm(a, b)), None
+
+
+def k7_bytes_work(R, C, M, f, B):
+    """(bytes, int8 operations) of K7 on bytes: the R*C*M elected include
+    rows, their int32 ids, the B literal rows, the int32 violations and
+    n_included; the contraction with a ones column, as K2's."""
+    rows, L = R * C * M, 2 * f
+    return (rows * L + rows * 4 + B * L + rows * B * 4 + rows * 4,
+            2.0 * rows * L * (B + 1))
 
 
 def launch_floor_ms(torch) -> float:
@@ -308,6 +382,26 @@ def phase_parity(torch, np, ce, fb):
                 check(ok, f"K8 differs from its plain version at "
                           f"{cj, L, dtype, what}")
 
+    # K2's tensor-core body at its edges, one launch a call, against the
+    # plain version on the same operands as bools (any nonzero byte is 1).
+    def hold_k2(inc, lits, view, lview, what):
+        before = ce.clause_counts_batch.launches
+        got = ce.clause_counts_batch(view(inc), lview(lits))
+        check(ce.clause_counts_batch.launches == before + 1,
+              f"K2 launched other than once at {what}")
+        want = ce.clause_counts_batch_plain(inc.to(torch.bool),
+                                            lits.to(torch.bool))
+        torch.cuda.synchronize()
+        err["clause_counts_batch"] = max(err["clause_counts_batch"],
+                                         max_err(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K2 differs from its plain version at CJ=70 {what}")
+
+    byte_edges(torch, np, rng, dev, hold_k2, (70,), ())
+    print(f"parity K2 clause_counts_batch CJ=70 L {BYTE_L} x {BYTE_KINDS} "
+          f"x B {BYTE_B} x {[p[0] for p in PLACEMENTS]} equal=True",
+          flush=True)
+
     # Times at the main path's shapes: K1 and K8 once per training step,
     # K2 at the 1024-row serve.
     cj, L = FULL
@@ -358,6 +452,19 @@ def phase_parity(torch, np, ce, fb):
               f"{rec['plain_ms']:.5f} ms, library {rec['library_ms']} ms, "
               f"bound {b_ms:.5f} ms ({b_by})", flush=True)
         recs.append(rec)
+    # K2's second yardstick: the same int8 contraction as one
+    # torch._int_mm, include [CJ, L] x [L, B + 8] (the zero-literal
+    # columns, a ones column and 7 zero columns: a multiple of 8)
+    rhs = torch.cat([(~lits).to(torch.int8),
+                     torch.ones((1, L), dtype=torch.int8, device=dev),
+                     torch.zeros((7, L), dtype=torch.int8, device=dev)])
+    ms, why = int_mm_ms(torch, inc.to(torch.int8), rhs.T)
+    recs[1]["int_mm_library_ms"] = ms
+    if why:
+        recs[1]["int_mm_note"] = f"torch._int_mm did not run: {why}"
+    print(f"time clause_counts_batch: torch._int_mm of the same int8 "
+          f"contraction {ms if why else f'{ms:.5f}'} ms"
+          f"{f' (did not run: {why})' if why else ''}", flush=True)
     return recs
 
 
@@ -415,6 +522,29 @@ def phase_parity_replicated(torch, np, ce, fb):
                      [fb.feedback_plane_replicated_plain(
                          *args, n_states=n_states)],
                      f"R={R} D={D} CJ={cj} L={L} {dtype} {what}")
+
+    # K4's tensor-core body at its edges (R = 4 banks on D = 2 streams),
+    # one launch a call, against the plain version on bool operands.
+    def hold_k4(inc, lits, view, lview, what):
+        before = ce.clause_counts_batch_replicated.launches
+        got = ce.clause_counts_batch_replicated(view(inc), lview(lits))
+        check(ce.clause_counts_batch_replicated.launches == before + 1,
+              f"K4 launched other than once at {what}")
+        want = ce.clause_counts_batch_replicated_plain(inc.to(torch.bool),
+                                                       lits.to(torch.bool))
+        torch.cuda.synchronize()
+        err["clause_counts_batch_replicated"] = max(
+            err["clause_counts_batch_replicated"], max_err(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K4 differs from its plain version at R=4 D=2 CJ=70 {what}")
+
+    byte_edges(torch, np, rng, dev, hold_k4, (4, 70), (2,))
+    byte_edges(torch, np, rng, dev, hold_k4, (BIG_R, BIG_ROWS), (2,),
+               (BIG_B,))
+    print(f"parity clause_counts_batch_replicated R=4 D=2 CJ=70 L {BYTE_L} "
+          f"x {BYTE_KINDS} x B {BYTE_B} x {[p[0] for p in PLACEMENTS]}, and "
+          f"R={BIG_R} CJ={BIG_ROWS} B={BIG_B} (128 x 128 tiles) equal=True",
+          flush=True)
 
     # Times at the f = 784 system's shapes: K3 and K9 once per training
     # step, K4 once per cycle over the three concatenated sets.
@@ -1376,6 +1506,60 @@ def phase_parity_pruned(torch, np, ce):
             print(f"parity K7 pruned f={f} (R, D) {PRUNED_RD} x B "
                   f"{PRUNED_B} x M {{1, {J // 2}, {J}}} (prefixes and "
                   "repeats) equal=True", flush=True)
+    # K7 on bytes at the tensor-core body's edges: R = 4 banks of C = 3
+    # classes x J = 40 clauses on D = 2 streams, each call taking the next
+    # selection in turn (permutation prefixes at M = 1, 20, 40: 3 to 120
+    # compacted rows; ids with repeats at M = 20; each as int32 and int64),
+    # and the K = 1 entry on replica 0; one launch a call, against the
+    # plain versions on bool operands.
+    EC, EJ = 3, 40
+    edge_sels = [np.stack([np.stack([rng.permutation(EJ)[:M]
+                                     for _ in range(EC)]) for _ in range(4)])
+                 for M in (1, EJ // 2, EJ)]
+    rep = rng.integers(0, EJ, (4, EC, EJ // 2))
+    rep[..., -1] = rep[..., 0]
+    edge_sels.append(rep)
+    edge_sels = [torch.from_numpy(a.astype(dt)).to(dev) for a in edge_sels
+                 for dt in (np.int32, np.int64)]
+    turn = [0]
+
+    def hold_k7(inc, lits, view, lview, what):
+        sel = edge_sels[turn[0] % len(edge_sels)]
+        turn[0] += 1
+        what = f"R=4 D=2 C={EC} J={EJ} M={sel.shape[-1]} {sel.dtype} {what}"
+        k_rep, k_one = (ce.clause_counts_batch_pruned_replicated,
+                        ce.clause_counts_batch_pruned)
+        before = (k_rep.launches, k_one.launches)
+        got = k_rep(view(inc), sel, lview(lits))
+        one = k_one(view(inc)[0], sel[0], lview(lits)[0])
+        check((k_rep.launches, k_one.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"K7 on bytes launched other than once a call at {what}")
+        inc_b, lits_b = inc.to(torch.bool), lits.to(torch.bool)
+        want = ce.clause_counts_batch_pruned_replicated_plain(inc_b, sel,
+                                                              lits_b)
+        want1 = ce.clause_counts_batch_pruned_plain(inc_b[0], sel[0],
+                                                    lits_b[0])
+        torch.cuda.synchronize()
+        hold(names[2], got, [want], what)
+        hold(names[0], one, [want1], what)
+
+    byte_edges(torch, np, rng, dev, hold_k7, (4, EC, EJ), (2,))
+    # and on the 128 x 128 tiles: R = 16 banks of 3 x 120 clauses, 100
+    # elected a class (300 rows), a permutation prefix or ids with repeats
+    big = [np.stack([np.stack([rng.permutation(120)[:BIG_ROWS // 3]
+                               for _ in range(3)]) for _ in range(BIG_R)]),
+           rng.integers(0, 120, (BIG_R, 3, BIG_ROWS // 3))]
+    edge_sels[:] = [torch.from_numpy(a.astype(dt)).to(dev) for a in big
+                    for dt in (np.int32, np.int64)]
+    EC, EJ = 3, 120
+    byte_edges(torch, np, rng, dev, hold_k7, (BIG_R, EC, EJ), (2,),
+               (BIG_B,))
+    print(f"parity K7 on bytes R=4 D=2 C=3 J=40 L {BYTE_L} x "
+          f"{BYTE_KINDS} x B {BYTE_B} x {[p[0] for p in PLACEMENTS]}, "
+          f"8 selections in turn; R={BIG_R} C=3 J=120 M={BIG_ROWS // 3} "
+          f"B={BIG_B} (128 x 128 tiles), 4 selections in turn equal=True",
+          flush=True)
     print(f"parity pruned checks: {json.dumps(n_checks)}", flush=True)
 
     rate = popc_per_s(torch)
@@ -1408,13 +1592,15 @@ def phase_parity_pruned(torch, np, ce):
                 gather_include(bank, sel).reshape(R, C * M, -1), lit))
             full_ms = time_ms(torch, lambda: full_fn(
                 bank.reshape(R, C * J, -1), lit))
-            nbytes = (R * C * M * (W * 4 if packed else 2 * f) + R * C * M * 4
-                      + B * (W * 4 if packed else 2 * f) + R * C * M * B * 4
-                      + (0 if packed else R * C * M * 4))
-            # the popcounts the kernel runs: W words a row packed, and
-            # ceil(2f / 32) words for the rows the byte path packs itself
-            ops = R * C * M * B * (W if packed else -(-2 * f // 32))
-            b_ms, b_by = bound(nbytes, ops, rate)
+            if packed:
+                # the popcounts the kernel runs: W words a row
+                nbytes = (R * C * M * W * 4 + R * C * M * 4 + B * W * 4
+                          + R * C * M * B * 4)
+                ops = R * C * M * B * W
+                b_ms, b_by = bound(nbytes, ops, rate)
+            else:
+                nbytes, ops = k7_bytes_work(R, C, M, f, B)
+                b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
             plain_ms = (time_ms(torch, lambda: plain_fn(*args), inner=2,
                                 reps=5) if M < J else None)
             print(f"time {name} (R={R} D=1 C={C} J={J} M={M} f={f} B={B}): "
@@ -1423,7 +1609,9 @@ def phase_parity_pruned(torch, np, ce):
                   f", gather + {'K6' if packed else 'K4'} {gather_ms:.5f} ms, "
                   f"full-bank {'K6' if packed else 'K4'} {full_ms:.5f} ms, "
                   f"library None, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
-                  f"{ops} popcounts at {rate:.4g}/s)", flush=True)
+                  f"{ops:.0f} "
+                  f"{f'popcounts at {rate:.4g}/s' if packed else 'int8 ops'})",
+                  flush=True)
             if M < J:
                 rec = {
                     "name": name, "route": "cuda",
@@ -1767,12 +1955,81 @@ def phase_traffic(torch, np, ce, fb):
               flush=True)
 
 
+def phase_one_launch(torch, np, ce):
+    """torch.profiler over one K2 call at the serve shape (640 x 1568,
+    B = 1024) and one K = 1 K7 call on bytes (C = 10, J = 128, M = 32,
+    sel on the card): each must run exactly one CUDA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 16)
+    cj, L = FULL
+    inc = torch.from_numpy(rng.random((cj, L)) < 0.05).to(dev)
+    lits = torch.from_numpy(rng.random((1024, L)) < 0.5).to(dev)
+    bank = torch.from_numpy(rng.random((PRUNED_C, PRUNED_J, L)) < 0.05).to(
+        dev)
+    sel = torch.from_numpy(np.stack([rng.permutation(PRUNED_J)[:32]
+                                     for _ in range(PRUNED_C)]).astype(
+        np.int32)).to(dev)
+    for name, fn in (
+            ("clause_counts_batch", lambda: ce.clause_counts_batch(inc, lits)),
+            ("clause_counts_batch_pruned",
+             lambda: ce.clause_counts_batch_pruned(bank, sel, lits))):
+        fn()                         # warm: the build and lazy set-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        print(f"profile one call of {name}: CUDA kernels {kernels}",
+              flush=True)
+        check(sum(n for _, n in kernels) == 1,
+              f"{name}: one call ran {kernels}, not one CUDA kernel")
+
+
+def phase_time_pruned_bytes(torch, np, ce):
+    """The two K7 byte entries at the OVERPROVISIONED serve (C = 10, J =
+    128, f = 784, B = 1024; R = 1, and R = 16 on D = 1) at M = 32 and 128:
+    each held to its plain version on the timed operands, then timed.
+    Used by ``--kernels-from``, whose trees may predate the full phase."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 15)
+    C, J, f, B = PRUNED_C, PRUNED_J, 784, 1024
+    recs = []
+    for name, R in (("clause_counts_batch_pruned", 1),
+                    ("clause_counts_batch_pruned_replicated", FLEET_K)):
+        inc = torch.from_numpy(rng.random((R, C, J, 2 * f)) < 0.05).to(dev)
+        x = torch.from_numpy(rng.random((1, B, f)) < 0.5).to(dev)
+        lits = torch.cat([x, ~x], -1)
+        for M in (J // 4, J):
+            sel = torch.from_numpy(np.stack([np.stack([
+                rng.permutation(J)[:M] for _ in range(C)])
+                for _ in range(R)]).astype(np.int32)).to(dev)
+            args = (inc[0], sel[0], lits[0]) if R == 1 else (inc, sel, lits)
+            got = getattr(ce, name)(*args)
+            want = getattr(ce, name + "_plain")(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{name} differs from its plain version at R={R} M={M}")
+            ms = time_ms(torch, lambda: getattr(ce, name)(*args))
+            b_ms, b_by = bound(*k7_bytes_work(R, C, M, f, B), INT8_OPS_PER_S)
+            print(f"time {name} (R={R} D=1 C={C} J={J} M={M} f={f} B={B}): "
+                  f"kernel {ms:.5f} ms, bound {b_ms:.5f} ms ({b_by})",
+                  flush=True)
+            recs.append({"name": name, "shape": f"R={R} M={M}", "ms": ms,
+                         "bound_ms": b_ms})
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-from", type=Path, metavar="DIR",
                     help="import repro_torch from DIR (a tree's src/), run "
                     "only the device, build, parity and parity_replicated "
-                    "phases and the launch floor, and stop (no ok line)")
+                    "phases, the launch floor and the K7 byte timings, "
+                    "and stop (no ok line)")
     args = ap.parse_args()
     src = args.kernels_from or ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1819,10 +2076,13 @@ def main() -> int:
     print(f"launch floor: one-element add_ {launch_floor_ms(torch):.5f} ms",
           flush=True)
     if args.kernels_from:
+        recs += timed("time_pruned_bytes", phase_time_pruned_bytes, torch,
+                      np, ce)
         print(json.dumps({"kernel_times": recs}), flush=True)
         return 0
     recs += timed("parity_packed", phase_parity_packed, torch, np, ce)
     recs += timed("parity_pruned", phase_parity_pruned, torch, np, ce)
+    timed("one_launch", phase_one_launch, torch, np, ce)
     launches = timed("service", phase_main, torch, np, ce, fb)
     paper = timed("paper", phase_paper, torch, np, ce, fb)
     launches.update(timed("wide", phase_wide, torch, np, ce, fb))

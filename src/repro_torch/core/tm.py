@@ -36,6 +36,17 @@ def mean_of_count(count: torch.Tensor, n: int) -> torch.Tensor:
     return count.to(torch.float32) * float(np.float32(1) / np.float32(n))
 
 
+def mean_last(x: torch.Tensor) -> torch.Tensor:
+    """The reference's float32 ``jnp.mean(x, axis=-1)`` by XLA's product
+    rule: the float32 sum over the last axis times f32(1/n). Bitwise the
+    reference's where XLA sums in order (n = 3, 8); over long axes of
+    non-0/1 values (n = 120) XLA's order differs and so may the last bits
+    (ROADMAP queue 3 gives the measured tolerance)."""
+    n = x.shape[-1]
+    return (x.to(torch.float32).sum(-1)
+            * float(np.float32(1) / np.float32(n)))
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
     another. Without CUDA, asking for the card raises; nothing falls back."""

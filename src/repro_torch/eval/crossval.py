@@ -155,7 +155,7 @@ class CrossValRun:
             s_grid=np.atleast_1d(np.asarray(s_values, dtype=np.float32)),
             T_grid=np.atleast_1d(np.asarray(T_values, dtype=np.int32)),
             val_accuracy=val_accuracy,
-            mean_accuracy=torch.mean(val_accuracy, dim=-1),
+            mean_accuracy=tm_mod.mean_last(val_accuracy),
             replicas=R,
             wall_s=wall,
             replicas_per_s=R / max(wall, 1e-9),

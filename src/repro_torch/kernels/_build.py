@@ -32,12 +32,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "clause_eval": {
         "clause_counts_replicated": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
-        "clause_counts_batch_replicated": ((_P,) * 5 + (_I,) * 5 + (_P,),
+        "clause_counts_batch_replicated": ((_P,) * 4 + (_I,) * 5 + (_P,),
                                            _I),
         "clause_counts_batch_smem": ((_I,), _I),
         "clause_counts_batch_packed_replicated": ((_P,) * 3 + (_I,) * 5
                                                   + (_P,), _I),
-        "clause_counts_batch_pruned_replicated": ((_P,) * 6 + (_I,) * 6
+        "clause_counts_batch_pruned_replicated": ((_P,) * 5 + (_I,) * 8
                                                   + (_P,), _I),
         "clause_counts_batch_pruned_packed_replicated": (
             (_P,) * 4 + (_I,) * 6 + (_P,), _I),

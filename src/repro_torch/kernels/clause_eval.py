@@ -5,8 +5,9 @@ Replaces the Pallas kernels ``clause_counts`` (K1), ``clause_counts_batch``
 ``clause_counts_batch_replicated`` (K4), ``clause_counts_batch_packed``
 (K5) and ``clause_counts_batch_replicated_packed`` (K6) of the reference
 package's ``kernels/clause_eval.py``. K1-K4 there are int8 MXU matmuls
-with a ones column; here (``csrc/clause_eval.cu``) they are plain integer
-counts over 1-byte bools:
+with a ones column; here (``csrc/clause_eval.cu``) K1/K3 are plain
+integer counts and K2/K4 an int8 tensor-core product, over 1-byte bools
+(any nonzero byte counts as 1):
 
     violations[r, cj, b] = sum_l include[r, cj, l] & ~literal[r % D, b, l]
     n_included[r, cj]    = sum_l include[r, cj, l]
@@ -21,30 +22,38 @@ D x B x L literal bytes and write R x CJ x B int32 counts (about 13 MB,
 3.9 us, at R = D = 8 and B = 150). K1/K3 give each clause row a group of
 lanes that load 16 include and 16 literal bytes at a time and count four
 literals a popcount (where L % 16 == 0 and both operands are 16-byte
-aligned; otherwise a warp per row strides over L a byte at a time); K2/K4
-pack the include planes and the D literal batches 32 bools to a word
-once, then count AND-NOT popcounts over word tiles staged in shared
-memory. At these shapes launch overhead and the counting loop, not the
-bytes, set the time; see the source for the layout.
+aligned; otherwise a warp per row strides over L a byte at a time). K2/K4
+are one launch each, with no scratch: blocks of 64 clause rows x 64
+batch columns (128 x 128 on grids of 8 or more such blocks an SM) stage
+both operands through a four-deep ring of 64-byte chunks in shared
+memory (16-byte ``cp.async`` copies on the same aligned widths, byte
+loads otherwise), normalise the bytes in registers and count the
+violations with ``mma.sync`` m16n8k32 u8 products (the include bytes
+against the zero-literal bytes); n_included comes from the same staged
+include tiles. Each tile re-reads its rows from L2, and that traffic
+sets their time. See the source for the layout.
 
 K5 and K6 take the bit-packed planes (int32 words holding uint32 bits,
 :mod:`repro_torch.kernels.packing`): include [R, CJ, W] and literals
 [D, B, W], W = 2 * ceil(f / 32), and give violations [R, CJ, B] =
-sum_w popcount(include & ~literal). They launch K2/K4's counting kernel
-on the caller's words, with no pack and no n_included. Bound on an H100:
-the popcounts (33 M at 640 x 1024 x 50, about 7.8 us at 16 a clock per
+sum_w popcount(include & ~literal). A counting kernel stages word tiles
+of the caller's words in shared memory, with no n_included. Bound on an
+H100: the popcounts (33 M at 640 x 1024 x 50, about 7.8 us at 16 a clock per
 SM), not the 3 MB of operands.
 
 K7 is the four pruned entries: the include bank [R, C, J, L | W] with a
 selection sel [R, C, M] of clause ids per class, counted as if the bank
 were compacted to [R, C, M, L | W] (the reference's ``gather_include``
-before a K2/K4/K5/K6 launch). Here the gather folds into the row loads
-through a row map built on the device from ``sel`` (:func:`_rowmap`), so
-the work shrinks with the budget M / J: bytes are packed for the elected
-rows only, words are staged through the map. Bound on an H100: the
-popcounts of the C * M elected rows (262 M at R = 16, M = 32, B = 1024,
-W = 50, about 63 us), with the int32 violations (21-84 MB) the largest
-byte term.
+before a K2/K4/K5/K6 launch). Here the gather folds into the row loads,
+so the work shrinks with the budget M / J. On bytes the tensor-core
+kernel reads ``sel`` (int32 or int64) itself and stages bank row
+(r*C + c)*J + sel[r, c, m] for compacted row (r, c, m): one launch a
+call. On words the counting kernel stages rows through a row map built
+on the device from ``sel`` (:func:`_rowmap`). Bound on an H100: on bytes
+the elected rows, the literals and the int32 violations over 3.35 TB/s
+(21-84 MB of violations at R = 16, B = 1024, M = 32-128 dominate); on
+words the popcounts of the C * M elected rows (262 M at R = 16, M = 32,
+B = 1024, W = 50, about 63 us).
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for CPU
 tensors. For CUDA tensors it launches the kernel, counts the launch in
@@ -57,9 +66,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import check_sel, gather_include
 
-# Shared memory one block may use on Hopper (bytes): it bounds the literal
-# width the batch kernel's word tiles take (L up to ~19 k).
+# Shared memory one block may use on Hopper (bytes): it bounds the word
+# width the packed counting kernel's tiles take (W up to ~600).
 MAX_SMEM = 227 * 1024
+# The byte path's tensor-core sums hold 128 x the violations in int32.
+MAX_BYTE_WIDTH = 2 ** 24 - 1
 # The grid's replica axis (gridDim.z / gridDim.y) holds at most this many.
 MAX_REPLICAS = 65535
 
@@ -83,10 +94,11 @@ def clause_counts_plain(include: torch.Tensor, literals: torch.Tensor):
 def clause_counts_batch_plain(include: torch.Tensor, literals: torch.Tensor):
     """K2's plain version: (violations [CJ, B] i32, n_included [CJ] i32).
 
-    One float32 product of 0/1 operands: exact, since counts <= L < 2**24.
+    One float32 product of 0/1 operands (any nonzero byte is 1): exact,
+    since counts <= L < 2**24.
     """
-    inc = include.to(torch.float32)
-    neg = 1.0 - literals.to(torch.float32)
+    inc = include.to(torch.bool).to(torch.float32)
+    neg = (~literals.to(torch.bool)).to(torch.float32)
     viol = inc @ neg.T
     return viol.to(torch.int32), include.to(torch.bool).sum(-1).to(torch.int32)
 
@@ -107,11 +119,12 @@ def clause_counts_batch_replicated_plain(include: torch.Tensor,
                                          literals: torch.Tensor):
     """K4's plain version: (violations [R, CJ, B] i32, n_included [R, CJ]
     i32), replica r against batch r % D. One float32 batched product of
-    0/1 operands: exact, since counts <= L < 2**24."""
+    0/1 operands (any nonzero byte is 1): exact, since counts <= L <
+    2**24."""
     R, cj, L = include.shape
     D, B, _ = literals.shape
-    inc = include.to(torch.float32).reshape(R // D, D, cj, L)
-    neg = 1.0 - literals.to(torch.float32)                    # [D, B, L]
+    inc = include.to(torch.bool).to(torch.float32).reshape(R // D, D, cj, L)
+    neg = (~literals.to(torch.bool)).to(torch.float32)        # [D, B, L]
     viol = inc @ neg.transpose(-1, -2)[None]                  # [H, D, CJ, B]
     return (viol.reshape(R, cj, B).to(torch.int32),
             include.to(torch.bool).sum(-1).to(torch.int32))
@@ -207,23 +220,23 @@ def _launch_counts(include, literals, R, D, cj, L):
     return viol, ninc
 
 
+def _byte_width(L: int) -> None:
+    if L > MAX_BYTE_WIDTH:
+        raise ValueError(f"literal width {L} exceeds the byte kernels' "
+                         f"int32 sums ({MAX_BYTE_WIDTH})")
+
+
 def _launch_counts_batch(include, literals, R, D, cj, L, B):
     """One launch of K2/K4 over include [R, CJ, L], literals [D, B, L]."""
     _same_device(include, literals)
-    lib = _build.library("clause_eval")
-    if lib.clause_counts_batch_smem(L) > MAX_SMEM:
-        raise ValueError(f"literal width {L} exceeds the batch kernel's "
-                         "shared-memory tile")
+    _byte_width(L)
     inc, lit = _bytes(include, "include"), _bytes(literals, "literals")
     dev = include.device
     viol = torch.empty((R, cj, B), dtype=torch.int32, device=dev)
     ninc = torch.empty((R, cj), dtype=torch.int32, device=dev)
-    words = torch.empty((R * cj + D * B) * (-(-L // 32)), dtype=torch.int32,
-                        device=dev)   # the packed planes (kernel scratch)
-    _build.check(lib.clause_counts_batch_replicated(
+    _build.check(_build.library("clause_eval").clause_counts_batch_replicated(
         inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), ninc.data_ptr(),
-        words.data_ptr(), R, D, cj, L, B, _stream(inc)),
-        "clause_counts_batch")
+        R, D, cj, L, B, _stream(inc)), "clause_counts_batch")
     return viol, ninc
 
 
@@ -251,13 +264,23 @@ def _launch_counts_packed(include, literals, R, D, cj, W, B):
 
 
 def _rowmap(sel: torch.Tensor, J: int, device) -> torch.Tensor:
-    """K7's row map [R * C * M] int32 on ``device``: compacted row
-    (r, c, m) reads row r*C*J + c*J + sel[r, c, m] of the flat full bank.
-    Index arithmetic on the card; nothing is read back."""
+    """K7's row map on words [R * C * M] int32 on ``device``: compacted
+    row (r, c, m) reads row r*C*J + c*J + sel[r, c, m] of the flat full
+    bank. Index arithmetic on the card; nothing is read back."""
     R, C, M = sel.shape
     base = torch.arange(R * C, dtype=torch.int32, device=device) * J
     sel = sel.to(device=device, dtype=torch.int32)
     return (base.view(R, C, 1) + sel).reshape(-1).contiguous()
+
+
+def _sel_ids(sel: torch.Tensor, device) -> torch.Tensor:
+    """K7's ids on bytes as the kernel reads them: int32 or int64 as they
+    come (no launch when they are already on ``device``), other integer
+    types cast to int32 once."""
+    sel = sel.to(device)
+    if sel.dtype not in (torch.int32, torch.int64):
+        sel = sel.to(torch.int32)
+    return sel.contiguous()
 
 
 def _check_pruned(include, sel, lead: tuple) -> None:
@@ -270,24 +293,20 @@ def _check_pruned(include, sel, lead: tuple) -> None:
 
 
 def _launch_counts_pruned(include, sel, literals, R, D, C, J, L, B):
-    """One K7 launch on bytes: include [R, C, J, L] through the row map of
-    sel [R, C, M], literals [D, B, L]."""
+    """One K7 launch on bytes: include [R, C, J, L] through sel [R, C, M],
+    literals [D, B, L]."""
     _same_device(include, literals)
-    lib = _build.library("clause_eval")
-    if lib.clause_counts_batch_smem(L) > MAX_SMEM:
-        raise ValueError(f"literal width {L} exceeds the batch kernel's "
-                         "shared-memory tile")
+    _byte_width(L)
     inc, lit = _bytes(include, "include"), _bytes(literals, "literals")
     dev = include.device
-    cm = C * sel.shape[-1]
-    rowmap = _rowmap(sel, J, dev)
-    viol = torch.empty((R, cm, B), dtype=torch.int32, device=dev)
-    ninc = torch.empty((R, cm), dtype=torch.int32, device=dev)
-    words = torch.empty((R * cm + D * B) * (-(-L // 32)), dtype=torch.int32,
-                        device=dev)   # the packed elected rows (scratch)
-    _build.check(lib.clause_counts_batch_pruned_replicated(
-        inc.data_ptr(), rowmap.data_ptr(), lit.data_ptr(), viol.data_ptr(),
-        ninc.data_ptr(), words.data_ptr(), R, D, cm, R * C * J, L, B,
+    ids = _sel_ids(sel, dev)
+    M = ids.shape[-1]
+    viol = torch.empty((R, C * M, B), dtype=torch.int32, device=dev)
+    ninc = torch.empty((R, C * M), dtype=torch.int32, device=dev)
+    _build.check(_build.library("clause_eval")
+                 .clause_counts_batch_pruned_replicated(
+        inc.data_ptr(), ids.data_ptr(), lit.data_ptr(), viol.data_ptr(),
+        ninc.data_ptr(), ids.element_size(), R, D, C, M, J, L, B,
         _stream(inc)), "clause_counts_batch_pruned")
     return viol, ninc
 

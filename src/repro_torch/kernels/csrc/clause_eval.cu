@@ -12,9 +12,8 @@
 // D | R; replica r reads data stream r % D, so a hyperparameter grid over
 // one ordering shares its literal rows. Outputs are int32 violations
 // [R, CJ, B] and n_included [R, CJ]. K1 and K2 are the R = D = 1 launches
-// of the same kernels. All four are bound by memory traffic at the main
-// path's shapes (they read the include planes once and do one add per
-// byte), so none uses the tensor cores.
+// of the same kernels. Any nonzero byte counts as 1 (the wrappers take
+// bool, uint8 and int8 views), as the plain versions' .to(bool) does.
 //
 // K1/K3 (one datapoint per replica), bound by reading the include planes
 // once (1.0 MB a bank at 640 x 1568: 0.30 us, below a launch's cost). The
@@ -35,18 +34,39 @@
 // byte at a time. The launcher picks the path from the width and the
 // pointers.
 //
-// K2/K4 (a batch per replica): first the include planes of all R replicas
-// and the literal batches of the D streams are packed once, 32 bools to a
-// word, into scratch the wrapper allocates (one thread per word): the D
-// batches are packed once, not R times. Then a block owns kRows = 64
-// clause rows of one replica and kTB = 32 batch columns of its stream: it
-// stages both word tiles in shared memory and lane t counts column t as
-// sum_w popc(inc_w & ~lit_w). Each byte of the planes is read once; the
-// words are re-read from L2 once per tile.
+// K2/K4 (a batch per replica) and K7 on bytes: one launch of an int8
+// tensor-core product, as the reference's MXU matmul. The operands are
+// already K-major (include [rows, L] and literals [B, L], L contiguous),
+// the .row.col layout of mma.sync m16n8k32, so neither is transposed:
+//
+//   viol[r, q, b] = sum_l nz(inc[row(r, q), l]) * (1 - nz(lit[r % D, b, l]))
+//
+// A block owns a square tile of clause rows x batch columns of one
+// replica (blockIdx.z): 64 x 64 with four warps, or 128 x 128 with eight
+// where the 64 x 64 grid would hold 8 or more blocks an SM (the R = 16
+// serves). Each tile re-reads its rows whole from L2, and that traffic,
+// at roughly 30 GB/s an SM on the H100, bounds these launches; larger
+// tiles re-read less but leave SMs idle on small grids. A block walks L
+// in 64-byte chunks through a ring of four shared-memory stages (80-byte
+// rows: ldmatrix's eight row addresses fall in distinct banks), filled by
+// 16-byte cp.async copies where L % 16 == 0 and both operands are 16-byte
+// aligned (the main path: iris L = 32, MNIST L = 1568; zero-filled past L
+// and for rows outside the problem), otherwise by byte loads, zero-filled
+// the same way; the launcher picks the path from the width and the
+// pointers. Each warp ldmatrix-loads the fragments of its 32 x 32 or
+// 64 x 32 sub-tile and normalises them in registers with the SWAR byte
+// tests below: include bytes become 0x80 where nonzero, literal bytes
+// 0x01 where zero, so one u8 x u8 product with s32 accumulation counts
+// 128 x the violations (exact for L < 2**24: the wrappers refuse wider).
+// The blocks of the first batch tile also count n_included from the
+// staged include tile (popcounts of the nonzero bytes). One launch, no
+// scratch. Bound at the serve shape (640 x 1568 x 1024): 2.6 MB of
+// operands and 2.6 MB of counts, 1.6 us at 3.35 TB/s; the 2.06 G int8
+// operations take 1.0 us of tensor-core time.
 //
 // K5/K6 (packed words): the caller's operands are already the packed
 // planes, 32 literals a uint32 word in the two-half layout with include
-// tail bits zero, so they go straight to K2/K4's counting kernel: no pack
+// tail bits zero, so a counting kernel reads them as they are: no pack
 // pass, and no n_included (the contract takes emptiness from the include
 // words outside the kernel). The counting loop is __popc-bound here: at
 // the serving shapes (640 rows x 1024 columns x 50 words) it issues 33 M
@@ -56,14 +76,15 @@
 // _replicated_packed}): the reference gathers the include bank down to the
 // M elected clauses of each class (an XLA gather to [R, C, M, L|W]) and
 // then launches K2/K4/K5/K6 on the compacted bank. Here the gather folds
-// into the row loads: a row map rowmap[(r, c, m)] = r*C*J + c*J +
-// sel[r, c, m] names the row of the FULL bank that compacted row (r, c, m)
-// reads. On packed words the counting kernel's include-tile staging loop
-// reads through it; on bytes the pack pass packs only the R*C*M elected
-// rows (M/J of the bank's bytes), and the counting kernel then runs over
-// R x C*M rows with n_included on, exactly as K2/K4. A row id outside the
-// bank stages an all-zero (empty) row, so no load leaves the bank; the
-// wrappers reject such ids on the host before any launch. Bound: the
+// into the row loads. On bytes the tensor-core kernel reads sel [R, C, M]
+// (int32 or int64, by template) itself: compacted row q = c*M + m of
+// replica r stages bank row (r*C + c)*J + sel[r, c, m], one launch a
+// call. On packed words a row map rowmap[(r, c, m)] = r*C*J + c*J +
+// sel[r, c, m], built by the wrapper, names the row the counting kernel's
+// include-tile staging loop reads. A row id outside the bank stages an
+// all-zero (empty) row, so no load leaves the bank; the wrappers reject
+// such ids on the host before any launch. Bound on bytes: the elected
+// rows, the literals and the int32 counts over 3.35 TB/s; on words the
 // __popc rate, as K5/K6, on C*M instead of C*J rows.
 //
 // Each C entry returns cudaGetLastError() so the caller sees a refused
@@ -75,8 +96,8 @@ namespace {
 
 constexpr int kWarps = 8;        // warps per block
 constexpr int kCountWarps = 4;   // K1/K3 vector path: warps per block
-constexpr int kRows = 64;        // K2: clause rows per block
-constexpr int kTB = 32;          // K2: batch columns per block (one per lane)
+constexpr int kRows = 64;        // K5/K6: clause rows per block
+constexpr int kTB = 32;          // K5/K6: batch columns a block, one a lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void clause_counts_kernel(const uint8_t* __restrict__ inc,
@@ -170,39 +191,6 @@ __global__ void __launch_bounds__(kCountWarps * 32)
   }
 }
 
-// Pack 32 one-byte bools per word, bit j of word w = element 32w + j; a
-// tail past L packs zeros. One thread per word, so every load is in flight
-// at once. With a row map, output row r packs source row rowmap[r] of the
-// n_src rows (K7); a row id outside them packs zeros.
-__global__ void pack_bits_kernel(const uint8_t* __restrict__ src,
-                                 uint32_t* __restrict__ dst, int rows, int L,
-                                 int nw, const int32_t* __restrict__ rowmap,
-                                 int64_t n_src) {
-  const int64_t n = static_cast<int64_t>(rows) * nw;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += step) {
-    const int64_t r = i / nw;
-    const int l0 = static_cast<int>(i - r * nw) * 32;
-    const int64_t sr = rowmap != nullptr ? rowmap[r] : r;
-    if (sr < 0 || sr >= n_src) {
-      dst[i] = 0u;
-      continue;
-    }
-    const uint8_t* p = src + sr * L + l0;
-    uint32_t word = 0;
-    if (l0 + 32 <= L) {
-#pragma unroll
-      for (int j = 0; j < 32; ++j) word |= static_cast<uint32_t>(p[j] != 0) << j;
-    } else {
-      for (int j = 0; l0 + j < L; ++j)
-        word |= static_cast<uint32_t>(p[j] != 0) << j;
-    }
-    dst[i] = word;
-  }
-}
-
 // Counts from packed words: a block of replica r = blockIdx.z stages its
 // kRows include rows and kTB literal rows of stream r % D (contiguous in
 // the packed arrays) in shared memory, then lane t of each warp counts
@@ -265,6 +253,232 @@ __global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
   }
 }
 
+// ---- K2/K4 and K7 on bytes: the int8 tensor-core body ----
+
+constexpr int kChunk = 64;             // literal bytes a stage
+constexpr int kPitch = kChunk + 16;    // bytes a staged row (bank spread)
+constexpr int kStages = 4;             // ring depth
+
+// Bit 7 of each byte of x set where that byte is zero, all else zero.
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
+  return ~((((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x)) & 0x80808080u;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; the bytes past ``bytes`` (all
+// of them when it is 0) are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 16-byte matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and d[i] is this lane's word of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 32 u8, row) x b (32 x 8 u8, col), s32 accumulate.
+__device__ __forceinline__ void mma_u8(int32_t (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Violations (and, with ninc, n_included) of the cm rows of replica r =
+// blockIdx.z against the B literal rows of stream r % D; one block per
+// tile of kTile clause rows x kTile batch columns, 2 x kWarpsN warps
+// (tile 64: 2 x 2 warps of 32 x 32; tile 128: 2 x 4 warps of 64 x 32).
+// Row q of replica r reads bank row r*cm + q, or with sel (kSelBytes 4
+// or 8: int32 or int64 ids [R, cm / M, M]) bank row (r*C + c)*J +
+// sel[r*cm + q], q = c*M + m, C = cm / M; an id outside [0, J) stages
+// zeros. kVec: 16-byte cp.async staging (L % 16 == 0, both operands
+// 16-byte aligned); else byte loads. Shared memory: kStages x 2 x kTile x
+// kPitch bytes.
+template <int kTile, int kWarpsN, bool kVec, int kSelBytes>
+__global__ void __launch_bounds__(2 * kWarpsN * 32)
+    counts_batch_mma_kernel(const uint8_t* __restrict__ inc,
+                            const void* __restrict__ sel,
+                            const uint8_t* __restrict__ lit,
+                            int32_t* __restrict__ viol,
+                            int32_t* __restrict__ ninc, int cm, int M, int J,
+                            int L, int B, int D) {
+  constexpr int kThreads = 2 * kWarpsN * 32;
+  constexpr int kMI = kTile / 2 / 16;        // m16 tiles a warp
+  constexpr int kNI = kTile / kWarpsN / 8;   // n8 tiles a warp
+  static_assert(2 * kTile == kThreads, "one row per 4 threads per stage");
+  // [stage][A | B][row]: static at tile 64 (40 KB; the same body on
+  // dynamic shared memory compiled to fewer registers and ran slower on
+  // the H100), dynamic at tile 128 (80 KB)
+  uint8_t* tile;
+  if constexpr (kTile == 64) {
+    __shared__ __align__(128) uint8_t fixed[kStages * 2 * 64 * kPitch];
+    tile = fixed;
+  } else {
+    extern __shared__ __align__(128) uint8_t dynamic[];
+    tile = dynamic;
+  }
+  const int tid = threadIdx.x;
+  const int r = blockIdx.z;
+  const int q0 = blockIdx.x * kTile;
+  const int b0 = blockIdx.y * kTile;
+
+  // This thread stages 16-byte segment ``seg`` of include rows q0 + srow
+  // and q0 + srow + kTile / 2 and of the literal rows b0 + the same; a
+  // null source stages zeros.
+  const int srow = tid >> 2;
+  const int seg = (tid & 3) * 16;
+  const uint8_t* src[4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int q = q0 + srow + kTile / 2 * j;
+    src[j] = nullptr;
+    if (q < cm) {
+      const int64_t at = static_cast<int64_t>(r) * cm + q;
+      int64_t row = at;
+      if (kSelBytes != 0) {
+        const int c = q / M;
+        const int64_t id =
+            kSelBytes == 4 ? static_cast<const int32_t*>(sel)[at]
+                           : static_cast<const int64_t*>(sel)[at];
+        row = id >= 0 && id < J
+                  ? (static_cast<int64_t>(r) * (cm / M) + c) * J + id
+                  : -1;
+      }
+      if (row >= 0) src[j] = inc + row * L + seg;
+    }
+    const int b = b0 + srow + kTile / 2 * j;
+    src[2 + j] = b < B
+                     ? lit + (static_cast<int64_t>(r % D) * B + b) * L + seg
+                     : nullptr;
+  }
+  auto stage = [&](int s, int k0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint8_t* dst = tile + ((2 * s + (j >> 1)) * kTile + srow +
+                             kTile / 2 * (j & 1)) * kPitch + seg;
+      const uint8_t* p = src[j];
+      if (kVec) {
+        const bool live = p != nullptr && k0 + seg < L;
+        cp_async16(dst, live ? p + k0 : inc, live ? 16 : 0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (p != nullptr) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (k0 + seg + i < L)
+              w[i >> 2] |= static_cast<uint32_t>(p[k0 + i]) << (8 * (i & 3));
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  };
+
+  const int nk = (L + kChunk - 1) / kChunk;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) stage(s, s * kChunk);
+    cp_async_commit();
+  }
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 1) * (kTile / 2);          // the warp's rows
+  const int wn = (warp >> 1) * (kTile / kWarpsN);   // and its columns
+  const bool count_inc = ninc != nullptr && blockIdx.y == 0;
+  int32_t acc[kMI][kNI][4] = {};
+  unsigned n_inc = 0;  // nonzero include bytes of row tid / 2, half tid % 2
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage k landed; stage k - 1 fully read
+    const int next = k + kStages - 1;
+    if (next < nk) stage(next % kStages, next * kChunk);
+    cp_async_commit();
+    const uint8_t* a_s = tile + 2 * (k % kStages) * kTile * kPitch;
+    const uint8_t* b_s = a_s + kTile * kPitch;
+    if (count_inc) {
+      const uint4* p = reinterpret_cast<const uint4*>(
+          a_s + (tid >> 1) * kPitch + (tid & 1) * 32);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 v = p[i];
+        n_inc += __popc(nonzero_bytes(v.x)) + __popc(nonzero_bytes(v.y)) +
+                 __popc(nonzero_bytes(v.z)) + __popc(nonzero_bytes(v.w));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 32) {
+      uint32_t a[kMI][4], b[kNI][2];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        ldmatrix_x4(a[mi], a_s + (wm + mi * 16 + (lane & 15)) * kPitch + kk +
+                               (lane >> 4) * 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[mi][i] = nonzero_bytes(a[mi][i]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < kNI / 2; ++nj) {
+        uint32_t t[4];
+        ldmatrix_x4(t, b_s + (wn + nj * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                 kPitch +
+                           kk + (lane >> 3 & 1) * 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[2 * nj + (i >> 1)][i & 1] =
+            zero_bytes(t[i]) >> 7;
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) mma_u8(acc[mi][ni], a[mi], b[ni]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc holds 128 x the violations; fragment element (h, e) of tile
+  // (mi, ni) is row g + 8h, column 2 * (lane % 4) + e.
+  const int g = lane >> 2;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + wm + mi * 16 + g + 8 * h;
+      if (q >= cm) continue;
+      int32_t* out = viol + (static_cast<int64_t>(r) * cm + q) * B;
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+        const int b = b0 + wn + ni * 8 + 2 * (lane & 3);
+        if (b < B) out[b] = acc[mi][ni][2 * h] >> 7;
+        if (b + 1 < B) out[b + 1] = acc[mi][ni][2 * h + 1] >> 7;
+      }
+    }
+  if (count_inc) {
+    n_inc += __shfl_xor_sync(kFull, n_inc, 1);
+    const int q = q0 + (tid >> 1);
+    if ((tid & 1) == 0 && q < cm)
+      ninc[static_cast<int64_t>(r) * cm + q] = static_cast<int32_t>(n_inc);
+  }
+}
+
 }  // namespace
 
 // K1 (R = D = 1) and K3: include [R, CJ, L], literals [D, L].
@@ -314,36 +528,64 @@ int allow_smem(int smem) {
   return static_cast<int>(e);
 }
 
-// K2/K4 and K7 on bytes: pack the include rows (through rowmap when it is
-// set: inc_rows compacted rows of the n_src-row bank) and the D literal
-// batches, then count over R x cj rows with n_included.
-int counts_batch_bytes(const void* inc, const int32_t* rowmap, int64_t n_src,
-                       const void* lit, void* viol, void* ninc, void* scratch,
-                       int R, int D, int cj, int L, int B, void* stream) {
-  const int nw = (L + 31) / 32;
-  const int stride = nw | 1;
-  const int smem = clause_counts_batch_smem(L);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int e = allow_smem(smem);
-  if (e != 0) return e;
-  const int inc_rows = R * cj;
-  const int lit_rows = D * B;
-  uint32_t* incw = static_cast<uint32_t*>(scratch);
-  uint32_t* litw = incw + static_cast<int64_t>(inc_rows) * nw;
-  const int64_t words = static_cast<int64_t>(inc_rows + lit_rows) * nw;
-  const unsigned pack_blocks = static_cast<unsigned>(
-      (words + 255) / 256 < 132 * 16 ? (words + 255) / 256 : 132 * 16);
-  pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(inc), incw, inc_rows, L, nw, rowmap,
-      rowmap != nullptr ? n_src : inc_rows);
-  pack_bits_kernel<<<pack_blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(lit), litw, lit_rows, L, nw, nullptr,
-      lit_rows);
-  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB, R);
-  clause_counts_batch_kernel<false><<<grid, kWarps * 32, smem, st>>>(
-      incw, litw, static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc),
-      cj, B, D, nw, stride, nullptr, inc_rows);
+// One launch of the tensor-core body at tile kTile (kWarpsN warp columns)
+// over R x cm rows, picking the staging path and the sel type.
+template <int kTile, int kWarpsN>
+int launch_mma(bool vec, const void* inc, const void* sel, int sel_bytes,
+               const void* lit, void* viol, void* ninc, int R, int D, int cm,
+               int M, int J, int L, int B, cudaStream_t st) {
+  using Kernel = void (*)(const uint8_t*, const void*, const uint8_t*,
+                          int32_t*, int32_t*, int, int, int, int, int, int);
+  const Kernel kernels[2][3] = {
+      {counts_batch_mma_kernel<kTile, kWarpsN, false, 0>,
+       counts_batch_mma_kernel<kTile, kWarpsN, false, 4>,
+       counts_batch_mma_kernel<kTile, kWarpsN, false, 8>},
+      {counts_batch_mma_kernel<kTile, kWarpsN, true, 0>,
+       counts_batch_mma_kernel<kTile, kWarpsN, true, 4>,
+       counts_batch_mma_kernel<kTile, kWarpsN, true, 8>}};
+  if (sel_bytes != 0 && sel_bytes != 4 && sel_bytes != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel kernel = kernels[vec][sel_bytes / 4];
+  const int smem = kTile == 64 ? 0 : kStages * 2 * kTile * kPitch;
+  if (smem > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((cm + kTile - 1) / kTile, (B + kTile - 1) / kTile, R);
+  kernel<<<grid, 2 * kWarpsN * 32, smem, st>>>(
+      static_cast<const uint8_t*>(inc), sel, static_cast<const uint8_t*>(lit),
+      static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc), cm, M, J, L,
+      B, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2/K4 and K7 on bytes: one launch of the tensor-core body over R x cm
+// rows (through sel when it is set: sel_bytes 4 or 8) with n_included.
+// 64 x 64 tiles, or 128 x 128 tiles where the 64 x 64 grid would give
+// every SM kBigGrid blocks or more: larger tiles re-read fewer operand
+// bytes from L2, which bounds these launches, but leave small grids with
+// idle SMs.
+int counts_batch_bytes(const void* inc, const void* sel, int sel_bytes,
+                       const void* lit, void* viol, void* ninc, int R, int D,
+                       int cm, int M, int J, int L, int B, void* stream) {
+  constexpr int64_t kBigGrid = 8;
+  const bool vec = L % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(inc) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(lit) % 16 == 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t blocks64 =
+      static_cast<int64_t>((cm + 63) / 64) * ((B + 63) / 64) * R;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return blocks64 >= kBigGrid * sms
+             ? launch_mma<128, 4>(vec, inc, sel, sel_bytes, lit, viol, ninc,
+                                  R, D, cm, M, J, L, B, st)
+             : launch_mma<64, 2>(vec, inc, sel, sel_bytes, lit, viol, ninc, R,
+                                 D, cm, M, J, L, B, st);
 }
 
 // K5/K6 and K7 on words: count straight from the caller's words, include
@@ -367,14 +609,15 @@ int counts_batch_words(const void* incw, const int32_t* rowmap,
 
 }  // namespace
 
-// K2 (R = D = 1) and K4: include [R, CJ, L], literals [D, B, L].
-// scratch: (R * cj + D * B) * ceil(L / 32) uint32 words for the packed
-// planes.
-extern "C" int clause_counts_batch_replicated(
-    const void* inc, const void* lit, void* viol, void* ninc, void* scratch,
-    int R, int D, int cj, int L, int B, void* stream) {
-  return counts_batch_bytes(inc, nullptr, 0, lit, viol, ninc, scratch, R, D,
-                            cj, L, B, stream);
+// K2 (R = D = 1) and K4: include [R, CJ, L], literals [D, B, L] ->
+// violations [R, CJ, B] and n_included [R, CJ]. One launch, no scratch.
+extern "C" int clause_counts_batch_replicated(const void* inc,
+                                              const void* lit, void* viol,
+                                              void* ninc, int R, int D,
+                                              int cj, int L, int B,
+                                              void* stream) {
+  return counts_batch_bytes(inc, nullptr, 0, lit, viol, ninc, R, D, cj, cj,
+                            0, L, B, stream);
 }
 
 // K5 (R = D = 1) and K6: packed include words [R, CJ, W] and literal words
@@ -388,16 +631,16 @@ extern "C" int clause_counts_batch_packed_replicated(
 }
 
 // K7 on bytes (clause_eval_batch_pruned, R = D = 1, and
-// clause_eval_batch_pruned_replicated): include bytes [n_src = R*C*J, L],
-// rowmap [R * cm] int32 (cm = C * M compacted rows a replica), literals
-// [D, B, L] -> violations [R, cm, B] and n_included [R, cm]. scratch:
-// (R * cm + D * B) * ceil(L / 32) uint32 words.
+// clause_eval_batch_pruned_replicated): include bytes [R, C, J, L], sel
+// [R, C, M] (int32 when sel_bytes is 4, int64 when 8), literals
+// [D, B, L] -> violations [R, C*M, B] and n_included [R, C*M]. One launch,
+// no scratch.
 extern "C" int clause_counts_batch_pruned_replicated(
-    const void* inc, const void* rowmap, const void* lit, void* viol,
-    void* ninc, void* scratch, int R, int D, int cm, int n_src, int L, int B,
-    void* stream) {
-  return counts_batch_bytes(inc, static_cast<const int32_t*>(rowmap), n_src,
-                            lit, viol, ninc, scratch, R, D, cm, L, B, stream);
+    const void* inc, const void* sel, const void* lit, void* viol,
+    void* ninc, int sel_bytes, int R, int D, int C, int M, int J, int L,
+    int B, void* stream) {
+  return counts_batch_bytes(inc, sel, sel_bytes, lit, viol, ninc, R, D,
+                            C * M, M, J, L, B, stream);
 }
 
 // K7 on words (clause_eval_batch_pruned_packed, R = D = 1, and

@@ -78,11 +78,54 @@ def test_sweep_val_accuracy_bitwise(osets, j_sweep, cfg):
     assert res.val_accuracy.shape == (2, 2, O) and res.replicas == 4 * O
     assert np.array_equal(_bits(j_sweep.val_accuracy),
                           _bits(res.val_accuracy.numpy()))
-    assert np.allclose(np.asarray(j_sweep.mean_accuracy),
-                       res.mean_accuracy.numpy(), rtol=0, atol=1e-6)
+    assert np.array_equal(_bits(j_sweep.mean_accuracy),
+                          _bits(res.mean_accuracy.numpy()))
     assert res.wall_s > 0 and res.replicas_per_s > 0
     assert np.array_equal(res.s_grid, j_sweep.s_grid)
     assert np.array_equal(res.T_grid, j_sweep.T_grid)
+
+
+def test_mean_last_matches_jnp_mean_where_torch_mean_does_not():
+    """``tm.mean_last`` (sum * f32(1/n), XLA's rule) equals ``jnp.mean``
+    bit for bit on [2, 2, 3] grids of k/30 accuracies, the sweep's
+    ``mean_accuracy`` at O = 3; ``torch.mean`` misses on some of them."""
+    rng = np.random.default_rng(7)
+    torch_mean_differs = 0
+    for _ in range(50):
+        acc = (rng.integers(0, 31, (2, 2, O)) / np.float32(30)).astype(
+            np.float32)
+        want = _bits(jnp.mean(jnp.asarray(acc), axis=-1))
+        assert np.array_equal(want,
+                              _bits(t_tm.mean_last(torch.from_numpy(acc))))
+        torch_mean_differs += not np.array_equal(
+            want, _bits(torch.mean(torch.from_numpy(acc), dim=-1)))
+    assert torch_mean_differs > 0
+
+
+def _mean_last_rel_err(n_orderings: int, n_grids: int = 200):
+    """(grids where ``tm.mean_last`` differs from ``jnp.mean``, its largest
+    relative difference) over seeded [2, 2, O] grids of k/30 accuracies."""
+    rng = np.random.default_rng(0)
+    differ, worst = 0, 0.0
+    for _ in range(n_grids):
+        acc = (rng.integers(0, 31, (2, 2, n_orderings)) / np.float32(30)
+               ).astype(np.float32)
+        want = np.asarray(jnp.mean(jnp.asarray(acc), axis=-1))
+        got = t_tm.mean_last(torch.from_numpy(acc)).numpy()
+        differ += not np.array_equal(_bits(want), _bits(got))
+        worst = max(worst, float(np.max(np.abs(got - want)
+                                        / np.maximum(want, 1e-30))))
+    return differ, worst
+
+
+def test_mean_last_at_the_papers_orderings_within_few_ulp():
+    """At O = 120, the paper's sweep, XLA's float sum has no fixed order
+    the port can repeat: ``mean_last`` stays within a few ulp of
+    ``jnp.mean`` (ROADMAP queue 3 records the measured figure); at O = 8
+    it is bitwise."""
+    assert _mean_last_rel_err(8) == (0, 0.0)
+    _, worst = _mean_last_rel_err(120)
+    assert worst <= 4 * float(np.finfo(np.float32).eps)
 
 
 def test_grid_search_and_best_match_one_cell_loop(osets, j_sweep):

@@ -437,3 +437,139 @@ def test_tunable_fleet_through_kernels_equals_plain(cuda):
     assert all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
                for x, y in zip(a[1], r[1]))
     assert a[3] > 0 and r[3] == 0
+
+
+# The byte-operand batch body (K2, K4 and K7 on bytes: one int8
+# tensor-core launch): widths across the 16-byte cp.async segment and the
+# 64-byte chunk, batches across the 8-column MMA tile and the 64-column
+# block tile, three placements of the operands, and bytes whose set
+# values are 1, 2 or 255 (uint8) or 1, 2 or -1 (int8) beside bools.
+BYTE_L = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 98, 513, 1568)
+BYTE_B = (1, 7, 8, 9, 150, 1024)
+BYTE_KINDS = ("bool", "uint8", "int8")
+# (name, storage offset of the bank, of the literals), in elements
+BYTE_PLACEMENTS = (("aligned", 0, 0), ("offset=1", 1, 1),
+                   ("literals+1", 0, 1))
+
+
+def _byte_plane(rng, shape, p, kind, cuda, bank=False):
+    """A random 0/1 plane at density ``p`` as ``kind``; a ``bank`` gets an
+    all-empty first and an all-include last row (axis -2)."""
+    bits = rng.random(shape) < p
+    if kind == "bool":
+        t = torch.from_numpy(bits)
+    else:
+        vals = rng.choice((1, 2, 255) if kind == "uint8" else (1, 2, -1),
+                          size=shape)
+        t = torch.from_numpy(np.where(bits, vals, 0).astype(kind))
+    if bank:
+        t[..., 0, :] = 0
+        t[..., -1, :] = {"bool": 1, "uint8": 255, "int8": -1}[kind]
+    return t.to(cuda)
+
+
+def _byte_cases(rng, bank_shape, lit_lead, L, cuda):
+    """(bank, literals, placed bank, placed literals, what) over
+    BYTE_KINDS x BYTE_B x BYTE_PLACEMENTS at width L."""
+    for kind in BYTE_KINDS:
+        inc = _byte_plane(rng, bank_shape + (L,), 0.1, kind, cuda, bank=True)
+        for B in BYTE_B:
+            lits = _byte_plane(rng, lit_lead + (B, L), 0.5, kind, cuda)
+            for what, oi, ol in BYTE_PLACEMENTS:
+                yield (inc, lits, _at(inc, oi), _at(lits, ol),
+                       f"{kind} B={B} {what}")
+
+
+@pytest.mark.parametrize("L", BYTE_L)
+def test_byte_batch_count_body_equals_plain(cuda, L):
+    """K2 and K4 (R = 4 on D = 2 streams, 70 rows: two row tiles) on the
+    tensor-core body: one launch a call, equal to the plain versions,
+    which count any nonzero byte as 1."""
+    from repro_torch.kernels import clause_eval as ce
+
+    rng = np.random.default_rng([16, L])
+    for inc, lits, p_inc, p_lits, what in _byte_cases(rng, (4, 70), (2,), L,
+                                                      cuda):
+        before = (ce.clause_counts_batch_replicated.launches,
+                  ce.clause_counts_batch.launches)
+        got4 = ce.clause_counts_batch_replicated(p_inc, p_lits)
+        got2 = ce.clause_counts_batch(p_inc[0], p_lits[0])
+        assert (ce.clause_counts_batch_replicated.launches,
+                ce.clause_counts_batch.launches) == (before[0] + 1,
+                                                     before[1] + 1), what
+        want4 = ce.clause_counts_batch_replicated_plain(inc, lits)
+        want2 = ce.clause_counts_batch_plain(inc[0], lits[0])
+        assert all(torch.equal(g, w) for g, w in zip(got4, want4)), what
+        assert all(torch.equal(g, w) for g, w in zip(got2, want2)), what
+
+
+@pytest.mark.parametrize("L", BYTE_L)
+def test_pruned_byte_count_body_equals_plain(cuda, L):
+    """K7 on bytes, replica-first (R = 4 banks of 3 x 40 on D = 2 streams)
+    and K = 1, on the tensor-core body: permutation prefixes (M = 1, 20,
+    40), ids with repeats (M = 20), each as int32 and int64, taken in
+    turn; one launch a call, equal to the plain versions."""
+    from repro_torch.kernels import clause_eval as ce
+
+    R, C, J = 4, 3, 40
+    rng = np.random.default_rng([7, L])
+    sels = [np.stack([np.stack([rng.permutation(J)[:M] for _ in range(C)])
+                      for _ in range(R)]) for M in (1, J // 2, J)]
+    rep = rng.integers(0, J, (R, C, J // 2))
+    rep[..., -1] = rep[..., 0]
+    sels.append(rep)
+    sels = [torch.from_numpy(s.astype(dt)).to(cuda) for s in sels
+            for dt in (np.int32, np.int64)]
+    cases = _byte_cases(rng, (R, C, J), (2,), L, cuda)
+    for i, (inc, lits, p_inc, p_lits, what) in enumerate(cases):
+        sel = sels[i % len(sels)]
+        what = f"M={sel.shape[-1]} {sel.dtype} {what}"
+        before = (ce.clause_counts_batch_pruned_replicated.launches,
+                  ce.clause_counts_batch_pruned.launches)
+        got = ce.clause_counts_batch_pruned_replicated(p_inc, sel, p_lits)
+        one = ce.clause_counts_batch_pruned(p_inc[0], sel[0], p_lits[0])
+        assert (ce.clause_counts_batch_pruned_replicated.launches,
+                ce.clause_counts_batch_pruned.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+        want = ce.clause_counts_batch_pruned_replicated_plain(inc, sel, lits)
+        want1 = ce.clause_counts_batch_pruned_plain(inc[0], sel[0], lits[0])
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), what
+        assert all(torch.equal(g, w) for g, w in zip(one, want1)), what
+
+
+@pytest.mark.parametrize("L", BYTE_L)
+def test_byte_count_body_large_tiles_equal_plain(cuda, L):
+    """Grids of 8 or more 64 x 64 tiles an SM take the body's 128 x 128
+    tiles: K4 and K7 on bytes at R = 16 banks of 300 ragged rows (K7: 3
+    classes of 120 clauses, 100 elected) against B = 1000, equal to the
+    plain versions, one launch a call."""
+    from repro_torch.kernels import clause_eval as ce
+
+    R, C, J, M, B = 16, 3, 120, 100, 1000
+    rng = np.random.default_rng([128, L])
+    sels = [torch.from_numpy(s.astype(dt)).to(cuda) for s in (
+        np.stack([np.stack([rng.permutation(J)[:M] for _ in range(C)])
+                  for _ in range(R)]),
+        rng.integers(0, J, (R, C, M))) for dt in (np.int32, np.int64)]
+    for i, kind in enumerate(BYTE_KINDS):
+        inc = _byte_plane(rng, (R, C, J, L), 0.1, kind, cuda, bank=True)
+        lits = _byte_plane(rng, (2, B, L), 0.5, kind, cuda)
+        rows = inc[:, :, :M].reshape(R, C * M, L)
+        for j, (what, oi, ol) in enumerate(BYTE_PLACEMENTS):
+            sel = sels[(3 * i + j) % len(sels)]
+            before = (ce.clause_counts_batch_replicated.launches,
+                      ce.clause_counts_batch_pruned_replicated.launches)
+            got4 = ce.clause_counts_batch_replicated(_at(rows, oi),
+                                                     _at(lits, ol))
+            got7 = ce.clause_counts_batch_pruned_replicated(_at(inc, oi), sel,
+                                                            _at(lits, ol))
+            assert (ce.clause_counts_batch_replicated.launches,
+                    ce.clause_counts_batch_pruned_replicated.launches) == (
+                before[0] + 1, before[1] + 1)
+            want4 = ce.clause_counts_batch_replicated_plain(rows, lits)
+            want7 = ce.clause_counts_batch_pruned_replicated_plain(inc, sel,
+                                                                   lits)
+            assert all(torch.equal(g, w) for g, w in zip(got4, want4)), (
+                kind, what)
+            assert all(torch.equal(g, w) for g, w in zip(got7, want7)), (
+                kind, what, sel.dtype)

@@ -166,6 +166,49 @@ def test_feedback_plane_kernel_matches_pallas(shape):
     assert np.array_equal(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("kind", ["uint8", "int8"])
+@pytest.mark.parametrize("L", [17, 32])
+def test_byte_valued_batch_counts_match_pallas_on_bools(kind, L):
+    """K2, K4 and K7 on bytes count any nonzero byte as 1: the wrappers
+    take uint8 and int8 views, and the CUDA body normalises them. On CPU
+    tensors their plain versions, given set bytes of 1, 2 and 255 (uint8)
+    or 1, 2 and -1 (int8), equal the reference's Pallas kernels on the
+    same operands as bools."""
+    rng = np.random.default_rng(_seed(kind, L, "bytes"))
+    R, D, C, J, M, B = 4, 2, 3, 8, 5, 6
+    vals = (1, 2, 255) if kind == "uint8" else (1, 2, -1)
+
+    def plane(shape, p):
+        bits = rng.random(shape) < p
+        return bits, _t(np.where(bits, rng.choice(vals, size=shape),
+                                 0).astype(kind))
+
+    inc_b, inc = plane((R, C * J, L), 0.2)
+    lit_b, lit = plane((D, B, L), 0.5)
+    for want, got in (
+            (j_ce.clause_counts_batch(jnp.asarray(inc_b[0]),
+                                      jnp.asarray(lit_b[0])),
+             t_ce.clause_counts_batch(inc[0], lit[0])),
+            (j_ce.clause_counts_batch_replicated(jnp.asarray(inc_b),
+                                                 jnp.asarray(lit_b)),
+             t_ce.clause_counts_batch_replicated(inc, lit))):
+        assert all(np.array_equal(np.asarray(w), g.numpy())
+                   for w, g in zip(want, got))
+    sel = rng.integers(0, J, (R, C, M))
+    gathered = np.take_along_axis(inc_b.reshape(R, C, J, L),
+                                  sel[..., None], axis=2)
+    want = j_ce.clause_counts_batch_replicated(
+        jnp.asarray(gathered.reshape(R, C * M, L)), jnp.asarray(lit_b))
+    got = t_ce.clause_counts_batch_pruned_replicated(
+        inc.reshape(R, C, J, L), _t(sel.astype(np.int32)), lit)
+    assert all(np.array_equal(np.asarray(w), g.numpy())
+               for w, g in zip(want, got))
+    got1 = t_ce.clause_counts_batch_pruned(inc[0].reshape(C, J, L),
+                                           _t(sel[0]), lit[0])
+    assert all(np.array_equal(np.asarray(w)[0], g.numpy())
+               for w, g in zip(want, got1))
+
+
 def test_cpu_tensors_take_the_plain_versions_uncounted():
     """A CPU tensor never launches a kernel, so no launch is counted."""
     before = (t_ce.clause_counts.launches, t_ce.clause_counts_batch.launches,
