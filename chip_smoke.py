@@ -7,7 +7,10 @@
 The second form imports the port from DIR (a tree's ``src``, this one's
 or a parent's unpacked beside it, to time both trees' kernels with one
 script on one card) and runs only phases 1-3's K1-K4, K8 and K9 part, the
-launch floor and the two K7 byte entries' times; it prints no ok line.
+launch floor, the times of the two K7 byte entries, of K5, K6 and the two
+K7 word entries (each held to its plain version first), and two serves
+(the packed K = 1 service and the packed K = 16 tunable fleet, 1024 rows,
+on random banks); it prints no ok line.
 
 Phases, each with its seconds:
 
@@ -29,8 +32,16 @@ Phases, each with its seconds:
    BYTE_L (1 to 1568) x B in BYTE_B (1 to 1024) x the same placements x
    bool, uint8 and int8 operands whose set bytes are 1, 2, 255 or -1,
    each call one launch, and on the body's 128 x 128 tiles at R = 16;
-   then ``one_launch``: torch.profiler sees one CUDA kernel in a K2 call
-   and in a K = 1 K7 call on bytes. Beside
+   then ``b1_probe``: the rates of ``mma.sync`` m16n8k256 .b1
+   AND-popcount products and of ``__popc(a & ~b)`` in bit operations a
+   clock an SM (``csrc/probe.cu``), the faster setting the word kernels'
+   bound; ``parity_words``: K5, K6 and K7 on words (one b1 tensor-core
+   body) at W in WORD_W (1 to 700 words) x B in BYTE_B x aligned operands
+   and operands 4 and 8 bytes off x random, all-ones and tail-bit words,
+   K7 on int32 and int64 selections holding ids 0 and J - 1 and also
+   against gather + K6, each call one launch, and on the 128 x 128 tiles
+   at R = 16; then ``one_launch``: torch.profiler sees one CUDA kernel in
+   a K2 call, a K5 call and a K = 1 K7 call on bytes and on words. Beside
    each, at the main path's shapes, the median time of the kernel (CUDA
    graphs of back-to-back launches, timed by CUDA events), of its plain
    version and, for the clause counts, of one float32
@@ -43,7 +54,8 @@ Phases, each with its seconds:
    f {16, 31, 33, 49, 196, 784} x CJ {12, 48, 640} x B {1, 7, 150, 1024}
    and (R, D) {(1, 1), (4, 2), (3, 3), (16, 16), (16, 1)}, each bank with
    an all-empty and an all-include clause row; K5 and K6 timed beside K2/K4
-   and their plain versions, bound by their popcounts. Then
+   and their plain versions, bound by their bytes or their bit operations
+   at the b1 peak that ``b1_probe`` measured. Then
    ``phase_parity_pruned``: K7, the four pruned entries
    ``clause_counts_batch_pruned{,_packed,_replicated,_replicated_packed}``,
    against their plain versions, against the gather + K2/K4/K5/K6 kernels
@@ -147,11 +159,20 @@ REP_SHAPES = [(6, 3, 48, 32), (3, 1, 12, 33), (4, 2, 12, 513), WIDE,
 B_ANALYSIS = 150              # one fused three-set analysis: 30 + 60 + 60 rows
 
 
-# Peak 32-bit popcounts: 16 results per clock per SM on compute capability
-# 9.0 ("Arithmetic Instructions" throughput table of NVIDIA's CUDA C++
-# Programming Guide); times the SM count and the card's maximum SM clock
-# (nvidia-smi), both read in this run.
-POPC_PER_CLK_PER_SM = 16
+# K5, K6 and K7 on words (one b1 tensor-core body) are held at word widths
+# on its edges -- the 4-, 8- and 16-byte copies (W odd, W % 4 == 2, W % 4
+# == 0), the 8-word b1 step, the 16-word chunk, and 700 words, beyond the
+# old counting kernel's shared-memory cap -- at BYTE_B batches, on aligned
+# operands and on operands 4 and 8 bytes off alignment, and on three kinds
+# of words: random; all-ones include words against literal rows of zeros,
+# ones and random words (sums up to 32 W); random include words whose
+# last word has its high bits set against literals whose last word has
+# them clear (include tail bits, as past a packed width).
+WORD_W = (1, 2, 3, 7, 8, 9, 50, 98, 700)
+WORD_KINDS = ("random", "ones", "tail")
+# (name, storage offset of the bank, of the literals), in int32 words
+WORD_PLACEMENTS = (("aligned", 0, 0), ("4 bytes off", 1, 1),
+                   ("8 bytes off", 2, 2), ("literals 8 bytes off", 0, 2))
 PACKED_F = (16, 31, 33, 49, 196, 784)   # W = 2, 2, 4, 4, 14, 50 words
 PACKED_CJ = (12, 48, 640)
 PACKED_B = (1, 7, 150, 1024)
@@ -313,14 +334,120 @@ def counters(ce, fb) -> dict:
     return {k.__name__: k.launches for k in wrappers(ce, fb)}
 
 
-def popc_per_s(torch) -> float:
-    """The card's peak 32-bit popcount rate at its maximum SM clock."""
-    mhz = float(subprocess.run(
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in MHz."""
+    return float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0])
+
+
+def word_operand(torch, np, rng, shape, kind, dev, bank=False):
+    """uint32 words [*shape] of ``kind`` (WORD_KINDS) as the port's int32
+    words on ``dev``: a ``bank``'s include words, else literal words. A
+    bank gets an all-zero (empty) first and an all-ones last row (axis
+    -2)."""
+    w = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    if bank:
+        if kind == "ones":
+            w[...] = 0xFFFFFFFF
+        elif kind == "tail":
+            w[..., -1] |= np.uint32(0xFFFF0000)
+        w[..., 0, :] = 0
+        w[..., -1, :] = 0xFFFFFFFF
+    elif kind == "ones":
+        w[..., 0::3, :] = 0
+        w[..., 1::3, :] = 0xFFFFFFFF
+    elif kind == "tail":
+        w[..., -1] &= np.uint32(0x0000FFFF)
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def word_edges(torch, np, rng, dev, hold, bank_shape, lit_lead,
+               batches=BYTE_B):
+    """Hold ``hold(inc, lits, placed, what)`` at every WORD_W x WORD_KINDS
+    x ``batches``: a bank [*bank_shape, W], literals [*lit_lead, B, W],
+    and ``placed`` the (name, place the bank, place the literals) of
+    WORD_PLACEMENTS."""
+    placed = [(what, lambda t, o=o: at(torch, t, o),
+               lambda t, o=lo: at(torch, t, o))
+              for what, o, lo in WORD_PLACEMENTS]
+    for W in WORD_W:
+        for kind in WORD_KINDS:
+            inc = word_operand(torch, np, rng, tuple(bank_shape) + (W,),
+                               kind, dev, bank=True)
+            for B in batches:
+                lits = word_operand(torch, np, rng,
+                                    tuple(lit_lead) + (B, W), kind, dev)
+                hold(inc, lits, placed, f"W={W} {kind} B={B}")
+
+
+def by_replica(torch, plain, inc, lits, sel=None):
+    """A replica-first plain version replica by replica (its int64
+    temporaries grow with R x rows x B x W), concatenated."""
+    D = lits.shape[0]
+    outs = [plain(inc[r:r + 1], lits[r % D:r % D + 1]) if sel is None
+            else plain(inc[r:r + 1], sel[r:r + 1], lits[r % D:r % D + 1])
+            for r in range(inc.shape[0])]
+    return torch.cat(outs)
+
+
+def phase_b1_probe(torch, np) -> dict:
+    """The rates of the two ways to count sum_w popcount(inc & ~lit) on
+    this card, from ``csrc/probe.cu``: loops of independent ``mma.sync``
+    m16n8k256 .b1 AND-popcount products (16 warps a block) and of
+    ``__popc(a & ~b)`` (512 threads a block), one block an SM. Each block
+    reads its SM's clock around its loop; a rate is an SM's bit
+    operations (one AND-popcount of one bit pair) over its clock span,
+    the median over the SMs. Returns {kind: bit operations a clock an
+    SM} and the peak bit operations a second of each (times the SM count
+    and the maximum SM clock, as the ``__popc`` table rate is)."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library("probe")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 17)
+    words = torch.from_numpy(rng.integers(0, 2 ** 32, 256, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return POPC_PER_CLK_PER_SM * sms * mhz * 1e6
+    mhz = max_sm_mhz()
+    out = {"sms": sms, "max_sm_mhz": mhz}
+    for kind, fn, iters in (("b1_mma", lib.b1_mma_probe, 2048),
+                            ("popc", lib.popc_probe, 2048)):
+        threads = 512
+        sink = torch.empty(sms * threads, dtype=torch.int32, device=dev)
+        stamp = torch.zeros((sms, 4), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        for n in (16, iters):        # a short warm launch, then the run
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _build.check(fn(words.data_ptr(), sms, threads, n,
+                            sink.data_ptr(), stamp.data_ptr(), stream),
+                         f"{kind} probe")
+            b.record()
+            b.synchronize()
+        st = stamp.cpu().numpy()
+        per_sm = {}
+        for t0, t1, sm, bits in st:
+            lo, hi, n_bits = per_sm.get(int(sm), (t0, t1, 0))
+            per_sm[int(sm)] = (min(lo, t0), max(hi, t1), n_bits + bits)
+        rates = sorted(n_bits / (hi - lo) for lo, hi, n_bits in
+                       per_sm.values())
+        rate = float(rates[len(rates) // 2])
+        wall = float(st[:, 3].sum()) / (a.elapsed_time(b) * 1e-3)
+        out[kind] = rate
+        out[kind + "_peak_per_s"] = rate * sms * mhz * 1e6
+        print(f"b1_probe {kind}: {rate:.1f} bit operations a clock an SM "
+              f"(median of {len(per_sm)} SMs, {sms} blocks, min "
+              f"{rates[0]:.1f}, max {rates[-1]:.1f}); "
+              f"{wall / 1e12:.2f} T bit operations/s by CUDA events; peak "
+              f"{out[kind + '_peak_per_s'] / 1e12:.2f} T/s at {mhz:.0f} MHz",
+              flush=True)
+    out["faster"] = "b1_mma" if out["b1_mma"] > out["popc"] else "popc"
+    print(f"b1_probe: the b1 MMA counts {out['b1_mma'] / out['popc']:.2f}x "
+          f"the bits a clock of __popc; faster: {out['faster']}", flush=True)
+    return out
 
 
 def phase_parity(torch, np, ce, fb):
@@ -629,18 +756,21 @@ def phase_parity_replicated(torch, np, ce, fb):
     return recs
 
 
-def phase_parity_packed(torch, np, ce):
+def phase_parity_packed(torch, np, ce, probe, word_err):
     """K5/K6 against their plain versions and against K2/K4 on the same
     problem unpacked (packed == unpacked), with an all-empty and an
     all-include clause row in every bank; returns the kernel records at
     the main path's shapes (K5: the 1024-row serve of one machine; K6: a
-    K = 16 fleet's three-set-sized batch, B = 150, D = 1)."""
+    K = 16 fleet's three-set-sized batch, B = 150, D = 1), bound by their
+    bytes or their bit operations at the b1 product's peak that
+    ``probe`` (phase b1_probe) measured. ``word_err``: the largest errors
+    of phase parity_words."""
     from repro_torch.kernels import packing
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 13)
-    err = {"clause_counts_batch_packed": 0,
-           "clause_counts_batch_replicated_packed": 0}
+    err = {k: word_err[k] for k in ("clause_counts_batch_packed",
+                                    "clause_counts_batch_replicated_packed")}
     n_checks = {k: 0 for k in err}
 
     def operands(lead_i, lead_l, cj, f, B):
@@ -684,7 +814,7 @@ def phase_parity_packed(torch, np, ce):
               "CJ=640 W=50 B (1, 7, 150) equal=True", flush=True)
     print(f"parity packed checks: {json.dumps(n_checks)}", flush=True)
 
-    rate = popc_per_s(torch)
+    rate = probe["b1_mma_peak_per_s"]
     recs = []
     for name, replaces, rep, (R, D, B) in (
         ("clause_counts_batch_packed", "src/repro/kernels/clause_eval.py:391",
@@ -706,7 +836,8 @@ def phase_parity_packed(torch, np, ce):
              lambda: ce.clause_counts_batch(inc, lits)))
         cj, W = inc_w.shape[-2:]
         nbytes = 4 * (R * cj * W + D * B * W + R * cj * B)
-        b_ms, b_by = bound(nbytes, R * cj * B * W, rate)
+        bits = 32 * R * cj * B * W
+        b_ms, b_by = bound(nbytes, bits, rate)
         rec = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/clause_eval.cu",
@@ -723,9 +854,121 @@ def phase_parity_packed(torch, np, ce):
               f"{rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms, unpacked "
               f"{'K4' if rep else 'K2'} on the same problem {un_ms:.5f} "
               f"ms, library None, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
-              f"{R * cj * B * W} popcounts at {rate:.4g}/s)", flush=True)
+              f"{bits} bit operations at the measured b1 peak "
+              f"{rate:.4g}/s)", flush=True)
         recs.append(rec)
     return recs
+
+
+def phase_parity_words(torch, np, ce):
+    """The word body at its edges (WORD_W x WORD_KINDS x BYTE_B x
+    WORD_PLACEMENTS): K6 on R = 4 banks of 70 rows (two row tiles) on D =
+    2 streams and K5 on replica 0; K7 on words, replica-first (R = 4
+    banks of 3 classes x 40 clauses on D = 2 streams) and K = 1, taking
+    int32 and int64 selections in turn (permutation prefixes at M = 1, 20,
+    40 and ids with repeats at M = 20, each holding ids 0 and J - 1), also
+    against gather + K6 (K = 1: gather + K5); then the same on the
+    128 x 128 tiles (R = 16 banks of 300 rows, B = 1000). Each call is one
+    launch and equal to the plain version with ``torch.equal``. Returns
+    the largest error of each."""
+    from repro_torch.kernels.ref import gather_include
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 18)
+    names = ("clause_counts_batch_packed",
+             "clause_counts_batch_replicated_packed",
+             "clause_counts_batch_pruned_packed",
+             "clause_counts_batch_pruned_replicated_packed")
+    err = dict.fromkeys(names, 0)
+    n_checks = dict.fromkeys(names, 0)
+
+    def hold(name, got, want, what):
+        err[name] = max(err[name], int((got.long() - want.long()).abs().max()))
+        n_checks[name] += 1
+        check(torch.equal(got, want), f"{name} differs from its plain "
+              f"version at {what}")
+
+    def launched(fns, before, what):
+        check([f.launches for f in fns] == [n + 1 for n in before],
+              f"{[f.__name__ for f in fns]} launched other than once a call "
+              f"at {what}")
+
+    k5, k6 = ce.clause_counts_batch_packed, \
+        ce.clause_counts_batch_replicated_packed
+    k7, k7r = ce.clause_counts_batch_pruned_packed, \
+        ce.clause_counts_batch_pruned_replicated_packed
+
+    def hold_k56(inc, lits, placed, what):
+        want6 = by_replica(torch, ce.clause_counts_batch_replicated_packed_plain,
+                           inc, lits)
+        want5 = ce.clause_counts_batch_packed_plain(inc[0], lits[0])
+        for where, view, lview in placed:
+            before = [k5.launches, k6.launches]
+            got6 = k6(view(inc), lview(lits))
+            got5 = k5(view(inc)[0], lview(lits)[0])
+            launched((k5, k6), before, f"{what} {where}")
+            torch.cuda.synchronize()
+            hold(names[1], got6, want6, f"R={inc.shape[0]} {what} {where}")
+            hold(names[0], got5, want5, f"{what} {where}")
+
+    def selections(R, C, J, Ms):
+        """int32 and int64 [R, C, M] on the card: permutation prefixes at
+        each M and ids with repeats at the middle one, each with ids 0 and
+        J - 1."""
+        out = [np.stack([np.stack([rng.permutation(J)[:M] for _ in range(C)])
+                         for _ in range(R)]) for M in Ms]
+        rep = rng.integers(0, J, (R, C, Ms[len(Ms) // 2]))
+        rep[..., -1] = rep[..., 0]
+        out.append(rep)
+        for a in out:
+            a[:, 0, 0] = 0
+            a[:, -1, -1] = J - 1
+        return [torch.from_numpy(a.astype(dt)).to(dev) for a in out
+                for dt in (np.int32, np.int64)]
+
+    sels, turn = [], [0]
+
+    def hold_k7(inc, lits, placed, what):
+        R = inc.shape[0]
+        for where, view, lview in placed:
+            sel = sels[turn[0] % len(sels)]
+            turn[0] += 1
+            w = f"R={R} M={sel.shape[-1]} {sel.dtype} {what} {where}"
+            before = [k7.launches, k7r.launches]
+            got = k7r(view(inc), sel, lview(lits))
+            one = k7(view(inc)[0], sel[0], lview(lits)[0])
+            launched((k7, k7r), before, w)
+            want = by_replica(
+                torch, ce.clause_counts_batch_pruned_replicated_packed_plain,
+                inc, lits, sel)
+            W = inc.shape[-1]
+            gath = k6(gather_include(inc, sel).reshape(R, -1, W), lits)
+            gath1 = k5(gather_include(inc[0], sel[0]).reshape(-1, W), lits[0])
+            torch.cuda.synchronize()
+            hold(names[3], got, want, w)
+            hold(names[3], got, gath, w + " (gather + K6)")
+            hold(names[2], one, want[0], w)
+            hold(names[2], one, gath1, w + " (gather + K5)")
+
+    word_edges(torch, np, rng, dev, hold_k56, (4, 70), (2,))
+    print(f"parity K5/K6 words R=4 D=2 CJ=70 W {WORD_W} x {WORD_KINDS} x "
+          f"B {BYTE_B} x {[p[0] for p in WORD_PLACEMENTS]} equal=True",
+          flush=True)
+    sels[:] = selections(4, 3, 40, (1, 20, 40))
+    word_edges(torch, np, rng, dev, hold_k7, (4, 3, 40), (2,))
+    print(f"parity K7 words R=4 D=2 C=3 J=40 W {WORD_W} x {WORD_KINDS} x "
+          f"B {BYTE_B} x {[p[0] for p in WORD_PLACEMENTS]}, {len(sels)} "
+          "selections in turn equal=True", flush=True)
+    # the 128 x 128 tiles
+    word_edges(torch, np, rng, dev, hold_k56, (BIG_R, BIG_ROWS), (2,),
+               (BIG_B,))
+    sels[:] = selections(BIG_R, 3, 120, (BIG_ROWS // 3,))
+    word_edges(torch, np, rng, dev, hold_k7, (BIG_R, 3, 120), (2,), (BIG_B,))
+    print(f"parity K5/K6/K7 words on the 128 x 128 tiles: R={BIG_R} "
+          f"{BIG_ROWS} rows (K7: C=3 J=120 M={BIG_ROWS // 3}) B={BIG_B} "
+          "equal=True", flush=True)
+    print(f"parity words checks: {json.dumps(n_checks)}", flush=True)
+    return err
 
 
 def run_service(torch, np, cfg, data, on_chunk, packed=False):
@@ -1406,13 +1649,15 @@ def phase_profile(torch, np):
         for e in top), flush=True)
 
 
-def phase_parity_pruned(torch, np, ce):
+def phase_parity_pruned(torch, np, ce, probe, word_err):
     """K7, the four pruned entries, against their plain versions, against
     the gather + K2/K4/K5/K6 kernels on the compacted bank, and packed
     against unpacked, with ``torch.equal``; then timed at the
     OVERPROVISIONED f = 784 shapes (C = 10, J = 128, B = 1024; K = 1 and
     the K = 16 fleet, D = 1) at M = 32 and M = 128, beside gather + K2/K4/
-    K5/K6 and the full-bank kernel. Returns the four kernel records."""
+    K5/K6 and the full-bank kernel. Returns the four kernel records; the
+    word entries' bound takes the b1 peak of ``probe``, their error also
+    ``word_err`` (phase parity_words)."""
     from repro_torch.kernels import packing
     from repro_torch.kernels.ref import gather_include
 
@@ -1422,7 +1667,7 @@ def phase_parity_pruned(torch, np, ce):
     names = ("clause_counts_batch_pruned", "clause_counts_batch_pruned_packed",
              "clause_counts_batch_pruned_replicated",
              "clause_counts_batch_pruned_replicated_packed")
-    err = {k: 0 for k in names}
+    err = {k: word_err.get(k, 0) for k in names}
     n_checks = {k: 0 for k in names}
 
     def operands(R, D, f, B):
@@ -1562,7 +1807,7 @@ def phase_parity_pruned(torch, np, ce):
           flush=True)
     print(f"parity pruned checks: {json.dumps(n_checks)}", flush=True)
 
-    rate = popc_per_s(torch)
+    rate = probe["b1_mma_peak_per_s"]
     f, B = 784, 1024
     recs = []
     for name, replaces, R, packed in (
@@ -1593,10 +1838,11 @@ def phase_parity_pruned(torch, np, ce):
             full_ms = time_ms(torch, lambda: full_fn(
                 bank.reshape(R, C * J, -1), lit))
             if packed:
-                # the popcounts the kernel runs: W words a row
+                # the elected rows, their int32 ids, the literals and the
+                # counts; 32 W bit operations a row and column
                 nbytes = (R * C * M * W * 4 + R * C * M * 4 + B * W * 4
                           + R * C * M * B * 4)
-                ops = R * C * M * B * W
+                ops = 32 * R * C * M * B * W
                 b_ms, b_by = bound(nbytes, ops, rate)
             else:
                 nbytes, ops = k7_bytes_work(R, C, M, f, B)
@@ -1610,7 +1856,7 @@ def phase_parity_pruned(torch, np, ce):
                   f"full-bank {'K6' if packed else 'K4'} {full_ms:.5f} ms, "
                   f"library None, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
                   f"{ops:.0f} "
-                  f"{f'popcounts at {rate:.4g}/s' if packed else 'int8 ops'})",
+                  f"{f'bit operations at the b1 peak {rate:.4g}/s' if packed else 'int8 ops'})",
                   flush=True)
             if M < J:
                 rec = {
@@ -1956,25 +2202,37 @@ def phase_traffic(torch, np, ce, fb):
 
 
 def phase_one_launch(torch, np, ce):
-    """torch.profiler over one K2 call at the serve shape (640 x 1568,
-    B = 1024) and one K = 1 K7 call on bytes (C = 10, J = 128, M = 32,
-    sel on the card): each must run exactly one CUDA kernel."""
+    """torch.profiler over one call each, at the main path's shapes, of K2
+    (640 x 1568, B = 1024), K = 1 K7 on bytes (C = 10, J = 128, M = 32,
+    sel on the card), K5 (640 x 50 words, B = 1024) and K = 1 K7 on words
+    (the same selection): each must run exactly one CUDA kernel."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import packing
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 16)
     cj, L = FULL
     inc = torch.from_numpy(rng.random((cj, L)) < 0.05).to(dev)
-    lits = torch.from_numpy(rng.random((1024, L)) < 0.5).to(dev)
+    x = torch.from_numpy(rng.random((1024, L // 2)) < 0.5).to(dev)
+    lits = torch.cat([x, ~x], -1)
     bank = torch.from_numpy(rng.random((PRUNED_C, PRUNED_J, L)) < 0.05).to(
         dev)
+    inc_w, bank_w = (packing.pack_include(inc, L // 2),
+                     packing.pack_include(bank, L // 2))
+    lit_w = packing.pack_literals(x)
     sel = torch.from_numpy(np.stack([rng.permutation(PRUNED_J)[:32]
                                      for _ in range(PRUNED_C)]).astype(
         np.int32)).to(dev)
     for name, fn in (
             ("clause_counts_batch", lambda: ce.clause_counts_batch(inc, lits)),
             ("clause_counts_batch_pruned",
-             lambda: ce.clause_counts_batch_pruned(bank, sel, lits))):
+             lambda: ce.clause_counts_batch_pruned(bank, sel, lits)),
+            ("clause_counts_batch_packed",
+             lambda: ce.clause_counts_batch_packed(inc_w, lit_w)),
+            ("clause_counts_batch_pruned_packed",
+             lambda: ce.clause_counts_batch_pruned_packed(bank_w, sel,
+                                                          lit_w))):
         fn()                         # warm: the build and lazy set-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1987,6 +2245,129 @@ def phase_one_launch(torch, np, ce):
               flush=True)
         check(sum(n for _, n in kernels) == 1,
               f"{name}: one call ran {kernels}, not one CUDA kernel")
+
+
+def phase_time_words(torch, np, ce):
+    """K5 (640 x 50 words, B = 1024), K6 (R = 16 on D = 1, B = 150) and the
+    two K7 word entries at the OVERPROVISIONED serve (C = 10, J = 128,
+    f = 784, B = 1024; R = 1, and R = 16 on D = 1) at M = 32 and 128: each
+    held to its plain version on the timed operands (replica by replica),
+    then timed. Used by ``--kernels-from``: it calls only wrappers whose
+    names and signatures every tree since the packed slice shares."""
+    from repro_torch.kernels import packing
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 19)
+    C, J, f, B = PRUNED_C, PRUNED_J, 784, 1024
+    recs = []
+
+    def bank(R, rows):
+        return packing.pack_include(torch.from_numpy(
+            rng.random((R, rows, 2 * f)) < 0.05).to(dev), f)
+
+    def lits(n):
+        return packing.pack_literals(torch.from_numpy(
+            rng.random((1, n, f)) < 0.5).to(dev))
+
+    def timed(name, shape, args, plain_args=None):
+        got = getattr(ce, name)(*args)
+        want = getattr(ce, name + "_plain")(*(plain_args or args))
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"{name} differs from its plain version at {shape}")
+        ms = time_ms(torch, lambda: getattr(ce, name)(*args))
+        print(f"time {name} ({shape}): kernel {ms:.5f} ms", flush=True)
+        recs.append({"name": name, "shape": shape, "ms": ms})
+
+    timed("clause_counts_batch_packed", "CJ=640 W=50 B=1024",
+          (bank(1, 640)[0], lits(B)[0]))
+    inc6, lit6 = bank(FLEET_K, 640), lits(B_ANALYSIS)
+    got = ce.clause_counts_batch_replicated_packed(inc6, lit6)
+    want = by_replica(torch, ce.clause_counts_batch_replicated_packed_plain,
+                      inc6, lit6)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K6 differs from its plain version")
+    ms = time_ms(torch, lambda: ce.clause_counts_batch_replicated_packed(
+        inc6, lit6))
+    print(f"time clause_counts_batch_replicated_packed (R={FLEET_K} D=1 "
+          f"CJ=640 W=50 B={B_ANALYSIS}): kernel {ms:.5f} ms", flush=True)
+    recs.append({"name": "clause_counts_batch_replicated_packed",
+                 "shape": f"R={FLEET_K} B={B_ANALYSIS}", "ms": ms})
+    lit = lits(B)
+    for name, R in (("clause_counts_batch_pruned_packed", 1),
+                    ("clause_counts_batch_pruned_replicated_packed",
+                     FLEET_K)):
+        inc = bank(R, C * J).reshape(R, C, J, -1)
+        for M in (J // 4, J):
+            sel = torch.from_numpy(np.stack([np.stack([
+                rng.permutation(J)[:M] for _ in range(C)])
+                for _ in range(R)]).astype(np.int32)).to(dev)
+            if R == 1:
+                timed(name, f"R=1 M={M}", (inc[0], sel[0], lit[0]))
+                continue
+            fn = getattr(ce, name)
+            got = fn(inc, sel, lit)
+            want = by_replica(torch, getattr(ce, name + "_plain"), inc, lit,
+                              sel)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"{name} differs from its plain version at R={R} M={M}")
+            ms = time_ms(torch, lambda: fn(inc, sel, lit))
+            print(f"time {name} (R={R} D=1 C={C} J={J} M={M} f={f} B={B}): "
+                  f"kernel {ms:.5f} ms", flush=True)
+            recs.append({"name": name, "shape": f"R={R} M={M}", "ms": ms})
+    return recs
+
+
+def phase_time_serves(torch, np):
+    """End-to-end serves on random banks made from the seed (the serve's
+    work does not depend on what the bank learned): the packed K = 1
+    TMService at f = 784 (configs/tm_mnist.CONFIG) serving 1024 rows, and
+    the packed K = 16 tunable fleet on the OVERPROVISIONED preset (J =
+    128), calibrated on 200 rows, serving 1024 rows at budgets 1 and
+    0.125 without early exit. Host clock around each serve to numpy, the
+    median of 5 after one warm serve. Used by ``--kernels-from``."""
+    from repro_torch.configs import tm_mnist
+    from repro_torch.core.tm import TMState
+    from repro_torch.data import mnist
+    from repro_torch.serve import ServiceConfig, TMService, TunableConfig
+
+    rng = np.random.default_rng(SEED + 20)
+    big, _ = mnist.load(seed=SEED + 9, n_points=1024)
+    tr_x, tr_y, _, _ = mnist.splits(n_train=200, n_test=8, seed=SEED)
+
+    def median_ms(fn):
+        fn()
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+        return sorted(out)[2]
+
+    def random_bank(cfg, lead):
+        return torch.from_numpy(rng.integers(
+            1, 2 * cfg.n_states + 1, lead + (cfg.max_classes,
+                                              cfg.max_clauses,
+                                              2 * cfg.n_features)).astype(
+            np.int8)).to("cuda")
+
+    cfg = tm_mnist.CONFIG.tm
+    svc = TMService(cfg, TMState(random_bank(cfg, ())), ServiceConfig(
+        replicas=1, packed=True, seed=SEED), eval_x=tr_x, eval_y=tr_y,
+        device="cuda")
+    ms = {"packed K=1 serve(1024)": median_ms(lambda: svc.serve(big))}
+    cfg = tm_mnist.OVERPROVISIONED.tm
+    svc = _tunable_service(torch, cfg, random_bank(cfg, (FLEET_K,)),
+                           TunableConfig(budget=1.0), True, "auto",
+                           (tr_x, tr_y))
+    for b in (1.0, 0.125):
+        ms[f"packed K=16 tunable serve(1024) budget={b}"] = median_ms(
+            lambda: svc.serve(big, budget=b))
+    for k, v in ms.items():
+        print(f"serve {k}: {v:.3f} ms (median of 5, host clock)", flush=True)
+    return ms
 
 
 def phase_time_pruned_bytes(torch, np, ce):
@@ -2078,10 +2459,17 @@ def main() -> int:
     if args.kernels_from:
         recs += timed("time_pruned_bytes", phase_time_pruned_bytes, torch,
                       np, ce)
-        print(json.dumps({"kernel_times": recs}), flush=True)
+        recs += timed("time_words", phase_time_words, torch, np, ce)
+        serves = timed("time_serves", phase_time_serves, torch, np)
+        print(json.dumps({"kernel_times": recs, "serve_ms": serves}),
+              flush=True)
         return 0
-    recs += timed("parity_packed", phase_parity_packed, torch, np, ce)
-    recs += timed("parity_pruned", phase_parity_pruned, torch, np, ce)
+    probe = timed("b1_probe", phase_b1_probe, torch, np)
+    word_err = timed("parity_words", phase_parity_words, torch, np, ce)
+    recs += timed("parity_packed", phase_parity_packed, torch, np, ce, probe,
+                  word_err)
+    recs += timed("parity_pruned", phase_parity_pruned, torch, np, ce, probe,
+                  word_err)
     timed("one_launch", phase_one_launch, torch, np, ce)
     launches = timed("service", phase_main, torch, np, ce, fb)
     paper = timed("paper", phase_paper, torch, np, ce, fb)

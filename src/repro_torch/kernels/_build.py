@@ -34,19 +34,22 @@ SIGNATURES = {
         "clause_counts_replicated": ((_P,) * 4 + (_I,) * 4 + (_P,), _I),
         "clause_counts_batch_replicated": ((_P,) * 4 + (_I,) * 5 + (_P,),
                                            _I),
-        "clause_counts_batch_smem": ((_I,), _I),
         "clause_counts_batch_packed_replicated": ((_P,) * 3 + (_I,) * 5
                                                   + (_P,), _I),
         "clause_counts_batch_pruned_replicated": ((_P,) * 5 + (_I,) * 8
                                                   + (_P,), _I),
         "clause_counts_batch_pruned_packed_replicated": (
-            (_P,) * 4 + (_I,) * 6 + (_P,), _I),
+            (_P,) * 4 + (_I,) * 8 + (_P,), _I),
     },
     "feedback": {
         "feedback_plane_i8": ((_P,) * 7 + (_F, _F, _I, _I, _I, _P), _I),
         "feedback_plane_i16": ((_P,) * 7 + (_F, _F, _I, _I, _I, _P), _I),
         "feedback_plane_replicated_i8": ((_P,) * 9 + (_I,) * 5 + (_P,), _I),
         "feedback_plane_replicated_i16": ((_P,) * 9 + (_I,) * 5 + (_P,), _I),
+    },
+    "probe": {
+        "b1_mma_probe": ((_P,) + (_I,) * 3 + (_P,) * 3, _I),
+        "popc_probe": ((_P,) + (_I,) * 3 + (_P,) * 3, _I),
     },
 }
 

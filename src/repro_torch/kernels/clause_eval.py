@@ -33,27 +33,32 @@ against the zero-literal bytes); n_included comes from the same staged
 include tiles. Each tile re-reads its rows from L2, and that traffic
 sets their time. See the source for the layout.
 
-K5 and K6 take the bit-packed planes (int32 words holding uint32 bits,
-:mod:`repro_torch.kernels.packing`): include [R, CJ, W] and literals
-[D, B, W], W = 2 * ceil(f / 32), and give violations [R, CJ, B] =
-sum_w popcount(include & ~literal). A counting kernel stages word tiles
-of the caller's words in shared memory, with no n_included. Bound on an
-H100: the popcounts (33 M at 640 x 1024 x 50, about 7.8 us at 16 a clock per
-SM), not the 3 MB of operands.
+K5 and K6 take the bit-packed planes (int32 or uint32 words holding the
+uint32 bits, :mod:`repro_torch.kernels.packing`): include [R, CJ, W] and
+literals [D, B, W], W = 2 * ceil(f / 32), and give violations [R, CJ, B]
+= sum_w popcount(include & ~literal), with no n_included (the callers
+take emptiness from the include words). They run K2/K4's body on words,
+one launch a call: the same tiles, ring and fragment addressing, with
+``mma.sync`` m16n8k256 .b1 AND-popcount products of the include words
+against the complemented literal words, staged by 16-, 8- or 4-byte
+``cp.async`` copies (the widest the width and pointers allow; 8 for
+every packed layout, W being even). No width cap: the ring's shared
+memory does not grow with W. Bound on an H100: memory. The b1 product
+counts about 21,700 bit operations a clock an SM, 44x ``__popc``
+(``chip_smoke.py``'s b1_probe phase), so at 640 x 1024 x 50 its 1.05 G
+bit operations take 0.2 us against 0.9 us for the 2.9 MB of operands and
+int32 counts.
 
 K7 is the four pruned entries: the include bank [R, C, J, L | W] with a
 selection sel [R, C, M] of clause ids per class, counted as if the bank
 were compacted to [R, C, M, L | W] (the reference's ``gather_include``
 before a K2/K4/K5/K6 launch). Here the gather folds into the row loads,
-so the work shrinks with the budget M / J. On bytes the tensor-core
-kernel reads ``sel`` (int32 or int64) itself and stages bank row
-(r*C + c)*J + sel[r, c, m] for compacted row (r, c, m): one launch a
-call. On words the counting kernel stages rows through a row map built
-on the device from ``sel`` (:func:`_rowmap`). Bound on an H100: on bytes
-the elected rows, the literals and the int32 violations over 3.35 TB/s
-(21-84 MB of violations at R = 16, B = 1024, M = 32-128 dominate); on
-words the popcounts of the C * M elected rows (262 M at R = 16, M = 32,
-B = 1024, W = 50, about 63 us).
+so the work shrinks with the budget M / J: on bytes and on words the
+body reads ``sel`` (int32 or int64; other integer types are cast once)
+itself and stages bank row (r*C + c)*J + sel[r, c, m] for compacted row
+(r, c, m), one launch a call. Bound on an H100: the elected rows, the
+ids, the literals and the int32 violations over 3.35 TB/s (21-84 MB of
+violations at R = 16, B = 1024, M = 32-128 dominate).
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for CPU
 tensors. For CUDA tensors it launches the kernel, counts the launch in
@@ -66,11 +71,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import check_sel, gather_include
 
-# Shared memory one block may use on Hopper (bytes): it bounds the word
-# width the packed counting kernel's tiles take (W up to ~600).
-MAX_SMEM = 227 * 1024
 # The byte path's tensor-core sums hold 128 x the violations in int32.
 MAX_BYTE_WIDTH = 2 ** 24 - 1
+# The word path's sums reach 32 x W in int32.
+MAX_WORD_WIDTH = 2 ** 26 - 1
 # The grid's replica axis (gridDim.z / gridDim.y) holds at most this many.
 MAX_REPLICAS = 65535
 
@@ -247,36 +251,30 @@ def _words(t: torch.Tensor, name: str) -> torch.Tensor:
     return t.contiguous()
 
 
+def _word_width(W: int) -> None:
+    if W > MAX_WORD_WIDTH:
+        raise ValueError(f"word width {W} exceeds the word kernels' int32 "
+                         f"sums ({MAX_WORD_WIDTH})")
+
+
 def _launch_counts_packed(include, literals, R, D, cj, W, B):
     """One launch of K5/K6 over include words [R, CJ, W], literal words
     [D, B, W]."""
     _same_device(include, literals)
-    lib = _build.library("clause_eval")
-    if lib.clause_counts_batch_smem(32 * W) > MAX_SMEM:
-        raise ValueError(f"word width {W} exceeds the batch kernel's "
-                         "shared-memory tile")
+    _word_width(W)
     inc, lit = _words(include, "include"), _words(literals, "literals")
     viol = torch.empty((R, cj, B), dtype=torch.int32, device=inc.device)
-    _build.check(lib.clause_counts_batch_packed_replicated(
+    _build.check(_build.library("clause_eval")
+                 .clause_counts_batch_packed_replicated(
         inc.data_ptr(), lit.data_ptr(), viol.data_ptr(), R, D, cj, W, B,
         _stream(inc)), "clause_counts_batch_packed")
     return viol
 
 
-def _rowmap(sel: torch.Tensor, J: int, device) -> torch.Tensor:
-    """K7's row map on words [R * C * M] int32 on ``device``: compacted
-    row (r, c, m) reads row r*C*J + c*J + sel[r, c, m] of the flat full
-    bank. Index arithmetic on the card; nothing is read back."""
-    R, C, M = sel.shape
-    base = torch.arange(R * C, dtype=torch.int32, device=device) * J
-    sel = sel.to(device=device, dtype=torch.int32)
-    return (base.view(R, C, 1) + sel).reshape(-1).contiguous()
-
-
 def _sel_ids(sel: torch.Tensor, device) -> torch.Tensor:
-    """K7's ids on bytes as the kernel reads them: int32 or int64 as they
-    come (no launch when they are already on ``device``), other integer
-    types cast to int32 once."""
+    """K7's ids as the kernel reads them: int32 or int64 as they come (no
+    launch when they are already on ``device``), other integer types cast
+    to int32 once."""
     sel = sel.to(device)
     if sel.dtype not in (torch.int32, torch.int64):
         sel = sel.to(torch.int32)
@@ -312,20 +310,18 @@ def _launch_counts_pruned(include, sel, literals, R, D, C, J, L, B):
 
 
 def _launch_counts_pruned_packed(include, sel, literals, R, D, C, J, W, B):
-    """One K7 launch on words: include words [R, C, J, W] through the row
-    map of sel [R, C, M], literal words [D, B, W]."""
+    """One K7 launch on words: include words [R, C, J, W] through sel
+    [R, C, M], literal words [D, B, W]."""
     _same_device(include, literals)
-    lib = _build.library("clause_eval")
-    if lib.clause_counts_batch_smem(32 * W) > MAX_SMEM:
-        raise ValueError(f"word width {W} exceeds the batch kernel's "
-                         "shared-memory tile")
+    _word_width(W)
     inc, lit = _words(include, "include"), _words(literals, "literals")
-    cm = C * sel.shape[-1]
-    rowmap = _rowmap(sel, J, inc.device)
-    viol = torch.empty((R, cm, B), dtype=torch.int32, device=inc.device)
-    _build.check(lib.clause_counts_batch_pruned_packed_replicated(
-        inc.data_ptr(), rowmap.data_ptr(), lit.data_ptr(), viol.data_ptr(),
-        R, D, cm, R * C * J, W, B, _stream(inc)),
+    ids = _sel_ids(sel, inc.device)
+    M = ids.shape[-1]
+    viol = torch.empty((R, C * M, B), dtype=torch.int32, device=inc.device)
+    _build.check(_build.library("clause_eval")
+                 .clause_counts_batch_pruned_packed_replicated(
+        inc.data_ptr(), ids.data_ptr(), lit.data_ptr(), viol.data_ptr(),
+        ids.element_size(), R, D, C, M, J, W, B, _stream(inc)),
         "clause_counts_batch_pruned_packed")
     return viol
 

@@ -1,14 +1,15 @@
 // Clause-plane counts for Hopper (sm_90a): the CUDA twins of the Pallas
 // kernels clause_counts (K1), clause_counts_batch (K2), their
 // replica-first forms clause_counts_replicated (K3) and
-// clause_counts_batch_replicated (K4), and the bit-packed
+// clause_counts_batch_replicated (K4), the bit-packed
 // clause_counts_batch_packed (K5) and clause_counts_batch_replicated_packed
-// (K6) in the reference package's kernels/clause_eval.py.
+// (K6), and the four pruned entries that reuse them (K7), in the reference
+// package's kernels/clause_eval.py.
 //
 //   violations[r, cj, b] = sum_l include[r, cj, l] & ~literal[r % D, b, l]
 //   n_included[r, cj]    = sum_l include[r, cj, l]
 //
-// Inputs are 1-byte bools: include [R, CJ, L], literals [D, B, L] with
+// K1-K4 take 1-byte bools: include [R, CJ, L], literals [D, B, L] with
 // D | R; replica r reads data stream r % D, so a hyperparameter grid over
 // one ordering shares its literal rows. Outputs are int32 violations
 // [R, CJ, B] and n_included [R, CJ]. K1 and K2 are the R = D = 1 launches
@@ -34,58 +35,70 @@
 // byte at a time. The launcher picks the path from the width and the
 // pointers.
 //
-// K2/K4 (a batch per replica) and K7 on bytes: one launch of an int8
-// tensor-core product, as the reference's MXU matmul. The operands are
-// already K-major (include [rows, L] and literals [B, L], L contiguous),
-// the .row.col layout of mma.sync m16n8k32, so neither is transposed:
+// K2/K4 (a batch per replica), K5/K6 (the same on packed words) and K7
+// (the pruned entries) are one tensor-core body, templated on the operand
+// kind: one launch a call, no pack pass, no scratch. The operands are
+// already K-major (include [rows, L | W] and literals [B, L | W], the
+// width contiguous), the .row.col layout of mma.sync, so neither is
+// transposed:
 //
-//   viol[r, q, b] = sum_l nz(inc[row(r, q), l]) * (1 - nz(lit[r % D, b, l]))
+//   bytes: viol[r, q, b] = sum_l nz(inc[row(r, q), l])
+//                                * (1 - nz(lit[r % D, b, l]))
+//   words: viol[r, q, b] = sum_w popcount(inc[row(r, q), w]
+//                                         & ~lit[r % D, b, w])
 //
 // A block owns a square tile of clause rows x batch columns of one
 // replica (blockIdx.z): 64 x 64 with four warps, or 128 x 128 with eight
 // where the 64 x 64 grid would hold 8 or more blocks an SM (the R = 16
-// serves). Each tile re-reads its rows whole from L2, and that traffic,
-// at roughly 30 GB/s an SM on the H100, bounds these launches; larger
-// tiles re-read less but leave SMs idle on small grids. A block walks L
-// in 64-byte chunks through a ring of four shared-memory stages (80-byte
-// rows: ldmatrix's eight row addresses fall in distinct banks), filled by
-// 16-byte cp.async copies where L % 16 == 0 and both operands are 16-byte
-// aligned (the main path: iris L = 32, MNIST L = 1568; zero-filled past L
-// and for rows outside the problem), otherwise by byte loads, zero-filled
-// the same way; the launcher picks the path from the width and the
-// pointers. Each warp ldmatrix-loads the fragments of its 32 x 32 or
-// 64 x 32 sub-tile and normalises them in registers with the SWAR byte
-// tests below: include bytes become 0x80 where nonzero, literal bytes
-// 0x01 where zero, so one u8 x u8 product with s32 accumulation counts
-// 128 x the violations (exact for L < 2**24: the wrappers refuse wider).
-// The blocks of the first batch tile also count n_included from the
-// staged include tile (popcounts of the nonzero bytes). One launch, no
-// scratch. Bound at the serve shape (640 x 1568 x 1024): 2.6 MB of
-// operands and 2.6 MB of counts, 1.6 us at 3.35 TB/s; the 2.06 G int8
-// operations take 1.0 us of tensor-core time.
+// serves). A block walks the row in 64-byte chunks (64 literals, or 16
+// words: 512 literals) through a ring of four shared-memory stages
+// (80-byte rows: ldmatrix's eight row addresses fall in distinct banks),
+// zero-filled past the row and for rows outside the problem. Each warp
+// ldmatrix-loads the fragments of its 32 x 32 or 64 x 32 sub-tile, 32
+// bytes a step. An m16n8k256 .b1 fragment has the byte layout of an
+// m16n8k32 .u8 one (a 32-bit register holds 4 bytes or 32 bits), so the
+// two kinds share the addressing and differ only in registers:
+//   - bytes: include bytes become 0x80 where nonzero, literal bytes 0x01
+//     where zero (the SWAR byte tests below; any nonzero byte counts as
+//     1), and one m16n8k32 u8 x u8 product with s32 accumulation counts
+//     128 x the violations (exact for L < 2**24: the wrappers refuse
+//     wider). The blocks of the first batch tile also count n_included
+//     from the staged include tile (popcounts of the nonzero bytes).
+//   - words: the include words as they are against the complemented
+//     literal words, one m16n8k256 .b1 AND-popcount product: the sums
+//     are the violations. A zero include word (past W, or a row outside
+//     the problem) ANDs to 0 whatever the complemented pad holds, so any
+//     bits within W count, tail bits included. No n_included (the
+//     contract takes emptiness from the include words outside the
+//     kernel).
+// The ring is filled by cp.async copies, the widest the row length and
+// both pointers allow: 16 bytes (bytes: L % 16 == 0, the main path's
+// iris L = 32 and MNIST L = 1568; words: W % 4 == 0), on words 8 bytes
+// (W % 2 == 0: every packed layout, W = 2 ceil(f / 32); at f = 784 the
+// 200-byte rows start off 16-byte boundaries every other row), then 4;
+// bytes off the 16-byte path take byte loads. The launcher picks from the
+// width and the pointers. Even batches store column pairs as int2.
 //
-// K5/K6 (packed words): the caller's operands are already the packed
-// planes, 32 literals a uint32 word in the two-half layout with include
-// tail bits zero, so a counting kernel reads them as they are: no pack
-// pass, and no n_included (the contract takes emptiness from the include
-// words outside the kernel). The counting loop is __popc-bound here: at
-// the serving shapes (640 rows x 1024 columns x 50 words) it issues 33 M
-// popcounts against under 3 MB of operands and output.
+// What bounds it on the H100: on bytes, each tile re-reads its rows whole
+// from L2 (200 KB a 64 x 64 tile at L = 1568), at roughly 30 GB/s an SM,
+// above the HBM bound (2.6 MB of operands and 2.6 MB of counts at the
+// serve shape 640 x 1568 x 1024: 1.6 us at 3.35 TB/s). On words the
+// rows are 8x shorter and the int32 counts dominate the bytes (2.6 MB at
+// 640 x 1024, 0.8 us): the b1 product runs about 21,700 bit operations a
+// clock an SM, 44x a warp's __popc (chip_smoke.py's b1_probe phase on an
+// H100 80GB HBM3), so the 1.05 G bit operations of that shape take 0.2
+// us. Larger tiles re-read less but leave SMs idle on small grids.
 //
 // K7 (the pruned entries clause_eval_batch_pruned{,_replicated,_packed,
 // _replicated_packed}): the reference gathers the include bank down to the
 // M elected clauses of each class (an XLA gather to [R, C, M, L|W]) and
 // then launches K2/K4/K5/K6 on the compacted bank. Here the gather folds
-// into the row loads. On bytes the tensor-core kernel reads sel [R, C, M]
-// (int32 or int64, by template) itself: compacted row q = c*M + m of
-// replica r stages bank row (r*C + c)*J + sel[r, c, m], one launch a
-// call. On packed words a row map rowmap[(r, c, m)] = r*C*J + c*J +
-// sel[r, c, m], built by the wrapper, names the row the counting kernel's
-// include-tile staging loop reads. A row id outside the bank stages an
+// into the row loads: the body reads sel [R, C, M] (int32 or int64, by
+// template) itself, and compacted row q = c*M + m of replica r stages
+// bank row (r*C + c)*J + sel[r, c, m]. A row id outside [0, J) stages an
 // all-zero (empty) row, so no load leaves the bank; the wrappers reject
-// such ids on the host before any launch. Bound on bytes: the elected
-// rows, the literals and the int32 counts over 3.35 TB/s; on words the
-// __popc rate, as K5/K6, on C*M instead of C*J rows.
+// such ids on the host before any launch. Bound: the elected rows, the
+// ids, the literals and the int32 counts over 3.35 TB/s.
 //
 // Each C entry returns cudaGetLastError() so the caller sees a refused
 // launch at once.
@@ -96,8 +109,6 @@ namespace {
 
 constexpr int kWarps = 8;        // warps per block
 constexpr int kCountWarps = 4;   // K1/K3 vector path: warps per block
-constexpr int kRows = 64;        // K5/K6: clause rows per block
-constexpr int kTB = 32;          // K5/K6: batch columns a block, one a lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void clause_counts_kernel(const uint8_t* __restrict__ inc,
@@ -191,71 +202,9 @@ __global__ void __launch_bounds__(kCountWarps * 32)
   }
 }
 
-// Counts from packed words: a block of replica r = blockIdx.z stages its
-// kRows include rows and kTB literal rows of stream r % D (contiguous in
-// the packed arrays) in shared memory, then lane t of each warp counts
-// column t for the warp's rows. A null ninc skips n_included (K5/K6/K7).
-// Include row q of the block stages word row rowmap[row0 + q] of the
-// n_src-row bank when kMapped (K7 on words; a row id outside the bank
-// stages zeros), else row row0 + q. kMapped is a template argument so that
-// the unmapped staging compiles without the map's load and bounds test.
-template <bool kMapped>
-__global__ void clause_counts_batch_kernel(const uint32_t* __restrict__ incw,
-                                           const uint32_t* __restrict__ litw,
-                                           int32_t* __restrict__ viol,
-                                           int32_t* __restrict__ ninc,
-                                           int cj, int B, int D, int nw,
-                                           int stride,
-                                           const int32_t* __restrict__ rowmap,
-                                           int64_t n_src) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* lit_s = smem;                   // [kTB][stride]
-  uint32_t* inc_s = smem + kTB * stride;    // [kRows][stride]
-  const int r = blockIdx.z;
-  const int r0 = blockIdx.x * kRows;
-  const int b0 = blockIdx.y * kTB;
-  const int nr = min(kRows, cj - r0);
-  const int nb = min(kTB, B - b0);
-  const int64_t row0 = static_cast<int64_t>(r) * cj + r0;  // replica's rows
-  const int64_t col0 = static_cast<int64_t>(r % D) * B + b0;
-  for (int i = threadIdx.x; i < nb * nw; i += blockDim.x) {
-    const int t = i / nw;
-    lit_s[t * stride + (i - t * nw)] = litw[col0 * nw + i];
-  }
-  for (int i = threadIdx.x; i < nr * nw; i += blockDim.x) {
-    const int q = i / nw;
-    const int w = i - q * nw;
-    const int64_t sr = kMapped ? rowmap[row0 + q] : row0 + q;
-    // unmapped rows are contiguous, so word i of the tile is word
-    // row0 * nw + i: cheaper than sr * nw + w (K5/K6 run ~4% faster)
-    const int64_t at = kMapped ? sr * nw + w : row0 * nw + i;
-    inc_s[q * stride + w] =
-        kMapped && (sr < 0 || sr >= n_src) ? 0u : incw[at];
-  }
-  __syncthreads();
+// ---- K2/K4, K5/K6 and K7: the tensor-core batch body ----
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const uint32_t* lw = lit_s + lane * stride;
-  for (int q = warp; q < nr; q += kWarps) {
-    const uint32_t* iw = inc_s + q * stride;
-    if (lane < nb) {
-      unsigned v = 0;
-      for (int w = 0; w < nw; ++w) v += __popc(iw[w] & ~lw[w]);
-      viol[(row0 + q) * B + b0 + lane] = static_cast<int32_t>(v);
-    }
-    if (ninc != nullptr && blockIdx.y == 0) {
-      unsigned n = 0;
-      for (int w = lane; w < nw; w += 32) n += __popc(iw[w]);
-      n = __reduce_add_sync(kFull, n);
-      if (lane == 0) ninc[row0 + q] = static_cast<int32_t>(n);
-    }
-  }
-}
-
-// ---- K2/K4 and K7 on bytes: the int8 tensor-core body ----
-
-constexpr int kChunk = 64;             // literal bytes a stage
+constexpr int kChunk = 64;             // operand bytes a stage
 constexpr int kPitch = kChunk + 16;    // bytes a staged row (bank spread)
 constexpr int kStages = 4;             // ring depth
 
@@ -268,13 +217,20 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, bypassing L1; the bytes past ``bytes`` (all
-// of them when it is 0) are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
+// N (4, 8 or 16) bytes global -> shared; the bytes past ``bytes`` (all of
+// them when it is 0) are zero-filled. 16-byte copies bypass L1.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(N), "r"(bytes));
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -305,28 +261,42 @@ __device__ __forceinline__ void mma_u8(int32_t (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Violations (and, with ninc, n_included) of the cm rows of replica r =
-// blockIdx.z against the B literal rows of stream r % D; one block per
-// tile of kTile clause rows x kTile batch columns, 2 x kWarpsN warps
-// (tile 64: 2 x 2 warps of 32 x 32; tile 128: 2 x 4 warps of 64 x 32).
-// Row q of replica r reads bank row r*cm + q, or with sel (kSelBytes 4
-// or 8: int32 or int64 ids [R, cm / M, M]) bank row (r*C + c)*J +
-// sel[r*cm + q], q = c*M + m, C = cm / M; an id outside [0, J) stages
-// zeros. kVec: 16-byte cp.async staging (L % 16 == 0, both operands
-// 16-byte aligned); else byte loads. Shared memory: kStages x 2 x kTile x
-// kPitch bytes.
-template <int kTile, int kWarpsN, bool kVec, int kSelBytes>
+// c += popcount(a (16 x 256 bits, row) AND b (256 x 8 bits, col)).
+__device__ __forceinline__ void mma_b1(int32_t (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Violations (and, on bytes with ninc, n_included) of the cm rows of
+// replica r = blockIdx.z against the B literal rows of stream r % D; one
+// block per tile of kTile clause rows x kTile batch columns, 2 x kWarpsN
+// warps (tile 64: 2 x 2 warps of 32 x 32; tile 128: 2 x 4 warps of
+// 64 x 32). A row is row_bytes bytes: L bytes, or W words (4 W bytes)
+// when kWords. Row q of replica r reads bank row r*cm + q, or with sel
+// (kSelBytes 4 or 8: int32 or int64 ids [R, cm / M, M]) bank row
+// (r*C + c)*J + sel[r*cm + q], q = c*M + m, C = cm / M; an id outside
+// [0, J) stages zeros. kCopy: the cp.async size (16, or on words 8 or 4;
+// row_bytes a multiple of it and both operands aligned to it), or 0 for
+// byte loads (bytes only). Shared memory: kStages x 2 x kTile x kPitch
+// bytes.
+template <int kTile, int kWarpsN, bool kWords, int kCopy, int kSelBytes>
 __global__ void __launch_bounds__(2 * kWarpsN * 32)
     counts_batch_mma_kernel(const uint8_t* __restrict__ inc,
                             const void* __restrict__ sel,
                             const uint8_t* __restrict__ lit,
                             int32_t* __restrict__ viol,
                             int32_t* __restrict__ ninc, int cm, int M, int J,
-                            int L, int B, int D) {
+                            int row_bytes, int B, int D) {
   constexpr int kThreads = 2 * kWarpsN * 32;
   constexpr int kMI = kTile / 2 / 16;        // m16 tiles a warp
   constexpr int kNI = kTile / kWarpsN / 8;   // n8 tiles a warp
   static_assert(2 * kTile == kThreads, "one row per 4 threads per stage");
+  static_assert(kWords ? (kCopy == 4 || kCopy == 8 || kCopy == 16)
+                       : (kCopy == 0 || kCopy == 16), "copy size");
   // [stage][A | B][row]: static at tile 64 (40 KB; the same body on
   // dynamic shared memory compiled to fewer registers and ran slower on
   // the H100), dynamic at tile 128 (80 KB)
@@ -365,12 +335,12 @@ __global__ void __launch_bounds__(2 * kWarpsN * 32)
                   ? (static_cast<int64_t>(r) * (cm / M) + c) * J + id
                   : -1;
       }
-      if (row >= 0) src[j] = inc + row * L + seg;
+      if (row >= 0) src[j] = inc + row * row_bytes + seg;
     }
     const int b = b0 + srow + kTile / 2 * j;
-    src[2 + j] = b < B
-                     ? lit + (static_cast<int64_t>(r % D) * B + b) * L + seg
-                     : nullptr;
+    src[2 + j] =
+        b < B ? lit + (static_cast<int64_t>(r % D) * B + b) * row_bytes + seg
+              : nullptr;
   }
   auto stage = [&](int s, int k0) {
 #pragma unroll
@@ -378,15 +348,19 @@ __global__ void __launch_bounds__(2 * kWarpsN * 32)
       uint8_t* dst = tile + ((2 * s + (j >> 1)) * kTile + srow +
                              kTile / 2 * (j & 1)) * kPitch + seg;
       const uint8_t* p = src[j];
-      if (kVec) {
-        const bool live = p != nullptr && k0 + seg < L;
-        cp_async16(dst, live ? p + k0 : inc, live ? 16 : 0);
+      if constexpr (kCopy != 0) {
+#pragma unroll
+        for (int i = 0; i < 16; i += kCopy) {
+          const bool live = p != nullptr && k0 + seg + i < row_bytes;
+          cp_async<kCopy>(dst + i, live ? p + k0 + i : inc,
+                          live ? kCopy : 0);
+        }
       } else {
         uint32_t w[4] = {0u, 0u, 0u, 0u};
         if (p != nullptr) {
 #pragma unroll
           for (int i = 0; i < 16; ++i)
-            if (k0 + seg + i < L)
+            if (k0 + seg + i < row_bytes)
               w[i >> 2] |= static_cast<uint32_t>(p[k0 + i]) << (8 * (i & 3));
         }
         *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -394,7 +368,7 @@ __global__ void __launch_bounds__(2 * kWarpsN * 32)
     }
   };
 
-  const int nk = (L + kChunk - 1) / kChunk;
+  const int nk = (row_bytes + kChunk - 1) / kChunk;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk) stage(s, s * kChunk);
@@ -405,7 +379,7 @@ __global__ void __launch_bounds__(2 * kWarpsN * 32)
   const int warp = tid >> 5;
   const int wm = (warp & 1) * (kTile / 2);          // the warp's rows
   const int wn = (warp >> 1) * (kTile / kWarpsN);   // and its columns
-  const bool count_inc = ninc != nullptr && blockIdx.y == 0;
+  const bool count_inc = !kWords && ninc != nullptr && blockIdx.y == 0;
   int32_t acc[kMI][kNI][4] = {};
   unsigned n_inc = 0;  // nonzero include bytes of row tid / 2, half tid % 2
   for (int k = 0; k < nk; ++k) {
@@ -428,13 +402,21 @@ __global__ void __launch_bounds__(2 * kWarpsN * 32)
     }
 #pragma unroll
     for (int kk = 0; kk < kChunk; kk += 32) {
+      // 32 bytes a step: k = 32 bytes (u8) or k = 256 bits (b1), one
+      // fragment layout. A step wholly past the row is all zeros: words
+      // skip it (the last step of every W = 50 row); on bytes the test
+      // made four of the five main-path launches 1-11% slower (H100,
+      // L = 1568)
+      if (kWords && k * kChunk + kk >= row_bytes) break;
       uint32_t a[kMI][4], b[kNI][2];
 #pragma unroll
       for (int mi = 0; mi < kMI; ++mi) {
         ldmatrix_x4(a[mi], a_s + (wm + mi * 16 + (lane & 15)) * kPitch + kk +
                                (lane >> 4) * 16);
+        if constexpr (!kWords) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[mi][i] = nonzero_bytes(a[mi][i]);
+          for (int i = 0; i < 4; ++i) a[mi][i] = nonzero_bytes(a[mi][i]);
+        }
       }
 #pragma unroll
       for (int nj = 0; nj < kNI / 2; ++nj) {
@@ -443,20 +425,30 @@ __global__ void __launch_bounds__(2 * kWarpsN * 32)
                                  kPitch +
                            kk + (lane >> 3 & 1) * 16);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) b[2 * nj + (i >> 1)][i & 1] =
-            zero_bytes(t[i]) >> 7;
+        for (int i = 0; i < 4; ++i)
+          b[2 * nj + (i >> 1)][i & 1] =
+              kWords ? ~t[i] : zero_bytes(t[i]) >> 7;
       }
 #pragma unroll
       for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < kNI; ++ni) mma_u8(acc[mi][ni], a[mi], b[ni]);
+        for (int ni = 0; ni < kNI; ++ni) {
+          if constexpr (kWords) {
+            mma_b1(acc[mi][ni], a[mi], b[ni]);
+          } else {
+            mma_u8(acc[mi][ni], a[mi], b[ni]);
+          }
+        }
     }
   }
   cp_async_wait<0>();
 
-  // acc holds 128 x the violations; fragment element (h, e) of tile
-  // (mi, ni) is row g + 8h, column 2 * (lane % 4) + e.
+  // acc holds the violations (words) or 128 x them (bytes); fragment
+  // element (h, e) of tile (mi, ni) is row g + 8h, column 2 * (lane % 4)
+  // + e. An even B keeps every column pair 8-byte aligned: one int2 store.
+  constexpr int kShift = kWords ? 0 : 7;
   const int g = lane >> 2;
+  const bool pairs = (B & 1) == 0;
 #pragma unroll
   for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
@@ -467,8 +459,14 @@ __global__ void __launch_bounds__(2 * kWarpsN * 32)
 #pragma unroll
       for (int ni = 0; ni < kNI; ++ni) {
         const int b = b0 + wn + ni * 8 + 2 * (lane & 3);
-        if (b < B) out[b] = acc[mi][ni][2 * h] >> 7;
-        if (b + 1 < B) out[b + 1] = acc[mi][ni][2 * h + 1] >> 7;
+        const int32_t v0 = acc[mi][ni][2 * h] >> kShift;
+        const int32_t v1 = acc[mi][ni][2 * h + 1] >> kShift;
+        if (pairs && b < B) {
+          *reinterpret_cast<int2*>(out + b) = make_int2(v0, v1);
+        } else {
+          if (b < B) out[b] = v0;
+          if (b + 1 < B) out[b + 1] = v1;
+        }
       }
     }
   if (count_inc) {
@@ -506,46 +504,53 @@ extern "C" int clause_counts_replicated(const void* inc, const void* lit,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory the batch kernel needs for literal width L, in bytes.
-extern "C" int clause_counts_batch_smem(int L) {
-  const int nw = (L + 31) / 32;
-  const int stride = nw | 1;  // odd word stride: lanes hit distinct banks
-  return (kTB + kRows) * stride * 4;
-}
-
 namespace {
 
-// Lift the batch kernel's dynamic shared-memory cap when a tile needs it.
-int allow_smem(int smem) {
-  if (smem <= 48 * 1024) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      clause_counts_batch_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(clause_counts_batch_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  return static_cast<int>(e);
+using Kernel = void (*)(const uint8_t*, const void*, const uint8_t*,
+                        int32_t*, int32_t*, int, int, int, int, int, int);
+
+template <int kTile, int kWarpsN, bool kWords, int kCopy>
+Kernel pick_sel(int sel_bytes) {
+  switch (sel_bytes) {
+    case 0:
+      return counts_batch_mma_kernel<kTile, kWarpsN, kWords, kCopy, 0>;
+    case 4:
+      return counts_batch_mma_kernel<kTile, kWarpsN, kWords, kCopy, 4>;
+    case 8:
+      return counts_batch_mma_kernel<kTile, kWarpsN, kWords, kCopy, 8>;
+  }
+  return nullptr;
+}
+
+// The body for a copy size (bytes: 16 or 0, byte loads; words: 16, 8 or
+// 4) and a sel type (sel_bytes 0, 4 or 8); null for any other.
+template <int kTile, int kWarpsN, bool kWords>
+Kernel pick(int copy, int sel_bytes) {
+  switch (copy) {
+    case 16:
+      return pick_sel<kTile, kWarpsN, kWords, 16>(sel_bytes);
+    case 8:
+      if constexpr (kWords) return pick_sel<kTile, kWarpsN, true, 8>(sel_bytes);
+      break;
+    case 4:
+      if constexpr (kWords) return pick_sel<kTile, kWarpsN, true, 4>(sel_bytes);
+      break;
+    case 0:
+      if constexpr (!kWords)
+        return pick_sel<kTile, kWarpsN, false, 0>(sel_bytes);
+      break;
+  }
+  return nullptr;
 }
 
 // One launch of the tensor-core body at tile kTile (kWarpsN warp columns)
-// over R x cm rows, picking the staging path and the sel type.
-template <int kTile, int kWarpsN>
-int launch_mma(bool vec, const void* inc, const void* sel, int sel_bytes,
+// over R x cm rows.
+template <int kTile, int kWarpsN, bool kWords>
+int launch_mma(int copy, const void* inc, const void* sel, int sel_bytes,
                const void* lit, void* viol, void* ninc, int R, int D, int cm,
-               int M, int J, int L, int B, cudaStream_t st) {
-  using Kernel = void (*)(const uint8_t*, const void*, const uint8_t*,
-                          int32_t*, int32_t*, int, int, int, int, int, int);
-  const Kernel kernels[2][3] = {
-      {counts_batch_mma_kernel<kTile, kWarpsN, false, 0>,
-       counts_batch_mma_kernel<kTile, kWarpsN, false, 4>,
-       counts_batch_mma_kernel<kTile, kWarpsN, false, 8>},
-      {counts_batch_mma_kernel<kTile, kWarpsN, true, 0>,
-       counts_batch_mma_kernel<kTile, kWarpsN, true, 4>,
-       counts_batch_mma_kernel<kTile, kWarpsN, true, 8>}};
-  if (sel_bytes != 0 && sel_bytes != 4 && sel_bytes != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Kernel kernel = kernels[vec][sel_bytes / 4];
+               int M, int J, int row_bytes, int B, cudaStream_t st) {
+  const Kernel kernel = pick<kTile, kWarpsN, kWords>(copy, sel_bytes);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = kTile == 64 ? 0 : kStages * 2 * kTile * kPitch;
   if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -555,24 +560,40 @@ int launch_mma(bool vec, const void* inc, const void* sel, int sel_bytes,
   const dim3 grid((cm + kTile - 1) / kTile, (B + kTile - 1) / kTile, R);
   kernel<<<grid, 2 * kWarpsN * 32, smem, st>>>(
       static_cast<const uint8_t*>(inc), sel, static_cast<const uint8_t*>(lit),
-      static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc), cm, M, J, L,
-      B, D);
+      static_cast<int32_t*>(viol), static_cast<int32_t*>(ninc), cm, M, J,
+      row_bytes, B, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2/K4 and K7 on bytes: one launch of the tensor-core body over R x cm
-// rows (through sel when it is set: sel_bytes 4 or 8) with n_included.
-// 64 x 64 tiles, or 128 x 128 tiles where the 64 x 64 grid would give
-// every SM kBigGrid blocks or more: larger tiles re-read fewer operand
-// bytes from L2, which bounds these launches, but leave small grids with
-// idle SMs.
-int counts_batch_bytes(const void* inc, const void* sel, int sel_bytes,
-                       const void* lit, void* viol, void* ninc, int R, int D,
-                       int cm, int M, int J, int L, int B, void* stream) {
+// The widest copy the rows and both operands allow: 16 bytes where the
+// row length and both pointers are multiples of 16; on words 8, then 4
+// (every int32 operand); on bytes otherwise 0, byte loads.
+int copy_size(bool words, int row_bytes, const void* inc, const void* lit) {
+  const uintptr_t at =
+      reinterpret_cast<uintptr_t>(inc) | reinterpret_cast<uintptr_t>(lit);
+  for (const int n : {16, 8, 4}) {
+    if (!words && n < 16) break;
+    if (row_bytes % n == 0 && at % n == 0) return n;
+  }
+  return words ? -1 : 0;
+}
+
+// One launch of the tensor-core body over R x cm rows of row_bytes bytes
+// (through sel when it is set: sel_bytes 4 or 8), with n_included on
+// bytes when ninc is set. 64 x 64 tiles, or 128 x 128 tiles where the
+// 64 x 64 grid would give every SM kBigGrid blocks or more: larger tiles
+// re-read fewer operand bytes from L2, which bounds the byte launches, but
+// leave small grids with idle SMs. On words the same threshold picks the
+// faster tile at every main-path shape (H100: 128 x 128 tiles take 29%
+// less time on the R = 16, M = 128 pruned serve, 5,120 64 x 64 blocks,
+// and as long or up to 47% longer on the 80-480-block K5, K6 and K = 1
+// pruned grids).
+template <bool kWords>
+int counts_batch(const void* inc, const void* sel, int sel_bytes,
+                 const void* lit, void* viol, void* ninc, int R, int D,
+                 int cm, int M, int J, int row_bytes, int B, void* stream) {
   constexpr int64_t kBigGrid = 8;
-  const bool vec = L % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(inc) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(lit) % 16 == 0;
+  const int copy = copy_size(kWords, row_bytes, inc, lit);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -582,29 +603,12 @@ int counts_batch_bytes(const void* inc, const void* sel, int sel_bytes,
       static_cast<int64_t>((cm + 63) / 64) * ((B + 63) / 64) * R;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return blocks64 >= kBigGrid * sms
-             ? launch_mma<128, 4>(vec, inc, sel, sel_bytes, lit, viol, ninc,
-                                  R, D, cm, M, J, L, B, st)
-             : launch_mma<64, 2>(vec, inc, sel, sel_bytes, lit, viol, ninc, R,
-                                 D, cm, M, J, L, B, st);
-}
-
-// K5/K6 and K7 on words: count straight from the caller's words, include
-// rows through rowmap when it is set.
-int counts_batch_words(const void* incw, const int32_t* rowmap,
-                       int64_t n_src, const void* litw, void* viol, int R,
-                       int D, int cj, int W, int B, void* stream) {
-  const int stride = W | 1;
-  const int smem = clause_counts_batch_smem(32 * W);
-  const int e = allow_smem(smem);
-  if (e != 0) return e;
-  const dim3 grid((cj + kRows - 1) / kRows, (B + kTB - 1) / kTB, R);
-  const auto kernel = rowmap != nullptr ? clause_counts_batch_kernel<true>
-                                        : clause_counts_batch_kernel<false>;
-  kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(incw), static_cast<const uint32_t*>(litw),
-      static_cast<int32_t*>(viol), nullptr, cj, B, D, W, stride, rowmap,
-      n_src);
-  return static_cast<int>(cudaGetLastError());
+             ? launch_mma<128, 4, kWords>(copy, inc, sel, sel_bytes, lit,
+                                          viol, ninc, R, D, cm, M, J,
+                                          row_bytes, B, st)
+             : launch_mma<64, 2, kWords>(copy, inc, sel, sel_bytes, lit,
+                                         viol, ninc, R, D, cm, M, J,
+                                         row_bytes, B, st);
 }
 
 }  // namespace
@@ -616,18 +620,18 @@ extern "C" int clause_counts_batch_replicated(const void* inc,
                                               void* ninc, int R, int D,
                                               int cj, int L, int B,
                                               void* stream) {
-  return counts_batch_bytes(inc, nullptr, 0, lit, viol, ninc, R, D, cj, cj,
-                            0, L, B, stream);
+  return counts_batch<false>(inc, nullptr, 0, lit, viol, ninc, R, D, cj, cj,
+                             0, L, B, stream);
 }
 
 // K5 (R = D = 1) and K6: packed include words [R, CJ, W] and literal words
-// [D, B, W] (uint32, the same word width W) -> violations [R, CJ, B].
-// Shared memory: clause_counts_batch_smem(32 * W).
+// [D, B, W] (uint32, the same word width W) -> violations [R, CJ, B]. One
+// launch, no scratch.
 extern "C" int clause_counts_batch_packed_replicated(
     const void* incw, const void* litw, void* viol, int R, int D, int cj,
     int W, int B, void* stream) {
-  return counts_batch_words(incw, nullptr, 0, litw, viol, R, D, cj, W, B,
-                            stream);
+  return counts_batch<true>(incw, nullptr, 0, litw, viol, nullptr, R, D, cj,
+                            cj, 0, 4 * W, B, stream);
 }
 
 // K7 on bytes (clause_eval_batch_pruned, R = D = 1, and
@@ -639,16 +643,19 @@ extern "C" int clause_counts_batch_pruned_replicated(
     const void* inc, const void* sel, const void* lit, void* viol,
     void* ninc, int sel_bytes, int R, int D, int C, int M, int J, int L,
     int B, void* stream) {
-  return counts_batch_bytes(inc, sel, sel_bytes, lit, viol, ninc, R, D,
-                            C * M, M, J, L, B, stream);
+  return counts_batch<false>(inc, sel, sel_bytes, lit, viol, ninc, R, D,
+                             C * M, M, J, L, B, stream);
 }
 
 // K7 on words (clause_eval_batch_pruned_packed, R = D = 1, and
-// clause_eval_batch_pruned_replicated_packed): include words [n_src, W],
-// rowmap [R * cm], literal words [D, B, W] -> violations [R, cm, B].
+// clause_eval_batch_pruned_replicated_packed): include words
+// [R, C, J, W], sel [R, C, M] (int32 when sel_bytes is 4, int64 when 8),
+// literal words [D, B, W] -> violations [R, C*M, B]. One launch, no
+// scratch.
 extern "C" int clause_counts_batch_pruned_packed_replicated(
-    const void* incw, const void* rowmap, const void* litw, void* viol, int R,
-    int D, int cm, int n_src, int W, int B, void* stream) {
-  return counts_batch_words(incw, static_cast<const int32_t*>(rowmap), n_src,
-                            litw, viol, R, D, cm, W, B, stream);
+    const void* incw, const void* sel, const void* litw, void* viol,
+    int sel_bytes, int R, int D, int C, int M, int J, int W, int B,
+    void* stream) {
+  return counts_batch<true>(incw, sel, sel_bytes, litw, viol, nullptr, R, D,
+                            C * M, M, J, 4 * W, B, stream);
 }

@@ -573,3 +573,176 @@ def test_byte_count_body_large_tiles_equal_plain(cuda, L):
                 kind, what)
             assert all(torch.equal(g, w) for g, w in zip(got7, want7)), (
                 kind, what, sel.dtype)
+
+
+# The word body (K5, K6 and K7 on words: one b1 tensor-core launch):
+# widths on its 4-, 8- and 16-byte copies, the 8-word b1 step, the
+# 16-word chunk and beyond the old shared-memory cap (700), batches
+# across the 8-column MMA tile and the 64-column block tile, aligned
+# operands and operands 4 and 8 bytes off alignment, and three kinds of
+# words: random; all-ones include words against literal rows of zeros,
+# ones and random words (sums up to 32 W); include words with tail bits
+# set against literals with them clear.
+WORD_W = (1, 2, 3, 7, 8, 9, 50, 98, 700)
+WORD_KINDS = ("random", "ones", "tail")
+# (name, storage offset of the bank, of the literals), in int32 words
+WORD_PLACEMENTS = (("aligned", 0, 0), ("4 bytes off", 1, 1),
+                   ("8 bytes off", 2, 2), ("literals 8 bytes off", 0, 2))
+
+
+def _words(rng, shape, kind, cuda, bank=False):
+    """uint32 words [*shape] of ``kind`` as int32 on the card; a ``bank``
+    (include words) gets an all-zero first and an all-ones last row."""
+    w = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    if bank:
+        if kind == "ones":
+            w[...] = 0xFFFFFFFF
+        elif kind == "tail":
+            w[..., -1] |= np.uint32(0xFFFF0000)
+        w[..., 0, :] = 0
+        w[..., -1, :] = 0xFFFFFFFF
+    elif kind == "ones":
+        w[..., 0::3, :] = 0
+        w[..., 1::3, :] = 0xFFFFFFFF
+    elif kind == "tail":
+        w[..., -1] &= np.uint32(0x0000FFFF)
+    return torch.from_numpy(w.view(np.int32)).to(cuda)
+
+
+def _word_cases(rng, bank_shape, lit_lead, W, cuda, batches=BYTE_B):
+    """(bank, literals, what) over WORD_KINDS x ``batches`` at width W."""
+    for kind in WORD_KINDS:
+        inc = _words(rng, bank_shape + (W,), kind, cuda, bank=True)
+        for B in batches:
+            yield inc, _words(rng, lit_lead + (B, W), kind, cuda), \
+                f"{kind} B={B}"
+
+
+def _by_replica(plain, inc, lits, sel=None):
+    """A replica-first plain version replica by replica (its temporaries
+    grow with R x rows x B x W)."""
+    D = lits.shape[0]
+    return torch.cat([
+        plain(inc[r:r + 1], lits[r % D:r % D + 1]) if sel is None
+        else plain(inc[r:r + 1], sel[r:r + 1], lits[r % D:r % D + 1])
+        for r in range(inc.shape[0])])
+
+
+def _word_sels(rng, R, C, J, Ms, cuda):
+    """int32 and int64 selections [R, C, M]: permutation prefixes at each
+    M and ids with repeats at the middle one, each holding ids 0 and
+    J - 1."""
+    out = [np.stack([np.stack([rng.permutation(J)[:M] for _ in range(C)])
+                     for _ in range(R)]) for M in Ms]
+    rep = rng.integers(0, J, (R, C, Ms[len(Ms) // 2]))
+    rep[..., -1] = rep[..., 0]
+    out.append(rep)
+    for a in out:
+        a[:, 0, 0] = 0
+        a[:, -1, -1] = J - 1
+    return [torch.from_numpy(a.astype(dt)).to(cuda) for a in out
+            for dt in (np.int32, np.int64)]
+
+
+@pytest.mark.parametrize("W", WORD_W)
+def test_word_batch_count_body_equals_plain(cuda, W):
+    """K6 (R = 4 banks of 70 rows on D = 2 streams) and K5 on the b1
+    tensor-core body: one launch a call, equal to the plain versions, on
+    int32 and uint32 word tensors."""
+    from repro_torch.kernels import clause_eval as ce
+
+    rng = np.random.default_rng([17, W])
+    for inc, lits, what in _word_cases(rng, (4, 70), (2,), W, cuda):
+        want6 = _by_replica(ce.clause_counts_batch_replicated_packed_plain,
+                            inc, lits)
+        want5 = ce.clause_counts_batch_packed_plain(inc[0], lits[0])
+        for where, oi, ol in WORD_PLACEMENTS:
+            p_inc, p_lits = _at(inc, oi), _at(lits, ol)
+            before = (ce.clause_counts_batch_replicated_packed.launches,
+                      ce.clause_counts_batch_packed.launches)
+            got6 = ce.clause_counts_batch_replicated_packed(p_inc, p_lits)
+            got5 = ce.clause_counts_batch_packed(p_inc[0], p_lits[0])
+            assert (ce.clause_counts_batch_replicated_packed.launches,
+                    ce.clause_counts_batch_packed.launches) == (
+                before[0] + 1, before[1] + 1)
+            assert torch.equal(got6, want6), (what, where)
+            assert torch.equal(got5, want5), (what, where)
+        got_u = ce.clause_counts_batch_packed(inc[0].view(torch.uint32),
+                                              lits[0].view(torch.uint32))
+        assert torch.equal(got_u, want5), what
+
+
+@pytest.mark.parametrize("W", WORD_W)
+def test_pruned_word_count_body_equals_plain(cuda, W):
+    """K7 on words, replica-first (R = 4 banks of 3 x 40 clauses on D = 2
+    streams) and K = 1, on the b1 body: int32 and int64 selections taken
+    in turn, holding ids 0 and J - 1; one launch a call, equal to the
+    plain versions and to gather + K6 (K = 1: gather + K5)."""
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.kernels import ref
+
+    R, C, J = 4, 3, 40
+    rng = np.random.default_rng([18, W])
+    sels = _word_sels(rng, R, C, J, (1, J // 2, J), cuda)
+    turn = 0
+    for inc, lits, what in _word_cases(rng, (R, C, J), (2,), W, cuda):
+        for where, oi, ol in WORD_PLACEMENTS:
+            sel = sels[turn % len(sels)]
+            turn += 1
+            p_inc, p_lits = _at(inc, oi), _at(lits, ol)
+            before = (ce.clause_counts_batch_pruned_replicated_packed.launches,
+                      ce.clause_counts_batch_pruned_packed.launches)
+            got = ce.clause_counts_batch_pruned_replicated_packed(p_inc, sel,
+                                                                  p_lits)
+            one = ce.clause_counts_batch_pruned_packed(p_inc[0], sel[0],
+                                                       p_lits[0])
+            assert (ce.clause_counts_batch_pruned_replicated_packed.launches,
+                    ce.clause_counts_batch_pruned_packed.launches) == (
+                before[0] + 1, before[1] + 1)
+            want = _by_replica(
+                ce.clause_counts_batch_pruned_replicated_packed_plain, inc,
+                lits, sel)
+            gath = ce.clause_counts_batch_replicated_packed(
+                ref.gather_include(inc, sel).reshape(R, -1, W), lits)
+            gath1 = ce.clause_counts_batch_packed(
+                ref.gather_include(inc[0], sel[0]).reshape(-1, W), lits[0])
+            tag = (what, where, sel.dtype, sel.shape[-1])
+            assert torch.equal(got, want), tag
+            assert torch.equal(got, gath), tag
+            assert torch.equal(one, want[0]), tag
+            assert torch.equal(one, gath1), tag
+
+
+@pytest.mark.parametrize("W", WORD_W)
+def test_word_count_body_large_tiles_equal_plain(cuda, W):
+    """Grids of 8 or more 64 x 64 tiles an SM take the body's 128 x 128
+    tiles: K6 and K7 on words at R = 16 banks of 300 ragged rows (K7: 3
+    classes of 120 clauses, 100 elected) against B = 1000, equal to the
+    plain versions, one launch a call."""
+    from repro_torch.kernels import clause_eval as ce
+
+    R, C, J, M, B = 16, 3, 120, 100, 1000
+    rng = np.random.default_rng([19, W])
+    sels = _word_sels(rng, R, C, J, (M,), cuda)
+    for i, kind in enumerate(WORD_KINDS):
+        inc = _words(rng, (R, C, J, W), kind, cuda, bank=True)
+        lits = _words(rng, (2, B, W), kind, cuda)
+        rows = inc[:, :, :M].reshape(R, C * M, W)
+        want6 = _by_replica(ce.clause_counts_batch_replicated_packed_plain,
+                            rows, lits)
+        for j, (where, oi, ol) in enumerate(WORD_PLACEMENTS):
+            sel = sels[(4 * i + j) % len(sels)]
+            before = (ce.clause_counts_batch_replicated_packed.launches,
+                      ce.clause_counts_batch_pruned_replicated_packed.launches)
+            got6 = ce.clause_counts_batch_replicated_packed(_at(rows, oi),
+                                                            _at(lits, ol))
+            got7 = ce.clause_counts_batch_pruned_replicated_packed(
+                _at(inc, oi), sel, _at(lits, ol))
+            assert (ce.clause_counts_batch_replicated_packed.launches,
+                    ce.clause_counts_batch_pruned_replicated_packed.launches
+                    ) == (before[0] + 1, before[1] + 1)
+            want7 = _by_replica(
+                ce.clause_counts_batch_pruned_replicated_packed_plain, inc,
+                lits, sel)
+            assert torch.equal(got6, want6), (kind, where)
+            assert torch.equal(got7, want7), (kind, where, sel.dtype)

@@ -9,7 +9,11 @@ interpret mode), bit for bit, over tests/test_kernels.py's SHAPES and
 REP_SHAPES, with M in {1, J - 1, J} and selections that are permutation
 prefixes or arbitrary ids with repeats. Packed pruned equals unpacked
 pruned; the budgeted votes (dtype included) and ``analyze_pruned`` equal
-the JAX functions'.
+the JAX functions'. K7's word counts also equal the Pallas
+``clause_counts_batch{,_replicated}_packed`` on the gathered bank at the
+word widths on the CUDA word body's edges (W = 1 to 700), on three kinds
+of words, with int16, uint8, int32 and int64 selections holding ids 0
+and J - 1.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ from repro.core import TMConfig as JConfig
 from repro.core import accuracy as j_acc
 from repro.core import init_runtime as j_init_runtime
 from repro.core import tm as j_tm
+from repro.kernels import clause_eval as j_ce
 from repro.kernels import ops as j_ops
 from repro.kernels import packing as j_packing
 from repro.kernels import ref as j_ref
@@ -259,6 +264,95 @@ def test_gather_include_contract():
     with pytest.raises(ValueError, match="M"):
         t_ce.clause_counts_batch_pruned(_t(inc[0]), _t(sel[0, :, :0]),
                                         _t(inc[0, 0, :2]))
+
+
+# Word widths on the CUDA word body's edges and three kinds of words (as
+# tests/test_torch_packing.py's EDGE_W and WORD_KINDS): random words;
+# all-ones include words against literal rows of zeros, ones and random
+# words; include words with their last word's high bits set against
+# literals with them clear. Selections of every integer type the wrappers
+# take, each holding ids 0 and J - 1.
+EDGE_W = [1, 2, 3, 7, 8, 9, 50, 98, 700]
+WORD_KINDS = ["random", "ones", "tail"]
+SEL_DTYPES = [np.int16, np.uint8, np.int32, np.int64]
+
+
+def _edge_words(rng, lead_inc, lead_lit, W, kind):
+    def words(shape):
+        return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(
+            np.uint32)
+
+    inc, lit = words(lead_inc + (W,)), words(lead_lit + (W,))
+    if kind == "ones":
+        inc[...] = 0xFFFFFFFF
+        lit[..., 0::3, :] = 0
+        lit[..., 1::3, :] = 0xFFFFFFFF
+    elif kind == "tail":
+        inc[..., -1] |= np.uint32(0xFFFF0000)
+        lit[..., -1] &= np.uint32(0x0000FFFF)
+    return inc, lit
+
+
+@pytest.mark.parametrize("W", EDGE_W)
+@pytest.mark.parametrize("kind", WORD_KINDS)
+def test_pruned_packed_counts_match_pallas_at_word_edges(W, kind):
+    """K7 on words, replica-first (R = 4 banks of 3 x 10 clauses on D = 2
+    streams) and K = 1, equals the Pallas packed counts of the gathered
+    bank bit for bit, for every selection type."""
+    R, D, C, J, M, B = 4, 2, 3, 10, 6, 7
+    rng = np.random.default_rng([W, WORD_KINDS.index(kind), 19])
+    inc, lit = _edge_words(rng, (R, C, J), (D, B), W, kind)
+    sel = np.stack([np.stack([rng.permutation(J)[:M] for _ in range(C)])
+                    for _ in range(R)])
+    sel[:, 0, 0], sel[:, -1, -1] = 0, J - 1
+    want = np.asarray(j_ce.clause_counts_batch_replicated_packed(
+        j_ref.gather_include(jnp.asarray(inc), jnp.asarray(sel)).reshape(
+            R, C * M, W), jnp.asarray(lit), interpret=True))
+    want1 = np.asarray(j_ce.clause_counts_batch_packed(
+        j_ref.gather_include(jnp.asarray(inc[0]), jnp.asarray(sel[0]))
+        .reshape(C * M, W), jnp.asarray(lit[0]), interpret=True))
+    t_inc = t_packing.words_from_numpy(inc)
+    t_lit = t_packing.words_from_numpy(lit)
+    for dt in SEL_DTYPES:
+        t_sel = torch.from_numpy(sel.astype(dt))
+        got = t_ce.clause_counts_batch_pruned_replicated_packed(t_inc, t_sel,
+                                                                t_lit)
+        assert got.dtype == torch.int32 and got.shape == (R, C * M, B)
+        assert np.array_equal(got.numpy(), want), dt
+        got1 = t_ce.clause_counts_batch_pruned_packed(t_inc[0], t_sel[0],
+                                                      t_lit[0])
+        assert np.array_equal(got1.numpy(), want1), dt
+
+
+@pytest.mark.parametrize("dt", SEL_DTYPES)
+def test_pruned_packed_eval_matches_pallas_for_every_sel_type(dt):
+    """The packed budgeted outputs on both port backends equal the
+    reference's Pallas entries (interpret mode) for each selection type,
+    on packed-layout words at f = 49 (W = 4)."""
+    R, D, C, J, f = 3, 3, 3, 8, 49
+    rng = np.random.default_rng([19, np.dtype(dt).itemsize])
+    inc, _, inc_w, lit_w = _packed_operands(rng, (R,), (D,), C, J, f, 5)
+    sel = rng.integers(0, J, (R, C, 5))
+    sel[:, 0, 0], sel[:, -1, -1] = 0, J - 1
+    sel = sel.astype(dt)
+    for training in (True, False):
+        want = np.asarray(j_ops.clause_eval_batch_pruned_replicated_packed(
+            jnp.asarray(inc_w), jnp.asarray(sel), jnp.asarray(lit_w),
+            training=training))
+        want1 = np.asarray(j_ops.clause_eval_batch_pruned_packed(
+            jnp.asarray(inc_w[0]), jnp.asarray(sel[0]),
+            jnp.asarray(lit_w[0]), training=training))
+        for name in BACKENDS:
+            kb = dispatch.resolve(name)
+            got = kb.clause_eval_batch_pruned_replicated_packed(
+                t_packing.words_from_numpy(inc_w), torch.from_numpy(sel),
+                t_packing.words_from_numpy(lit_w), training=training)
+            assert np.array_equal(got.numpy(), want), (name, training)
+            got1 = kb.clause_eval_batch_pruned_packed(
+                t_packing.words_from_numpy(inc_w[0]),
+                torch.from_numpy(sel[0]),
+                t_packing.words_from_numpy(lit_w[0]), training=training)
+            assert np.array_equal(got1.numpy(), want1), (name, training)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,10 @@
   version -- against ``repro.kernels.ref`` and ``repro.kernels.ops`` (the
   Pallas kernels in interpret mode), over ``tests/test_packing.py``'s
   widths and (R, D) grid, and the counts against the unpacked K2/K4;
+* the K5/K6 counts against the Pallas kernels (interpret mode) at the
+  word widths on the CUDA body's copy, step and chunk edges (W = 1 to
+  700), on random words, all-ones include words and include words with
+  tail bits set, as int32 and as uint32 tensors;
 * the dtype routing of ``core/tm`` and the fault controller commuting with
   packing.
 """
@@ -21,6 +25,7 @@ from repro.core import faults as j_faults
 from repro.core import init_runtime as j_init_runtime
 from repro.core import init_state as j_init_state
 from repro.core import tm as j_tm
+from repro.kernels import clause_eval as j_ce
 from repro.kernels import ops as j_ops
 from repro.kernels import packing as j_packing
 from repro.kernels import ref as j_ref
@@ -268,3 +273,78 @@ def test_faulted_packed_eval_matches_unpacked(backend):
     cl_a, v_a = t_tm.forward_batch(tc, ts, tr, xs)
     cl_b, v_b = t_tm.forward_batch(tc, ts, tr, t_packing.pack_bits(xs))
     assert torch.equal(cl_a, cl_b) and torch.equal(v_a, v_b)
+
+
+# Word widths on the edges of the CUDA word body (tests/test_torch_gpu.py
+# holds the body itself on the card): the 4- and 8-byte copies (W odd,
+# W % 4 == 2), the 16-byte copy (W % 4 == 0), the 8-word b1 product step,
+# the 16-word chunk, and 700 words (beyond the shared-memory cap the old
+# counting kernel had). Three kinds of words: random words on both sides;
+# all-ones include words against literal rows of zeros, ones and random
+# words (sums up to 32 * W); random include words whose last word has its
+# high bits set, against literals whose last word has them clear, as
+# include tail bits past a packed width would be.
+EDGE_W = [1, 2, 3, 7, 8, 9, 50, 98, 700]
+WORD_KINDS = ["random", "ones", "tail"]
+
+
+def edge_words(rng, lead_inc, lead_lit, W, kind):
+    """(include, literals) np.uint32 words [*lead_inc, W], [*lead_lit, W]
+    of ``kind`` (WORD_KINDS)."""
+    def words(shape):
+        return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(
+            np.uint32)
+
+    inc, lit = words(lead_inc + (W,)), words(lead_lit + (W,))
+    if kind == "ones":
+        inc[...] = 0xFFFFFFFF
+        lit[..., 0::3, :] = 0
+        lit[..., 1::3, :] = 0xFFFFFFFF
+    elif kind == "tail":
+        inc[..., -1] |= np.uint32(0xFFFF0000)
+        lit[..., -1] &= np.uint32(0x0000FFFF)
+    return inc, lit
+
+
+def _as_uint32(words: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(words.view(np.int32)).view(torch.uint32)
+
+
+@pytest.mark.parametrize("W", EDGE_W)
+@pytest.mark.parametrize("kind", WORD_KINDS)
+def test_batch_packed_counts_match_pallas_at_word_edges(W, kind):
+    """K5's counts equal the Pallas ``clause_counts_batch_packed``'s bit for
+    bit, on int32 and on uint32 word tensors."""
+    rng = np.random.default_rng([W, WORD_KINDS.index(kind)])
+    for cj, B in ((37, 9), (5, 1)):
+        inc, lit = edge_words(rng, (cj,), (B,), W, kind)
+        want = np.asarray(j_ce.clause_counts_batch_packed(
+            jnp.asarray(inc), jnp.asarray(lit), interpret=True))
+        got = t_ce.clause_counts_batch_packed(
+            t_packing.words_from_numpy(inc), t_packing.words_from_numpy(lit))
+        assert got.dtype == torch.int32 and got.shape == (cj, B)
+        assert np.array_equal(got.numpy(), want), (cj, B)
+        got_u = t_ce.clause_counts_batch_packed(_as_uint32(inc),
+                                                _as_uint32(lit))
+        assert np.array_equal(got_u.numpy(), want), (cj, B)
+    if kind == "ones":
+        assert want.max() == 32 * W
+
+
+@pytest.mark.parametrize("W", EDGE_W)
+@pytest.mark.parametrize("kind", WORD_KINDS)
+def test_batch_replicated_packed_counts_match_pallas_at_word_edges(W, kind):
+    """K6's counts (R = 4 banks on D = 2 streams, and R = D = 3) equal the
+    Pallas ``clause_counts_batch_replicated_packed``'s bit for bit."""
+    rng = np.random.default_rng([W, WORD_KINDS.index(kind), 6])
+    for R, D, cj, B in ((4, 2, 10, 5), (3, 3, 7, 8)):
+        inc, lit = edge_words(rng, (R, cj), (D, B), W, kind)
+        want = np.asarray(j_ce.clause_counts_batch_replicated_packed(
+            jnp.asarray(inc), jnp.asarray(lit), interpret=True))
+        got = t_ce.clause_counts_batch_replicated_packed(
+            t_packing.words_from_numpy(inc), t_packing.words_from_numpy(lit))
+        assert got.dtype == torch.int32 and got.shape == (R, cj, B)
+        assert np.array_equal(got.numpy(), want), (R, D)
+        got_u = t_ce.clause_counts_batch_replicated_packed(_as_uint32(inc),
+                                                           _as_uint32(lit))
+        assert np.array_equal(got_u.numpy(), want), (R, D)
