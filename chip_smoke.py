@@ -101,7 +101,17 @@ Phases, each with its seconds:
    weights equal to plain serve; ``serve_replicas`` equal to those rows;
    member 0 through ``predict_batch_pruned``/``analyze_pruned``; save ->
    restore -> serve and -> one drained tick equal to never stopping; the
-   adapt rule sheds and recovers the budget. Then ``traffic``: the iris
+   adapt rule sheds and recovers the budget. Then ``residency``: host-
+   spilled replicas through ``TMService(resident=R)``, each path bitwise
+   against an always-resident twin on the card (budgets masked by
+   ``buffered > 0``): iris at K = 4096 on 64 slots (the reference
+   benchmark's largest row) and MNIST at f = 784, packed, K = 256 on 32
+   slots, batched moves against the synchronous ones, timed (points/s,
+   ``speedup_vs_percohort``, evict and activate ms a replica, the move
+   rate beside pinned copies); ``resident="auto"`` from dense to sparse
+   traffic; tunable ``serve_replicas`` under residency (K7 replicated);
+   save -> restore as saved -> continue. K3, K4, K6, K7 replicated and K9
+   must launch as the code implies. Then ``traffic``: the iris
    service at the reference's traffic geometry (K = 4 producers) with an
    adapting tuner, steady and fault_injected threaded on the card, each
    replayed from one thread to the same fingerprint;
@@ -2201,6 +2211,428 @@ def phase_traffic(torch, np, ce, fb):
               flush=True)
 
 
+# The residency paths (phase ``residency``): (name, config module, K,
+# slots, rounds, active replicas a round, packed). Iris is the reference
+# benchmark's largest row (benchmarks/residency.py ``residency_k4096``);
+# MNIST the full-width machine (one 1,003,520-byte int8 bank each).
+RES_PATHS = (("iris", "tm_iris", 4096, 64, 6, 32, False),
+             ("mnist", "tm_mnist", 256, 32, 8, 16, True))
+RES_WINDOWS = 7                 # timed windows a side, batched and sync
+RES_AUTO_K, RES_AUTO_ROUNDS = 64, 24
+RES_TUNE_K, RES_TUNE_R = 16, 4
+RES_SAVE = (256, 16, 4, 32)     # K, slots, rounds before and after, active
+RES_KERNELS = ("clause_counts_replicated", "clause_counts_batch_replicated",
+               "clause_counts_batch_replicated_packed",
+               "clause_counts_batch_pruned_replicated",
+               "feedback_plane_replicated")
+
+
+def _res_service(cfg, K, resident, bank=None, *, packed=False, batched=True,
+                 tunable=None):
+    """A drain-only residency service on the card: the reference
+    benchmark's knobs (capacity 16, chunk 8, ingress block 8, s = 3.0,
+    T = 15, analysis off)."""
+    from repro_torch.core import init_state
+    from repro_torch.serve import AdaptPolicy, ServiceConfig, TMService
+
+    state = init_state(cfg, device="cuda") if bank is None else bank
+    return TMService(cfg, state, ServiceConfig(
+        replicas=K, buffer_capacity=16, chunk=8, ingress_block=8,
+        packed=packed, s=3.0, T=15, seed=SEED, resident=resident,
+        batched_moves=batched, policy=AdaptPolicy(analyze_every=10 ** 9),
+        tunable=tunable), device="cuda")
+
+
+def _res_drive(np, ce, fb, svc, others, twin, rounds, active, xs, ys,
+               seed):
+    """``rounds`` rounds of sparse traffic: ``active[r]`` random replicas
+    each get one row, then ``svc`` and ``others`` tick and the always-
+    resident ``twin`` ticks with budgets masked by ``svc``'s
+    ``buffered > 0``. Returns (``svc``'s kernel launches, the drain steps
+    the code implies: one K3 + K9 step a cohort of at most ``resident``
+    replicas with rows, since each holds one row)."""
+    rng = np.random.default_rng(seed)
+    K = svc.n_replicas
+    launched = dict.fromkeys(RES_KERNELS, 0)
+    steps = 0
+    for r in range(rounds):
+        ids = rng.choice(K, size=active[r], replace=False)
+        mask = np.zeros(K, dtype=bool)
+        mask[ids] = True
+        i = int(rng.integers(0, len(xs)))
+        for s in [svc, *others] + ([twin] if twin else []):
+            s.submit_rows(xs[i], int(ys[i]), mask)
+        svc.flush()
+        drive = svc.buffered > 0
+        steps += -(-int(drive.sum()) // svc.n_resident)
+        before = counters(ce, fb)
+        svc.tick()
+        after = counters(ce, fb)
+        for k in RES_KERNELS:
+            launched[k] += after[k] - before[k]
+        for s in others:
+            s.tick()
+        if twin is not None:
+            twin.tick(np.where(drive, twin.chunk, 0))
+    return launched, steps
+
+
+def _res_equal(torch, np, a, b) -> bool:
+    """The logical fleets of two services (assembled banks, rings, step
+    counters, keys) are bitwise equal."""
+    sa, sb = a.ss, b.ss
+    leaves = lambda s: (s.tm.ta_state, *s.buf, s.step)   # noqa: E731
+    return (all(torch.equal(x, y) for x, y in zip(leaves(sa), leaves(sb)))
+            and np.array_equal(a.rng_keys, b.rng_keys)
+            and np.array_equal(a.steps, b.steps))
+
+
+def _snapshot_bytes(svc) -> int:
+    """Bytes of one replica's device state: bank, ring, step, key."""
+    from repro_torch.core.online import tree_leaves
+
+    return sum(a[0].numel() * a.element_size()
+               for a in tree_leaves((svc._ss, svc._keys)))
+
+
+def _copy_ms(torch, np, nbytes: int) -> tuple[float, float, float]:
+    """Median ms of one pinned H2D copy of ``nbytes``, one D2H copy, and
+    one host copy between two pinned buffers (what an activation does
+    to stage its snapshots)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    stage = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    on_host = []
+    for _ in range(7):
+        t = time.perf_counter()
+        np.copyto(stage.numpy(), host.numpy())
+        on_host.append((time.perf_counter() - t) * 1e3)
+    on_host.sort()
+    out = []
+    for dst, src in ((dev, host), (host, dev)):
+        times = []
+        for _ in range(7):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        times.sort()
+        out.append(times[len(times) // 2])
+    return out[0], out[1], on_host[len(on_host) // 2]
+
+
+def _move_ms(torch, np, svc, cycles: int = 9) -> tuple[float, float, int]:
+    """Explicit moves of a cohort of ``resident`` replicas (evict, then
+    activate, ``cycles`` times): the median ms a replica for each, and
+    the cohort. Each evicted snapshot must own pageable memory of its
+    own (no view of the cohort's pinned batch stays in the store)."""
+    from repro_torch.core.online import tree_leaves
+
+    cohort = np.nonzero(svc.resident)[0][:svc.n_resident]
+    t_evict, t_act = [], []
+    for _ in range(cycles):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        svc.evict(cohort)
+        torch.cuda.synchronize()
+        t_evict.append(time.perf_counter() - t)
+        check(all(isinstance(a, np.generic) or a.flags.owndata
+                  for r in cohort for a in tree_leaves(svc._res.store[r])),
+              "residency: an evicted snapshot is a view of its batch")
+        t = time.perf_counter()
+        svc.activate(cohort)
+        torch.cuda.synchronize()
+        t_act.append(time.perf_counter() - t)
+    n = len(cohort)
+    return _median(t_evict) / n * 1e3, _median(t_act) / n * 1e3, n
+
+
+def _res_timed(torch, np, cfg, K, R, rounds, active, xs, ys, packed,
+               bank):
+    """A batched and a synchronous service (``batched_moves=False``) on the
+    same traffic, each through 2 warm-up rounds, then ``RES_WINDOWS``
+    windows a side of ``rounds`` rounds (submit + tick, ended by a
+    synchronize), alternating b s s b b s ... so drift on the host falls
+    on both sides: (batched service, sync service, [batched wall s a
+    window], [sync wall s a window], [points trained a window]). Window i
+    of either side trains the same traffic."""
+    sides = {}
+    for batched in (True, False):
+        sides[batched] = (_res_service(cfg, K, R, bank, packed=packed,
+                                       batched=batched),
+                          np.random.default_rng(SEED + 1))
+
+    def window(batched, n):
+        svc, rng = sides[batched]
+        done = int(svc.steps.sum())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            ids = rng.choice(K, size=active, replace=False)
+            mask = np.zeros(K, dtype=bool)
+            mask[ids] = True
+            i = int(rng.integers(0, len(xs)))
+            svc.submit_rows(xs[i], int(ys[i]), mask)
+            svc.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return wall, int(svc.steps.sum()) - done
+
+    window(True, 2)
+    window(False, 2)
+    walls = {True: [], False: []}
+    pts = {True: [], False: []}
+    for w in range(RES_WINDOWS):
+        for batched in ((True, False) if w % 2 == 0 else (False, True)):
+            wall, p = window(batched, rounds)
+            walls[batched].append(wall)
+            pts[batched].append(p)
+    check(pts[True] == pts[False], "residency: timed windows trained "
+          "different traffic")
+    return (sides[True][0], sides[False][0], walls[True], walls[False],
+            pts[True])
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def phase_residency(torch, np, ce, fb):
+    """Host-spilled replica residency on the card, every path through
+    ``TMService`` on "cuda" and held bitwise to an always-resident twin on
+    the card driven with budgets masked by ``buffered > 0``:
+
+    * iris at the reference benchmark's largest row (K = 4096 on 64 slots,
+      6 rounds of 32 random active replicas) and MNIST at full width,
+      packed (K = 256 on 32 slots, 8 rounds of 16): batched moves and the
+      synchronous ones (``batched_moves=False``) against the twin and each
+      other; ``serve_replicas`` of a subset against the twin's. Then each
+      timed: trained points/s through submit + tick, batched and
+      synchronous (``speedup_vs_percohort``), explicit evict and activate
+      ms a replica, the move rate beside pinned copies of the same size;
+    * ``resident="auto"`` (iris, K = 64, 24 rounds from dense to sparse):
+      the ``n_resident`` trajectory and the re-partitions;
+    * tunable serving under residency (OVERPROVISIONED, K = 16 on 4 slots,
+      random banks): calibrate by cohort, ``serve_replicas`` at budget 1.0
+      equal to the always-resident ``serve`` and at 0.25 to its budgeted
+      serve, through K7 replicated;
+    * save on the card, restore with ``resident="saved"`` and continue:
+      equal to the fleet that never stopped.
+
+    K3 + K9 must have launched once a drain step, K4 once a calibrate or
+    unpacked serve cohort, K6 once a packed serve cohort and K7 replicated
+    once a tunable serve cohort. Returns this phase's launches."""
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import tm_mnist
+    from repro_torch.core import TMState, online
+    from repro_torch.data import iris, mnist
+    from repro_torch.serve import TMService, TunableConfig
+
+    zero_counters(ce, fb)
+    want = dict.fromkeys(RES_KERNELS, 0)
+    got = dict.fromkeys(RES_KERNELS, 0)
+
+    def add(launched):
+        for k in RES_KERNELS:
+            got[k] += launched[k]
+
+    def counted(fn):
+        before = counters(ce, fb)
+        out = fn()
+        after = counters(ce, fb)
+        add({k: after[k] - before[k] for k in RES_KERNELS})
+        return out
+
+    ix, iy = iris.load()
+    mx, my = mnist.load(seed=SEED + 3, n_points=512)
+    data = {"tm_iris": (ix, iy), "tm_mnist": (mx, my)}
+    for name, mod, K, R, rounds, active, packed in RES_PATHS:
+        cfg = importlib.import_module(f"repro_torch.configs.{mod}").CONFIG.tm
+        xs, ys = data[mod]
+        bank = None
+        if name == "mnist":
+            rng = np.random.default_rng(SEED)
+            bank = TMState(torch.from_numpy(rng.integers(
+                cfg.n_states - 2, cfg.n_states + 3,
+                (cfg.max_classes, cfg.max_clauses, cfg.n_literals)
+            ).astype(np.int8)).to("cuda"))
+        svc = _res_service(cfg, K, R, bank, packed=packed)
+        sync = _res_service(cfg, K, R, bank, packed=packed, batched=False)
+        twin = _res_service(cfg, K, None, bank, packed=packed)
+        launched, steps = _res_drive(np, ce, fb, svc, [sync], twin, rounds,
+                                     [active] * rounds, xs, ys, SEED)
+        add(launched)
+        want["clause_counts_replicated"] += steps
+        want["feedback_plane_replicated"] += steps
+        check(svc._res.evictions > 0, f"residency {name}: no eviction")
+        check(_res_equal(torch, np, svc, twin),
+              f"residency {name}: differs from the always-resident twin")
+        check(_res_equal(torch, np, svc, sync),
+              f"residency {name}: batched moves differ from synchronous")
+        sub = np.random.default_rng(SEED + 2).choice(K, min(K, 4 * R),
+                                                     replace=False)
+        q = xs[:64]
+        served = counted(lambda: svc.serve_replicas(sub, q))
+        kname = ("clause_counts_batch_replicated_packed" if packed
+                 else "clause_counts_batch_replicated")
+        want[kname] += -(-len(sub) // R)
+        check(np.array_equal(served, twin.serve_replicas(sub, q))
+              and served.shape == (len(sub), len(q)) and served.min() >= 0
+              and served.max() < cfg.max_classes,
+              f"residency {name}: serve_replicas differs from the twin's")
+        check(_res_equal(torch, np, svc, twin),
+              f"residency {name}: serving moved the logical fleet")
+        del sync, twin
+        snap = _snapshot_bytes(svc)
+        store_mb = sum(a.nbytes for snap in svc._res.store.values()
+                       for a in online.tree_leaves(snap)) / 2 ** 20
+        # timed: batched and synchronous windows, alternating
+        tb, ts, wall_b, wall_s, pts = _res_timed(
+            torch, np, cfg, K, R, rounds, active, xs, ys, packed, bank)
+        rate_b = [p / w for p, w in zip(pts, wall_b)]
+        rate_s = [p / w for p, w in zip(pts, wall_s)]
+        ratio = [s_ / b_ for s_, b_ in zip(wall_s, wall_b)]
+        acts, evs = tb._res.activations, tb._res.evictions
+        ev_ms, act_ms, n = _move_ms(torch, np, tb)
+        ev_sync, act_sync, _ = _move_ms(torch, np, ts)
+        # page-locked bytes the caching host allocator holds for live
+        # tensors once the moves are done (before the copies below)
+        pinned = (torch.cuda.host_memory_stats().get(
+            "allocated_bytes.current", "not reported")
+            if hasattr(torch.cuda, "host_memory_stats")
+            else "not reported by this torch")
+        h2d, d2h, hcopy = _copy_ms(torch, np, n * snap)
+        gb = n * snap / 1e9
+        print(f"residency {name} K={K} R={R} packed={packed}: "
+              f"{RES_WINDOWS} windows a side of {rounds} rounds x {active} "
+              f"active, {pts} points a window; points/s median "
+              f"{_median(rate_b):.1f} (min {min(rate_b):.1f}, max "
+              f"{max(rate_b):.1f}) batched, {_median(rate_s):.1f} (min "
+              f"{min(rate_s):.1f}, max {max(rate_s):.1f}) sync; "
+              f"speedup_vs_percohort median {_median(ratio):.3f} (min "
+              f"{min(ratio):.3f}, max {max(ratio):.3f}; per window "
+              f"{[round(r, 3) for r in ratio]}); "
+              f"{acts} activations, {evs} evictions; snapshot {snap} bytes; "
+              f"store {store_mb:.1f} MiB logical, pinned host bytes "
+              f"allocated now {pinned}; "
+              f"evict {ev_ms:.4f} ms/replica ({gb / (ev_ms * n / 1e3):.3f} "
+              f"GB/s), activate {act_ms:.4f} ms/replica "
+              f"({gb / (act_ms * n / 1e3):.3f} GB/s) on cohorts of {n} "
+              f"(sync: evict {ev_sync:.4f}, activate {act_sync:.4f}); "
+              f"pinned copy of {n * snap} bytes: H2D {h2d:.4f} ms "
+              f"({gb / (h2d / 1e3):.3f} GB/s), D2H {d2h:.4f} ms "
+              f"({gb / (d2h / 1e3):.3f} GB/s), host to host {hcopy:.4f} ms "
+              f"({gb / (hcopy / 1e3):.3f} GB/s); bitwise == twin == sync: "
+              "True", flush=True)
+        del svc, tb, ts
+
+    # auto: dense rounds grow the plane, sparse rounds shrink it
+    cfg = importlib.import_module("repro_torch.configs.tm_iris").CONFIG.tm
+    K = RES_AUTO_K
+    auto = _res_service(cfg, K, "auto")
+    twin = _res_service(cfg, K, None)
+    traj = [auto.n_resident]
+    half = RES_AUTO_ROUNDS // 2
+    for n_active, seed in ((K, SEED), (1, SEED + 1)):
+        for _ in range(half):
+            launched, steps = _res_drive(np, ce, fb, auto, [], twin, 1,
+                                         [n_active], ix, iy, seed)
+            seed += 1
+            add(launched)
+            want["clause_counts_replicated"] += steps
+            want["feedback_plane_replicated"] += steps
+            traj.append(auto.n_resident)
+    check(max(traj) > traj[0] and traj[-1] < max(traj),
+          f"residency auto: the plane never grew and shrank ({traj})")
+    check(_res_equal(torch, np, auto, twin),
+          "residency auto: differs from the always-resident twin")
+    print(f"residency auto K={K}: n_resident per round {traj}, "
+          f"repartitions {auto.repartitions}, ewma_active "
+          f"{auto._res.ewma_active:.4f}; bitwise == twin: True", flush=True)
+
+    # tunable serving under residency, random banks
+    cfg = tm_mnist.OVERPROVISIONED.tm
+    K, R = RES_TUNE_K, RES_TUNE_R
+    rng = np.random.default_rng(SEED + 4)
+    banks = torch.from_numpy(rng.integers(
+        1, 2 * cfg.n_states + 1,
+        (K, cfg.max_classes, cfg.max_clauses, cfg.n_literals)).astype(
+            np.int8)).to("cuda")
+    tc = TunableConfig(budget=1.0)
+    res = _res_service(cfg, K, R, TMState(banks.clone()), tunable=tc)
+    full = _res_service(cfg, K, None, TMState(banks.clone()), tunable=tc)
+    cal_x, cal_y = mx[:200], my[:200]
+    scores = counted(lambda: res.calibrate(cal_x, cal_y))
+    want["clause_counts_batch_replicated"] += -(-K // R)
+    check(np.array_equal(scores, full.calibrate(cal_x, cal_y))
+          and np.array_equal(res.tuner.order, full.tuner.order),
+          "residency tunable: calibration differs from always-resident")
+    big = mx[:256]
+    for b, oracle in ((1.0, lambda: full.serve(big)),
+                      (0.25, lambda: full.serve(big, budget=0.25))):
+        t = time.perf_counter()
+        preds = counted(lambda: res.serve_replicas(np.arange(K), big,
+                                                   budget=b))
+        ms = (time.perf_counter() - t) * 1e3
+        want["clause_counts_batch_pruned_replicated"] += -(-K // R)
+        check(np.array_equal(preds, oracle()),
+              f"residency tunable: serve_replicas at budget {b} differs "
+              "from the always-resident serve")
+        print(f"residency tunable K={K} R={R} f={cfg.n_features} "
+              f"J={cfg.max_clauses}: serve_replicas(all, {len(big)} rows, "
+              f"budget {b}) {ms:.3f} ms with {res._res.activations} "
+              f"activations so far; == always-resident serve: True",
+              flush=True)
+
+    # save on the card, restore as saved, continue
+    cfg = importlib.import_module("repro_torch.configs.tm_iris").CONFIG.tm
+    K, R, n_rounds, active = RES_SAVE
+    svc = _res_service(cfg, K, R)
+    launched, steps = _res_drive(np, ce, fb, svc, [], None, n_rounds,
+                                 [active] * n_rounds, ix, iy, SEED + 5)
+    add(launched)
+    want["clause_counts_replicated"] += steps
+    want["feedback_plane_replicated"] += steps
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        t = time.perf_counter()
+        svc.save(d)
+        t_save = time.perf_counter() - t
+        t = time.perf_counter()
+        other = TMService.restore(d, device="cuda")
+        t_restore = time.perf_counter() - t
+    check(other.sc.resident == R and other.n_resident == R
+          and _res_equal(torch, np, svc, other),
+          "residency: the restored fleet differs from the saved one")
+    launched, steps = _res_drive(np, ce, fb, svc, [other], None, n_rounds,
+                                 [active] * n_rounds, ix, iy, SEED + 6)
+    add(launched)
+    want["clause_counts_replicated"] += steps
+    want["feedback_plane_replicated"] += steps
+    check(_res_equal(torch, np, svc, other),
+          "residency: save -> restore -> continue differs from never "
+          "stopping")
+    print(f"residency save K={K} R={R}: save {t_save * 1e3:.1f} ms, restore "
+          f"{t_restore * 1e3:.1f} ms; restore as saved -> {n_rounds} rounds "
+          "== never stopping: True", flush=True)
+
+    total = {k: v for k, v in counters(ce, fb).items() if k in RES_KERNELS}
+    print(f"residency launches: {json.dumps(got)} (expected "
+          f"{json.dumps(want)}; the phase's, twins included: "
+          f"{json.dumps(total)})", flush=True)
+    check(got == want, "residency: kernel launches differ from the counts "
+          "the code implies")
+    check(all(v > 0 for v in got.values()),
+          "a kernel of the residency path never launched")
+    return got
+
+
 def phase_one_launch(torch, np, ce):
     """torch.profiler over one call each, at the main path's shapes, of K2
     (640 x 1568, B = 1024), K = 1 K7 on bytes (C = 10, J = 128, M = 32,
@@ -2479,6 +2911,7 @@ def main() -> int:
     launches.update(timed("fleet", phase_fleet, torch, np, ce, fb))
     timed("fleet_iris", phase_fleet_iris, torch, np, ce, fb)
     launches.update(timed("tunable", phase_tunable, torch, np, ce, fb))
+    timed("residency", phase_residency, torch, np, ce, fb)
     timed("traffic", phase_traffic, torch, np, ce, fb)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)

@@ -6,7 +6,10 @@ key pairs ([2] or batches [D, 2]), ``manager.Sets``, packed np.uint32
 words and ``online.SessionState`` (one machine or a [K, ...] fleet, with
 bool or packed rings), taken as numpy arrays
 (``jax.tree.map(np.asarray, x)``), become the port's on a given device;
-:func:`to_numpy` and :func:`session_state_to_numpy` go back. Packed words
+:func:`to_numpy` and :func:`session_state_to_numpy` go back;
+:func:`host_plane_to_reference` and :func:`host_plane_from_reference`
+turn a host plane (numpy, as the service's residency store and
+checkpoints hold it) between the two packages' dtypes. Packed words
 are np.uint32 in the reference and int32 bit patterns in the port
 (:mod:`repro_torch.kernels.packing`). Both packages then compute
 the same thing from the same values. The port imports nothing of the
@@ -125,3 +128,35 @@ def session_state_to_numpy(ss):
         out = out._replace(buf=out.buf._replace(
             data_x=words_to_numpy(ss.buf.data_x)))
     return out
+
+
+def host_plane_to_reference(ss, keys):
+    """A host plane ``(SessionState, keys)`` of numpy in the port's dtypes
+    (leaves leading with the replicas) -> the reference's: packed ring
+    words as np.uint32 and keys as uint32 pairs (same bits)."""
+    x = np.asarray(ss.buf.data_x)
+    if x.dtype == np.int32:
+        ss = ss._replace(buf=ss.buf._replace(data_x=x.view(np.uint32)))
+    return ss, np.asarray(keys).astype(np.uint32)
+
+
+def host_plane_from_reference(ss, keys):
+    """The reference's host plane ``(SessionState, keys)`` (a checkpoint's
+    numpy) -> the port's dtypes, still numpy: ring rows as bool or, when
+    np.uint32, as int32 words; labels, head, size and step as int32; keys
+    as int64 word pairs."""
+    from repro_torch.core.online import SessionState
+    from repro_torch.data.buffer import RingBuffer
+
+    x = np.asarray(ss.buf.data_x)
+    x = x.view(np.int32) if x.dtype == np.uint32 else x.astype(bool)
+
+    def i32(a):
+        return np.asarray(a, dtype=np.int32)
+
+    return (SessionState(tm=TMState(np.asarray(ss.tm.ta_state)),
+                         buf=RingBuffer(data_x=x, data_y=i32(ss.buf.data_y),
+                                        head=i32(ss.buf.head),
+                                        size=i32(ss.buf.size)),
+                         step=i32(ss.step)),
+            np.asarray(keys, dtype=np.uint32).astype(np.int64))

@@ -13,10 +13,17 @@ Packed rings hold ceil(f/32) int32 words a row: each popped row unpacks
 once for the elementwise feedback, and the monitoring pass reads the
 packed rows as they are. ``OnlineSession`` is the K = 1 shim over
 :class:`repro_torch.serve.service.TMService`.
+
+The residency layer moves machines between the device plane and host
+snapshots with :func:`gather_replicas_issue` / :func:`gather_replicas_await`
+(an index gather, a ``non_blocking`` copy into pinned host memory and an
+event, awaited only where the snapshot is read), :func:`gather_replicas`
+and :func:`scatter_replicas` (the synchronous pair) and
+:func:`activate_replicas` (a per-slot mask-select).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,6 +33,7 @@ from repro_torch.core import feedback as fb_mod
 from repro_torch.core import tm as tm_mod
 from repro_torch.core.tm import TMConfig, TMRuntime, TMState
 from repro_torch.data import buffer as buf_mod
+from repro_torch.data.memory import DataSource
 from repro_torch.kernels import packing
 
 
@@ -56,6 +64,141 @@ def replica_gate(valid: torch.Tensor):
         v = valid.reshape(valid.shape + (1,) * (new.ndim - valid.ndim))
         return torch.where(v, new, old)
     return apply
+
+
+# ---------------------------------------------------------------------------
+# Replica moves between the device plane and the host (the residency layer)
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of equally shaped trees of tuples and
+    NamedTuples (a ``(SessionState, keys)`` plane, say); ``None`` stays
+    ``None``."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, tuple):
+        vals = [tree_map(fn, *kids) for kids in zip(*trees)]
+        return type(t0)(*vals) if hasattr(t0, "_fields") else tuple(vals)
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of tuples, in :func:`tree_map` order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _to_device(v: np.ndarray, device) -> torch.Tensor:
+    """A small host array onto ``device`` without waiting for the stream:
+    on a card it goes through pinned memory (a pageable copy would first
+    synchronise the stream, so an issued move would wait for all the work
+    queued before it); the caching host allocator keeps the pinned block
+    until the copy's event."""
+    t = torch.from_numpy(np.ascontiguousarray(v))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _index(idx, device) -> torch.Tensor:
+    return _to_device(np.asarray(idx, dtype=np.int64), device)
+
+
+def _take_rows(tree, idx: torch.Tensor):
+    """Rows ``idx`` of every replica-leading leaf as NEW device tensors
+    (an index gather, never a view: the rows cannot change when the plane
+    is later written)."""
+    return tree_map(lambda a: a.index_select(0, idx), tree)
+
+
+class PendingGather(NamedTuple):
+    """An issued device -> host gather: host copies (pinned, on a card)
+    and the event that completes them (None on the CPU)."""
+
+    host: Any
+    event: Optional[Any]
+
+
+def gather_replicas_issue(tree, idx) -> PendingGather:
+    """The first half of :func:`gather_replicas`: gather the named rows of
+    every replica-leading leaf on the device, start their copies into fresh
+    pinned host tensors (``non_blocking``, so the host goes on) and record
+    an event after them. The gather makes new device tensors, so a later
+    write to the plane (in place or not) cannot reach the snapshot; the
+    host tensors are read only after :func:`gather_replicas_await`. On CPU
+    tensors both halves are plain copies."""
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
+    rows = _take_rows(tree, _index(idx, dev))
+    if dev.type != "cuda":
+        return PendingGather(rows, None)
+
+    def to_pinned(a):
+        h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        h.copy_(a, non_blocking=True)
+        return h
+
+    host = tree_map(to_pinned, rows)
+    event = torch.cuda.Event()
+    event.record()
+    return PendingGather(host, event)
+
+
+def gather_replicas_await(pending: PendingGather):
+    """The second half: wait for an issued gather's event, then its rows as
+    host numpy (views of the pinned copies)."""
+    if pending.event is not None:
+        pending.event.synchronize()
+    return tree_map(lambda a: a.numpy(), pending.host)
+
+
+def gather_replicas(tree, idx):
+    """Rows ``idx`` of every replica-leading leaf as host numpy, a
+    blocking copy per leaf: the synchronous spill (``batched_moves=
+    False``), kept as the oracle the batched path is held against."""
+    leaves = tree_leaves(tree)
+    i = _index(idx, leaves[0].device)
+    return tree_map(lambda a: a[i].cpu().numpy(), tree)
+
+
+def _host_to(v, like: torch.Tensor) -> torch.Tensor:
+    """A host leaf (numpy, or a CPU tensor, pinned or not) onto ``like``'s
+    device with ``like``'s dtype: bit patterns kept (np.uint32 words land
+    as the port's int32 words); pinned tensors copy without blocking."""
+    if not torch.is_tensor(v):
+        v = np.asarray(v)
+        if v.dtype == np.uint32:
+            v = v.view(np.int32)
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    return v.to(like.device, non_blocking=v.is_pinned()).to(like.dtype)
+
+
+def scatter_replicas(tree, idx, values):
+    """Write stacked host ``values`` (leading ``len(idx)``) into rows
+    ``idx`` of every replica-leading leaf, out of place: the synchronous
+    activation. Dtypes are the destination's (int8 banks, packed words and
+    bool rows keep their bits)."""
+    leaves = tree_leaves(tree)
+    i = _index(idx, leaves[0].device)
+    return tree_map(lambda a, v: a.index_copy(0, i, _host_to(v, a)), tree,
+                    values)
+
+
+def activate_replicas(plane, act_plane, mask):
+    """Per-slot mask-select activation: slot r takes ``act_plane`` where
+    ``mask[r]``, else keeps ``plane``; out of place, one select per leaf.
+    ``act_plane`` is SLOT-INDEXED (``[R, ...]`` a leaf; its rows outside
+    the mask never reach the result), so there is no index scatter. Host leaves cross
+    to the device first (pinned ones without blocking); dtypes are the
+    destination's."""
+    leaves = tree_leaves(plane)
+    m = _to_device(np.asarray(mask, dtype=bool), leaves[0].device)
+    gate = replica_gate(m)
+    return tree_map(lambda new, old: gate(_host_to(new, old), old),
+                    act_plane, plane)
 
 
 def _feedback_rows(cfg: TMConfig, x: torch.Tensor) -> torch.Tensor:
@@ -236,6 +379,15 @@ class OnlineSession:
 
     def offer(self, x, y) -> bool:
         return self._svc.submit(0, x, y)
+
+    def fill_from(self, source: DataSource, n: int) -> int:
+        """Pull ``n`` rows from a data source into the buffer; returns how
+        many were accepted."""
+        accepted = 0
+        for _ in range(n):
+            x, y = source.next_row()
+            accepted += self.offer(x, int(y))
+        return accepted
 
     def learn_available(
         self, max_points: int,

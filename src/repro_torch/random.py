@@ -19,6 +19,7 @@ launches whatever D is.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -74,12 +75,20 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry(key, (0, data)) as a new key."""
-    x = torch.tensor([0, int(data) & _M32], dtype=torch.int64,
-                     device=key.device)
-    b0, b1 = threefry2x32(*_words(key), x[:1], x[1:])
-    return torch.cat([b0, b1], dim=-1)
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: threefry(key, (0, data)) as a new key.
+
+    ``data`` is an int, or a 1-D sequence of n ints: then the n keys
+    ``[..., n, 2]`` (``jax.vmap`` over the data) come from one call."""
+    if isinstance(data, (int, np.integer)):
+        x = torch.tensor([0, int(data) & _M32], dtype=torch.int64,
+                         device=key.device)
+        b0, b1 = threefry2x32(*_words(key), x[:1], x[1:])
+        return torch.cat([b0, b1], dim=-1)
+    d = torch.as_tensor(np.asarray(data, dtype=np.int64) & _M32,
+                        device=key.device)
+    b0, b1 = threefry2x32(*_words(key), torch.zeros_like(d), d)
+    return torch.stack([b0, b1], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:

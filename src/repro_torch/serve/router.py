@@ -94,7 +94,8 @@ class BatchRouter:
       whose staging lane is full come back *blocked*: the caller flushes
       and retries them.
     * ``take_block()`` -- consumer side: swap the blocks and hand over the
-      filled one (rows, labels, counts).
+      filled one (rows, labels, counts); ``take_lanes(rids)`` takes only
+      the named replicas' rows.
     """
 
     def __init__(self, n_replicas: int, n_features: int, capacity: int,
@@ -176,6 +177,30 @@ class BatchRouter:
                 blk.count[idx] += 1
             self.dropped += mask & ~ok
         return accepted, blocked
+
+    def take_lanes(self, rids
+                   ) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Take only the named replicas' staged rows out of the active
+        block (copies; their lane counts go to 0, so producers restage from
+        the front). Returns (xs [n, B, w], ys [n, B], counts [n]), or None
+        when none of the named lanes holds rows.
+
+        The scoped flush of :meth:`TMService.evict`: landing a few
+        replicas' rows before a spill must not flush the whole fleet, and
+        the other lanes' staged rows stay where they are. Like
+        ``take_block`` it assumes one consumer (the service's device lock);
+        outside a flush the inactive block holds no rows, so the active
+        block is the only staged storage."""
+        with self.lock:
+            blk = self._blocks[self._active]
+            rids = np.asarray(rids, dtype=np.int64).reshape(-1)
+            counts = blk.count[rids].copy()
+            if not counts.any():
+                return None
+            xs = blk.x[rids].copy()
+            ys = blk.y[rids].copy()
+            blk.count[rids] = 0
+            return xs, ys, counts
 
     def take_block(self) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Swap the staging blocks; returns the filled (xs [K, B, w],

@@ -36,13 +36,23 @@ The seed and key schedule are the reference's: keys
 ``fold_in(PRNGKey(seed), r)`` (or ``PRNGKey(seed[r])`` for a sequence of
 seeds), one split per drained chunk for every active replica, and
 ``PRNGKey(seed=1)`` for ``offline_train``. So a run here is bitwise the
-reference's. Residency and meshes are later slices of the port and raise
-``NotImplementedError``.
+reference's.
+
+Residency (``ServiceConfig(resident=R)`` or ``"auto"``): the device plane
+holds R slots and the other K - R machines live as host snapshots in an
+LRU store (:mod:`repro_torch.serve.residency`), activated when traffic,
+serving or analysis reaches them. Snapshots leave the card through an
+index gather into pinned host memory, awaited by event only where the
+snapshot is read (``batched_moves=True``), or through blocking copies
+(``batched_moves=False``, the oracle); either way a replica's trajectory
+is bitwise its always-resident twin's. A mesh (multi-GPU sharding) is not
+ported and raises ``NotImplementedError``.
 
 Threading: ``submit``/``submit_rows`` are safe from any number of
 producer threads (they touch only the router's staging state and the
 outstanding-rows mirror, both under ``router.lock``). Everything else is
-serialized by one re-entrant device lock. Lock order: device -> router.
+serialized by one re-entrant device lock, the residency map included.
+Lock order: device -> router.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from repro_torch.core.online import ChunkAux, SessionState
 from repro_torch.core.tm import TMConfig, TMRuntime, TMState, init_runtime
 from repro_torch.data import buffer as buf_mod
 from repro_torch.kernels import packing
+from repro_torch.serve import residency as res_mod
 from repro_torch.serve import router as router_mod
 from repro_torch.serve import tunable as tun_mod
 from repro_torch.train import checkpoint as ckpt_mod
@@ -84,6 +95,23 @@ def _advance_keys(keys: torch.Tensor, active: np.ndarray
         return k2[:, 0], k2[:, 1]
     act = torch.from_numpy(active).to(keys.device)
     return torch.where(act[:, None], k2[:, 0], keys), k2[:, 1]
+
+
+def _activate_enqueue_rows(ss: SessionState, keys: torch.Tensor, act_mask,
+                           act_ss, act_keys, xs, ys, counts):
+    """A residency cohort's activation, then its block enqueue, in that
+    order on the device's one stream: the mask-select lands the slot-
+    indexed snapshots (``act_ss``/``act_keys`` from
+    ``TMService._prepare_slots``), then the staged rows push into the
+    freshly activated rings. Returns (state, keys, accepted [R])."""
+    ss, keys = online_mod.activate_replicas((ss, keys), (act_ss, act_keys),
+                                            act_mask)
+    buf, accepted = router_mod._enqueue_rows(ss.buf, xs, ys, counts)
+    return ss._replace(buf=buf), keys, accepted
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 def _select_replicas(mask: np.ndarray, new: TMState, old: TMState) -> TMState:
@@ -154,15 +182,10 @@ class AdaptPolicy:
               tm: TMState) -> tuple[TMState, np.ndarray]:
         """One policy transition for the due members. Returns
         (new TA banks, rolled-back mask [K])."""
-        ps.since[due] = 0
-        have_best = ~np.isnan(ps.best)
-        collapse = due & have_best & (acc < ps.best - self.rollback_threshold)
-        improve = due & (~have_best | (acc > ps.best))
+        collapse, improve = self.transition(ps, due, acc)
         if collapse.any():
             tm = _select_replicas(collapse, ps.best_state, tm)
-            ps.rollbacks += collapse
         if improve.any():
-            ps.best = np.where(improve, acc, ps.best)
             # The first improve snapshots unconditionally: there is no
             # known-good bank before the first analysis or offline_train,
             # and the replicas not improving keep best = nan, so their rows
@@ -171,6 +194,27 @@ class AdaptPolicy:
                              else _select_replicas(improve, tm,
                                                    ps.best_state))
         return tm, collapse
+
+    def transition(self, ps: _PolicyState, due: np.ndarray,
+                   acc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """The transition's rule on the [K] arrays, whatever holds the
+        banks: the due members' counts reset, and of the measured ones
+        (accuracy not nan) those that fell past the threshold below their
+        best *collapse* (counted in ``rollbacks``) and those that beat it,
+        or have none, *improve* (``best`` takes their accuracy). Returns
+        (collapse, improve) [K] bool; the caller rolls the collapsed banks
+        back from its known-good store, then copies the improved ones in."""
+        ps.since[due] = 0
+        measured = due & ~np.isnan(acc)
+        have_best = ~np.isnan(ps.best)
+        collapse = measured & have_best & (
+            acc < ps.best - self.rollback_threshold)
+        improve = measured & (~have_best | (acc > ps.best))
+        if collapse.any():
+            ps.rollbacks += collapse
+        if improve.any():
+            ps.best = np.where(improve, acc, ps.best)
+        return collapse, improve
 
     def snapshot(self, ps: _PolicyState, acc: np.ndarray, tm: TMState):
         """Unconditional known-good snapshot (the offline-train baseline)."""
@@ -197,9 +241,20 @@ class ServiceConfig:
     rings, eval set, serving, monitoring), bit for bit the unpacked one.
     ``history_limit`` keeps only the most recent N analysis entries (None
     keeps all). ``tunable`` (a :class:`~repro_torch.serve.tunable.
-    TunableConfig`) arms runtime-tunable serving. ``resident`` and
-    ``mesh`` keep the reference's names; values other than their defaults
-    belong to later slices of the port and raise.
+    TunableConfig`) arms runtime-tunable serving.
+
+    ``resident`` caps how many replicas hold device state at once: the
+    plane shrinks to ``resident`` slots and the other machines live as
+    host snapshots, activated when traffic, serving or analysis reaches
+    them. None keeps every replica resident; ``"auto"`` sizes the plane
+    from an EWMA of the per-round active set and re-partitions in
+    ``tick`` when it crosses the grow/shrink bands (trajectories do not
+    change). Residency needs scalar ``s``/``T``. ``batched_moves`` (with
+    residency) defers spills (an index gather into pinned host memory,
+    awaited by event where the snapshot is read) and lands activations by
+    a mask-select before the enqueue; False takes the synchronous
+    gather/scatter moves, bitwise the same. ``mesh`` keeps the reference's
+    name; multi-GPU sharding is not ported and raises.
     """
 
     replicas: int = 1
@@ -209,6 +264,7 @@ class ServiceConfig:
     packed: bool = False
     history_limit: Optional[int] = None
     resident: Union[int, None, str] = None
+    batched_moves: bool = True
     s: Union[float, Sequence[float], None] = None
     T: Union[int, Sequence[int], None] = None
     policy: AdaptPolicy = dataclasses.field(default_factory=AdaptPolicy)
@@ -234,9 +290,7 @@ class ServiceConfig:
 
 
 def _not_yet(sc: ServiceConfig) -> Optional[str]:
-    """The first knob of ``sc`` that a later slice of the port serves."""
-    if sc.resident is not None:
-        return f"resident={sc.resident!r} (the residency slice)"
+    """The first knob of ``sc`` that the port does not serve."""
     if sc.mesh is not None:
         return "mesh (multi-GPU replica sharding, not ported)"
     return None
@@ -267,6 +321,21 @@ class TMService:
         if ta.ndim == 4 and ta.shape[0] != K:
             raise ValueError(
                 f"state carries {ta.shape[0]} replicas, expected {K}")
+        auto = sc.resident == "auto"
+        if isinstance(sc.resident, str) and not auto:
+            raise ValueError(f"resident must be an int, None or 'auto', "
+                             f"got {sc.resident!r}")
+        if not auto and sc.resident is not None and sc.resident < 1:
+            raise ValueError("resident must be >= 1 (or None, or 'auto')")
+        if auto:
+            # a quarter of the fleet: small enough that sparse traffic
+            # shrinks within one band, big enough that dense traffic grows
+            # without thrashing first
+            P, residency = max(1, -(-K // 4)), True
+        else:
+            residency = sc.resident is not None and sc.resident < K
+            # P: the device plane's length, R slots under residency, else K
+            P = int(sc.resident) if residency else K
         dev = tm_mod.resolve_device(device)
 
         self.cfg = cfg
@@ -274,36 +343,67 @@ class TMService:
         self.device = dev
         self.rt = rt if rt is not None else sc.runtime(cfg, dev)
         self.n_replicas = K
+        self.n_resident = P
         self.chunk = max(1, min(sc.chunk, sc.buffer_capacity))
         self.policy = sc.policy
+        scalar_ports = (torch.as_tensor(self.rt.s).ndim == 0
+                        and torch.as_tensor(self.rt.T).ndim == 0)
+        if residency and not scalar_ports:
+            raise ValueError(
+                "residency (resident < replicas) requires scalar s/T "
+                "runtime ports: a slot's hyperparameters must not change "
+                "with the replica occupying it")
         # Packed services hold the eval set as words, so every analysis
         # rides the packed kernels.
         self.eval_x = None if eval_x is None else self._ingest(eval_x)
         self.eval_y = None if eval_y is None else self._labels(eval_y)
         # K = 1 with scalar ports keeps the single-machine bodies.
-        self._k1 = (K == 1 and torch.as_tensor(self.rt.s).ndim == 0
-                    and torch.as_tensor(self.rt.T).ndim == 0)
+        self._k1 = K == 1 and scalar_ports
 
         seed = sc.seed
         if isinstance(seed, (int, np.integer)):
-            base = rnd.PRNGKey(int(seed), dev)
-            self._keys = torch.stack([rnd.fold_in(base, r)
-                                      for r in range(K)])
+            keys = rnd.fold_in(rnd.PRNGKey(int(seed), dev), np.arange(K))
         else:
             if len(seed) != K:
                 raise ValueError(f"need {K} seeds, got {len(seed)}")
-            self._keys = torch.stack([rnd.PRNGKey(int(s), dev)
-                                      for s in seed])
+            keys = torch.stack([rnd.PRNGKey(int(s), dev) for s in seed])
 
         ta = ta.to(dev)
-        bank = ta if ta.ndim == 4 else ta.expand((K,) + ta.shape)
+        bank = ta[:P] if ta.ndim == 4 else ta.expand((P,) + ta.shape)
+        buf1 = buf_mod.make(sc.buffer_capacity, cfg.n_features, dev,
+                            packed=sc.packed)
         self._ss = SessionState(
             tm=TMState(ta_state=bank.contiguous()),
-            buf=buf_mod.stack(buf_mod.make(sc.buffer_capacity,
-                                           cfg.n_features, dev,
-                                           packed=sc.packed), K),
-            step=torch.zeros((K,), dtype=torch.int32, device=dev),
+            buf=buf_mod.stack(buf1, P),
+            step=torch.zeros((P,), dtype=torch.int32, device=dev),
         )
+        self._keys = keys[:P]
+        # Residency: replicas 0..P-1 start in the slots; the rest are host
+        # snapshots sharing the initial bank and empty ring (snapshots are
+        # never written in place, so sharing is safe).
+        self._res: Optional[res_mod.ResidencyMap] = None
+        self._best_host: Optional[np.ndarray] = None   # [K, C, J, L] banks
+        self._auto = auto
+        self._batched = residency and sc.batched_moves
+        self.repartitions = 0
+        # Deferred spills: (issued gather, rids) pairs whose host copies
+        # are not yet awaited. Settled before any full-plane read, store
+        # access or activation of a pending replica.
+        self._pending_spills: list = []
+        self._pending_rids: set = set()
+        if residency:
+            self._res = res_mod.ResidencyMap(K, P)
+            self._res.assign(np.arange(P), np.arange(P))
+            keys_host = _host(keys)
+            buf_host = online_mod.tree_map(_host, buf1)
+            banks_host = _host(ta)
+            for rid in range(P, K):
+                self._res.store[rid] = (
+                    SessionState(
+                        tm=TMState(banks_host[rid] if ta.ndim == 4
+                                   else banks_host),
+                        buf=buf_host, step=np.int32(0)),
+                    keys_host[rid])
         self.router = router_mod.BatchRouter(
             K, cfg.n_features, sc.buffer_capacity, sc.ingress_block,
             packed=sc.packed)
@@ -314,6 +414,8 @@ class TMService:
         self._full_mask = np.ones(K, dtype=bool)
         self._ps = sc.policy.init(K)
         self.history: list = []            # (steps [K], accuracies [K])
+        # Clause rankings live on the host per replica ([K, ...]), so
+        # eviction never touches them.
         self.tuner = (None if sc.tunable is None else
                       tun_mod.TuneController(sc.tunable, K, cfg.max_clauses))
 
@@ -343,16 +445,27 @@ class TMService:
 
     @property
     def ss(self) -> SessionState:
-        """Device state ([K, ...] leaves), staged ingress flushed first."""
+        """Device state ([K, ...] leaves), staged ingress flushed first.
+        Under residency, the assembled full-K logical fleet (slots in
+        replica order, spilled snapshots filled in) on the device: a
+        read-only copy; save/restore or evict/activate move state."""
         with self._device_lock:
             self.flush()
-            return self._ss
+            if self._res is None:
+                return self._ss
+            ss_K, _ = self._assemble_plane()
+            return online_mod.tree_map(
+                lambda a: torch.from_numpy(a).to(self.device), ss_K)
 
     @ss.setter
     def ss(self, value: SessionState):
         """Replace the device state wholesale; the occupancy mirror follows
         its rings."""
         with self._device_lock:
+            if self._res is not None:
+                raise ValueError(
+                    "a residency service's device plane cannot be swapped "
+                    "wholesale; use restore() for bulk state")
             self._ss = value
             with self.router.lock:
                 self._dev_size = value.buf.size.cpu().numpy().astype(
@@ -364,6 +477,30 @@ class TMService:
         if self.n_replicas != 1:
             raise ValueError("session_state is the K = 1 view")
         return _squeeze(self.ss)
+
+    def _assemble_plane(self) -> tuple[SessionState, np.ndarray]:
+        """The full-K logical (state, keys) as host numpy in the port's
+        dtypes: slots gathered into replica order, spilled snapshots
+        filled in."""
+        self._settle_spills()
+        host = online_mod.tree_map(_host, (self._ss, self._keys))
+        if self._res is None:
+            return host
+        K = self.n_replicas
+        m = self._res.replica_of >= 0
+        rids = self._res.replica_of[m]
+
+        def fill(leaf):
+            out = np.zeros((K,) + leaf.shape[1:], leaf.dtype)
+            out[rids] = leaf[m]
+            return out
+
+        outs = online_mod.tree_map(fill, host)
+        flat = online_mod.tree_leaves(outs)
+        for rid, snap in self._res.store.items():
+            for o, leaf in zip(flat, online_mod.tree_leaves(snap)):
+                o[rid] = leaf
+        return outs
 
     # -- ingress (producer side) ----------------------------------------------
 
@@ -392,7 +529,8 @@ class TMService:
 
     def flush(self) -> np.ndarray:
         """Push every staged row into the rings, one vectorised enqueue per
-        staged block. Returns [K] rows landed; rows a ring rejects despite
+        staged block (per cohort of at most ``resident`` hot lanes under
+        residency). Returns [K] rows landed; rows a ring rejects despite
         the mirror count as dropped."""
         landed = np.zeros(self.n_replicas, dtype=np.int64)
         with self._device_lock:
@@ -403,15 +541,278 @@ class TMService:
                         self._dev_size += block[2]
                 if block is None:
                     return landed
-                xs, ys, counts = block
-                buf, accepted = router_mod._enqueue_rows(
-                    self._ss.buf, xs, ys, counts)
-                self._ss = self._ss._replace(buf=buf)
-                acc = accepted.cpu().numpy().astype(np.int64)
-                with self.router.lock:
-                    self._dev_size -= counts - acc
-                    self.router.dropped += counts - acc
-                landed += acc
+                landed += (self._flush_block(*block) if self._res is None
+                           else self._flush_block_residency(*block))
+
+    def _flush_block(self, xs, ys, counts) -> np.ndarray:
+        """One taken [K, B] staging block -> one enqueue."""
+        buf, accepted = router_mod._enqueue_rows(self._ss.buf, xs, ys,
+                                                 counts)
+        self._ss = self._ss._replace(buf=buf)
+        acc = _host(accepted).astype(np.int64)
+        with self.router.lock:
+            self._dev_size -= counts - acc
+            self.router.dropped += counts - acc
+        return acc
+
+    def _flush_block_residency(self, xs, ys, counts) -> np.ndarray:
+        """One taken [K, B] block under residency: the hot lanes land
+        cohort by cohort through :meth:`_enqueue_lanes`."""
+        lanes = np.nonzero(np.asarray(counts) > 0)[0]
+        return self._enqueue_lanes(lanes, xs[lanes], ys[lanes],
+                                   counts[lanes])
+
+    def _enqueue_lanes(self, lanes, xs_l, ys_l, cnt_l) -> np.ndarray:
+        """Land the given lanes' staged rows (lane-indexed [n, B, ...]) in
+        their replicas' rings, in cohorts of at most ``resident``. Returns
+        [K] rows landed (mirror and drop accounting per cohort)."""
+        K, R = self.n_replicas, self.n_resident
+        landed = np.zeros(K, dtype=np.int64)
+        enqueue = (self._enqueue_cohort_batched if self._batched
+                   else self._enqueue_cohort_sync)
+        for i in range(0, len(lanes), R):
+            sl = slice(i, i + R)
+            cohort = lanes[sl]
+            acc = enqueue(cohort, xs_l[sl], ys_l[sl], cnt_l[sl])
+            rej = np.asarray(cnt_l[sl], dtype=np.int64) - acc
+            with self.router.lock:
+                self._dev_size[cohort] -= rej
+                self.router.dropped[cohort] += rej
+            landed[cohort] += acc
+        return landed
+
+    def _slot_block(self, slots, xs_c, ys_c, cnt_c):
+        """A cohort's lane rows scattered to a slot-indexed [R, B] block."""
+        R = self.n_resident
+        xs_p = np.zeros((R,) + xs_c.shape[1:], dtype=xs_c.dtype)
+        ys_p = np.zeros((R,) + ys_c.shape[1:], dtype=ys_c.dtype)
+        cnt_p = np.zeros((R,), dtype=cnt_c.dtype)
+        xs_p[slots] = xs_c
+        ys_p[slots] = ys_c
+        cnt_p[slots] = cnt_c
+        return xs_p, ys_p, cnt_p
+
+    def _enqueue_cohort_sync(self, cohort, xs_c, ys_c, cnt_c) -> np.ndarray:
+        """The synchronous cohort: blocking activation (gather, scatter),
+        then a separate enqueue. The oracle the batched path is held to."""
+        slots = self._ensure_resident(cohort)
+        buf, accepted = router_mod._enqueue_rows(
+            self._ss.buf, *self._slot_block(slots, xs_c, ys_c, cnt_c))
+        self._ss = self._ss._replace(buf=buf)
+        return _host(accepted).astype(np.int64)[slots]
+
+    def _enqueue_cohort_batched(self, cohort, xs_c, ys_c,
+                                cnt_c) -> np.ndarray:
+        """The batched cohort: prepare the slots (victims' gathers issued,
+        not awaited; the activation snapshots in one slot-indexed pinned
+        plane), then the activation and the enqueue on one stream. The
+        pending spills settle once both are queued."""
+        slots, act = self._prepare_slots(cohort)
+        block = self._slot_block(slots, xs_c, ys_c, cnt_c)
+        if act is None:
+            buf, accepted = router_mod._enqueue_rows(self._ss.buf, *block)
+            self._ss = self._ss._replace(buf=buf)
+        else:
+            act_mask, (act_ss, act_keys) = act
+            self._ss, self._keys, accepted = _activate_enqueue_rows(
+                self._ss, self._keys, act_mask, act_ss, act_keys, *block)
+        self._settle_spills()
+        return _host(accepted).astype(np.int64)[slots]
+
+    # -- residency ----------------------------------------------------------
+
+    @property
+    def resident(self) -> np.ndarray:
+        """[K] bool: replicas holding device state now (all True without a
+        residency layer)."""
+        if self._res is None:
+            return np.ones(self.n_replicas, dtype=bool)
+        return self._res.resident_mask.copy()
+
+    def _check_cohort(self, rids) -> np.ndarray:
+        rids = np.asarray(rids, dtype=np.int64).reshape(-1)
+        if len(rids) > self.n_resident:
+            raise ValueError(
+                f"cohort of {len(rids)} replicas exceeds the "
+                f"{self.n_resident} device slots")
+        if len(np.unique(rids)) != len(rids):
+            raise ValueError("duplicate replicas in a residency cohort")
+        return rids
+
+    def _ensure_resident(self, rids) -> np.ndarray:
+        """Device slots for the named replicas, activating evicted ones
+        (spilling the least recently used residents to make room).
+        Callers hold the device lock; a cohort is at most ``n_resident``
+        distinct replicas."""
+        if not self._batched:
+            return self._ensure_resident_sync(rids)
+        slots, act = self._prepare_slots(rids)
+        if act is not None:
+            act_mask, act_plane = act
+            self._ss, self._keys = online_mod.activate_replicas(
+                (self._ss, self._keys), act_plane, act_mask)
+        return slots
+
+    def _ensure_resident_sync(self, rids) -> np.ndarray:
+        """The synchronous residency body (``batched_moves=False``):
+        blocking gather on spill, index scatter on activate."""
+        res = self._res
+        rids = self._check_cohort(rids)
+        need = rids[res.slot_of[rids] < 0]
+        if len(need):
+            take = list(res.free_slots()[:len(need)])
+            short = len(need) - len(take)
+            if short > 0:
+                pinned = res.slot_of[rids]
+                victims = res.lru_victims(short, pinned[pinned >= 0])
+                self._spill(victims)
+                take += list(victims)
+            self._activate(need, np.asarray(take[:len(need)],
+                                            dtype=np.int64))
+        slots = res.slot_of[rids]
+        res.touch(slots)
+        return slots
+
+    def _prepare_slots(self, rids):
+        """Slots for the named cohort, with the activation built but not
+        landed: the victims' gathers issued (not awaited), and the evicted
+        members' snapshots written into one slot-indexed [R, ...] host
+        plane (pinned on a card; rows outside the mask unwritten) with an
+        activation mask. Returns (slots [n], None | (act_mask [R],
+        (act_ss_plane, act_keys_plane)))."""
+        res = self._res
+        R = self.n_resident
+        rids = self._check_cohort(rids)
+        need = rids[res.slot_of[rids] < 0]
+        if len(need) == 0:
+            slots = res.slot_of[rids]
+            res.touch(slots)
+            return slots, None
+        take = list(res.free_slots()[:len(need)])
+        short = len(need) - len(take)
+        if short > 0:
+            pinned = res.slot_of[rids]
+            victims = res.lru_victims(short, pinned[pinned >= 0])
+            self._spill_issue(victims)
+            take += list(victims)
+        take = np.asarray(take[:len(need)], dtype=np.int64)
+        # A replica whose spill is still in flight has its bits only in
+        # the pending host copies until a settle writes the store.
+        if self._pending_rids.intersection(int(r) for r in need):
+            self._settle_spills()
+        snaps = [res.store.pop(int(r)) for r in need]
+        pin = self.device.type == "cuda"
+
+        def to_plane(*leaves):
+            first = np.asarray(leaves[0])
+            out = torch.empty((R,) + first.shape,
+                              dtype=torch.from_numpy(first[None]).dtype,
+                              pin_memory=pin)
+            view = out.numpy()
+            for slot, leaf in zip(take, leaves):
+                view[slot] = leaf
+            return out
+
+        act_plane = online_mod.tree_map(to_plane, *snaps)
+        act_mask = np.zeros(R, dtype=bool)
+        act_mask[take] = True
+        res.assign(need, take)
+        slots = res.slot_of[rids]
+        res.touch(slots)
+        return slots, (act_mask, act_plane)
+
+    def _spill_issue(self, slots) -> None:
+        """Issue the device -> host gather of the replicas in the given
+        slots without awaiting it: the gathered rows are new device
+        tensors copying into pinned host memory, settled at the next
+        settle point."""
+        slots = np.asarray(slots, dtype=np.int64)
+        if len(slots) == 0:
+            return
+        pending = online_mod.gather_replicas_issue((self._ss, self._keys),
+                                                   slots)
+        rids = self._res.release(slots)
+        self._pending_spills.append((pending, rids))
+        self._pending_rids.update(int(r) for r in rids)
+
+    def _settle_spills(self) -> None:
+        """Await every pending spill (its event) and write the snapshots
+        into the host store. A no-op when nothing is pending; every
+        full-plane read, store access and activation of a pending replica
+        settles first. Each snapshot is copied out of the cohort's pinned
+        batch into pageable memory, so the store pins nothing: page-locked
+        host memory stays bounded by the moves in flight, not by the
+        store's size."""
+        if not self._pending_spills:
+            return
+        pending, self._pending_spills = self._pending_spills, []
+        self._pending_rids.clear()
+        for gather, rids in pending:
+            host = online_mod.gather_replicas_await(gather)
+            for j, rid in enumerate(rids):
+                self._res.store[int(rid)] = online_mod.tree_map(
+                    lambda a, _j=j: a[_j].copy(), host)
+
+    def _spill(self, slots) -> None:
+        """Evict the replicas in the given slots: a blocking gather, whole
+        per-machine snapshots into the store."""
+        slots = np.asarray(slots, dtype=np.int64)
+        if len(slots) == 0:
+            return
+        vals = online_mod.gather_replicas((self._ss, self._keys), slots)
+        rids = self._res.release(slots)
+        for j, rid in enumerate(rids):
+            self._res.store[int(rid)] = online_mod.tree_map(
+                lambda a, _j=j: a[_j].copy(), vals)
+
+    def _activate(self, rids, slots) -> None:
+        """Load the named (evicted) replicas' snapshots into free slots:
+        one host -> device scatter a cohort."""
+        snaps = [self._res.store.pop(int(r)) for r in rids]
+        vals = online_mod.tree_map(lambda *xs: np.stack(xs), *snaps)
+        self._ss, self._keys = online_mod.scatter_replicas(
+            (self._ss, self._keys), slots, vals)
+        self._res.assign(np.asarray(rids, dtype=np.int64), slots)
+
+    def evict(self, replicas) -> None:
+        """Spill the named replicas to the host store. Their staged
+        ingress lands first, scoped to their lanes
+        (:meth:`BatchRouter.take_lanes`): other lanes' staged rows stay
+        staged. A later submit, serve or analysis reaching an evicted
+        member activates it again."""
+        with self._device_lock:
+            if self._res is None:
+                raise ValueError(
+                    "service has no residency layer (resident is None)")
+            rids = np.unique(np.asarray(replicas, dtype=np.int64).reshape(-1))
+            with self.router.lock:
+                taken = self.router.take_lanes(rids)
+                if taken is not None:
+                    # taken rows are in flight: credit the mirror at the
+                    # take, debit rejects after the enqueue
+                    self._dev_size[rids] += taken[2]
+            if taken is not None:
+                xs_l, ys_l, cnt_l = taken
+                hot = np.nonzero(cnt_l > 0)[0]
+                self._enqueue_lanes(rids[hot], xs_l[hot], ys_l[hot],
+                                    cnt_l[hot])
+            slots = self._res.slot_of[rids]
+            slots = np.unique(slots[slots >= 0])
+            if self._batched:
+                # an explicit evict wants the snapshots in the store now
+                self._spill_issue(slots)
+                self._settle_spills()
+            else:
+                self._spill(slots)
+
+    def activate(self, replicas) -> np.ndarray:
+        """Make the named replicas device-resident (at most ``resident``
+        of them); returns their slots."""
+        with self._device_lock:
+            if self._res is None:
+                raise ValueError(
+                    "service has no residency layer (resident is None)")
+            return self._ensure_resident(replicas)
 
     @property
     def buffered(self) -> np.ndarray:
@@ -435,21 +836,44 @@ class TMService:
         trained.
 
         Flushes staged ingress, then drains chunk by chunk, the whole
-        fleet per chunk. ``on_chunk`` receives each chunk's
-        :class:`ChunkAux` with a leading replica axis ``[K, chunk]``;
+        plane per chunk. ``on_chunk`` receives each chunk's
+        :class:`ChunkAux` with a leading plane axis ``[P, chunk]``;
         without it the monitoring pass does not run.
+
+        Under residency the drain sweeps every replica that holds rows and
+        budget, in cohorts of at most ``resident``. A replica with budget
+        but no rows is skipped and its key does not split, so an
+        always-resident twin is driven with budgets masked by
+        ``buffered > 0``.
         """
+        K = self.n_replicas
         budget = np.broadcast_to(np.asarray(max_points, dtype=np.int64),
-                                 (self.n_replicas,)).copy()
+                                 (K,)).copy()
         with self._device_lock:
             self.flush()
-            if self._k1:
-                return self._drain_k1(budget, on_chunk)
-            return self._drain_replicated(budget, on_chunk)
+            if self._res is None:
+                return (self._drain_k1(budget, on_chunk) if self._k1
+                        else self._drain_replicated(budget, on_chunk))
+            trained = np.zeros(K, dtype=np.int64)
+            with self.router.lock:
+                has_rows = self._dev_size > 0
+            todo = np.nonzero(has_rows & (budget > 0))[0]
+            # the active set's size is the autotune signal
+            self._res.note_active(len(todo))
+            R = self.n_resident
+            for i in range(0, len(todo), R):
+                cohort = todo[i:i + R]
+                slots = self._ensure_resident(cohort)
+                budget_p = np.zeros(R, dtype=np.int64)
+                budget_p[slots] = budget[cohort]
+                trained_p = self._drain_replicated(budget_p, on_chunk)
+                trained[cohort] = trained_p[slots]
+            self._settle_spills()
+            return trained
 
     def _drain_replicated(self, budget: np.ndarray, on_chunk) -> np.ndarray:
-        K = len(budget)
-        trained = np.zeros(K, dtype=np.int64)
+        P = len(budget)   # the plane's length (slots, not the fleet's K)
+        trained = np.zeros(P, dtype=np.int64)
         active = trained < budget
         monitor = on_chunk is not None
         while active.any():
@@ -469,10 +893,15 @@ class TMService:
             active &= (n == want) & (trained < budget)
         return trained
 
-    def _debit_mirror(self, n: np.ndarray) -> None:
-        """Rows consumed per replica off the mirror. Callers hold the
-        router lock."""
-        self._dev_size -= n
+    def _debit_mirror(self, n_plane: np.ndarray) -> None:
+        """Rows consumed per plane row off the [K] mirror (slots map to
+        their replicas under residency). Callers hold the router lock."""
+        if self._res is None:
+            self._dev_size -= n_plane
+        else:
+            m = self._res.replica_of >= 0
+            np.subtract.at(self._dev_size, self._res.replica_of[m],
+                           n_plane[m])
 
     def _drain_k1(self, budget: np.ndarray, on_chunk) -> np.ndarray:
         """The single-machine drain body on the K = 1 slice."""
@@ -510,9 +939,21 @@ class TMService:
         the controller's live budget (the plain path when that is 1.0 with
         unit weights and no early exit). ``return_aux`` also returns the
         :class:`~repro_torch.serve.tunable.ServeAux` (tunable path only).
+
+        A residency service holds only ``resident`` machines on the
+        device: :meth:`serve_replicas` names the members a request
+        targets.
         """
         xs = self._ingest(xs)
         with self._device_lock:
+            if self._res is not None:
+                raise ValueError(
+                    "TMService.serve needs the whole fleet device-resident, "
+                    f"but ServiceConfig(resident={self.sc.resident}) < "
+                    f"replicas={self.n_replicas} spills part of it: use "
+                    "serve_replicas(replicas, xs) to serve named members "
+                    "(activated on demand), or raise the 'resident' knob to "
+                    "cover the fleet")
             if not self._tunable(budget):
                 if return_aux:
                     raise ValueError(
@@ -565,43 +1006,69 @@ class TMService:
                                evaluated=evaluated)
         return preds, aux
 
+    def _plane_rows(self, slots) -> TMState:
+        """The banks in the given plane rows, gathered into one plane."""
+        idx = torch.from_numpy(np.asarray(slots, dtype=np.int64))
+        return TMState(self._ss.tm.ta_state[idx.to(self.device)])
+
     def serve_replicas(self, replicas, xs, *, budget=None,
                        return_aux: bool = False):
         """Inference for the named replicas only: [n, B] i32. ``xs`` is
         [B, f] (one batch for all named members) or [n, B, f] (one each).
-        The named members' banks are gathered into one plane and served in
-        one contraction; each serves from its own calibrated ranking on
-        the budgeted path. ``budget``/``return_aux`` as in :meth:`serve`.
+        The named members' banks are gathered into one plane a cohort of
+        at most ``resident`` (evicted members activate, spilling the least
+        recently used) and served in one contraction, bit for bit an
+        always-resident fleet's; each serves from its own calibrated
+        ranking on the budgeted path. ``budget``/``return_aux`` as in
+        :meth:`serve`.
         """
         xs = self._ingest(xs)
         rids = np.asarray(replicas, dtype=np.int64).reshape(-1)
         if rids.size == 0 or rids.min() < 0 or rids.max() >= self.n_replicas:
             raise ValueError(f"replica ids must name members of "
                              f"[0, {self.n_replicas}), got {rids.tolist()}")
+        shared = xs.ndim == 2
+        cap = self.n_resident
         tunable = self._tunable(budget)
         if return_aux and not tunable:
             raise ValueError(
                 "return_aux reports the budgeted path's compute: pass a "
                 "budget (or configure an active tunable)")
         tuner = self._require_tuner() if tunable else None
+        outs, auxes = [], []
         with self._device_lock:
-            idx = torch.from_numpy(rids).to(self.device)
-            tm_c = TMState(self._ss.tm.ta_state[idx])
-            xs_c = xs[None] if xs.ndim == 2 else xs
-            if not tunable:
-                return tm_mod.predict_batch_replicated(
-                    self.cfg, tm_c, self.rt, xs_c).cpu().numpy()
-            w_c = None if tuner.weights is None else tuner.weights[rids]
-            preds, aux = self._serve_tunable(tm_c, xs_c, tuner.order[rids],
-                                             w_c, budget)
-        return (preds, aux) if return_aux else preds
+            for i in range(0, len(rids), cap):
+                cohort = rids[i:i + cap]
+                slots = (cohort if self._res is None
+                         else self._ensure_resident(cohort))
+                tm_c = self._plane_rows(slots)
+                xs_c = xs[None] if shared else xs[i:i + cap]
+                if not tunable:
+                    outs.append(tm_mod.predict_batch_replicated(
+                        self.cfg, tm_c, self.rt, xs_c).cpu().numpy())
+                    continue
+                w_c = None if tuner.weights is None else tuner.weights[cohort]
+                preds, aux = self._serve_tunable(
+                    tm_c, xs_c, tuner.order[cohort], w_c, budget)
+                outs.append(preds)
+                auxes.append(aux)
+        preds = np.concatenate(outs, axis=0)
+        if not return_aux:
+            return preds
+        aux = tun_mod.ServeAux(
+            budget=auxes[0].budget, m=auxes[0].m,
+            sel=np.concatenate([a.sel for a in auxes], axis=0),
+            evaluated=np.concatenate([a.evaluated for a in auxes], axis=0))
+        return preds, aux
 
     def calibrate(self, xs=None, ys=None) -> np.ndarray:
         """Rank every replica's clauses on a calibration set (default: the
         eval set), polarity-balanced, and derive integer vote weights when
         the tunable config asks for them. Returns the [K, C, J] i32 score
-        plane. Calibrate again when the banks have drifted; serving in
-        between uses the older ranks."""
+        plane. Under residency the fleet calibrates in cohorts of at most
+        ``resident`` (evicted members activate); ranks land on the host per
+        replica either way. Calibrate again when the banks have drifted;
+        serving in between uses the older ranks."""
         if self.tuner is None:
             raise ValueError(
                 "calibrate needs ServiceConfig(tunable=TunableConfig(...))")
@@ -611,15 +1078,24 @@ class TMService:
             raise ValueError(
                 "calibrate needs a labelled set: pass (xs, ys) or build the "
                 "service with eval_x/eval_y")
+        K = self.n_replicas
         with self._device_lock:
             tm = self._ss.tm
-            if self._k1:
-                scores = tun_mod.clause_scores(
-                    self.cfg, TMState(tm.ta_state[0]), self.rt, xs, ys)[None]
+            if self._res is not None:
+                scores = np.zeros((K, self.cfg.max_classes,
+                                   self.cfg.max_clauses), dtype=np.int32)
+                for i in range(0, K, self.n_resident):
+                    cohort = np.arange(i, min(i + self.n_resident, K))
+                    slots = self._ensure_resident(cohort)
+                    scores[cohort] = _host(tun_mod.clause_scores_replicated(
+                        self.cfg, self._plane_rows(slots), self.rt, xs[None],
+                        ys[None]))
+            elif self._k1:
+                scores = _host(tun_mod.clause_scores(
+                    self.cfg, TMState(tm.ta_state[0]), self.rt, xs, ys)[None])
             else:
-                scores = tun_mod.clause_scores_replicated(
-                    self.cfg, tm, self.rt, xs[None], ys[None])
-            scores = scores.cpu().numpy()
+                scores = _host(tun_mod.clause_scores_replicated(
+                    self.cfg, tm, self.rt, xs[None], ys[None]))
             self.tuner.set_ranking(
                 tun_mod.rank_from_scores(
                     scores, tm_mod.clause_polarity(self.cfg).numpy()),
@@ -632,25 +1108,37 @@ class TMService:
 
     def analyze(self) -> np.ndarray:
         """Eval accuracy of every member in one clause plane. [K] f32;
-        appends to ``history``."""
+        appends to ``history``. Under residency only resident members
+        measure; evicted ones read nan (``activate`` them first; the
+        policy loop does that for its due members)."""
         if self.eval_x is None:
             raise ValueError("TMService built without an eval set")
         with self._device_lock:
             acc = self._measure()
-            self.history.append((self.steps, acc))
-            if self.sc.history_limit is not None:
-                del self.history[:-self.sc.history_limit]
+            self._record(acc)
             return acc
 
+    def _record(self, acc: np.ndarray) -> None:
+        self.history.append((self.steps, acc))
+        if self.sc.history_limit is not None:
+            del self.history[:-self.sc.history_limit]
+
     def _measure(self) -> np.ndarray:
+        """One eval contraction over the device plane; [K] f32 (nan for
+        evicted replicas). No history side effects."""
         tm = self._ss.tm
         if self._k1:
             return np.asarray([float(acc_mod.analyze(
                 self.cfg, TMState(tm.ta_state[0]), self.rt, self.eval_x,
                 self.eval_y))], dtype=np.float32)
-        return acc_mod.analyze_replicated(
-            self.cfg, tm, self.rt, self.eval_x[None], self.eval_y[None]
-        ).cpu().numpy()
+        acc_p = _host(acc_mod.analyze_replicated(
+            self.cfg, tm, self.rt, self.eval_x[None], self.eval_y[None]))
+        if self._res is None:
+            return acc_p
+        acc = np.full(self.n_replicas, np.nan, dtype=np.float32)
+        m = self._res.replica_of >= 0
+        acc[self._res.replica_of[m]] = acc_p[m]
+        return acc
 
     def offline_train(self, xs, ys, n_epochs: int = 10,
                       seed: int = 1) -> np.ndarray:
@@ -663,6 +1151,12 @@ class TMService:
         ys = self._labels(ys)
         key = rnd.PRNGKey(seed, self.device)
         with self._device_lock:
+            if self._res is not None:
+                raise ValueError(
+                    "offline_train needs the full fleet device-resident; "
+                    "train a full-resident service (or a single machine) "
+                    "first, then construct the residency service from its "
+                    "state")
             tm = self._ss.tm
             if self._k1:
                 st = fb_mod.train_epochs(
@@ -686,22 +1180,83 @@ class TMService:
         due = self.policy.due(self._ps)
         if not due.any():
             return None
+        if self._res is not None:
+            return self._analyze_residency(due)
         acc = self.analyze()
         tm, rolled = self.policy.apply(self._ps, due, acc, self._ss.tm)
         self._ss = self._ss._replace(tm=tm)
         return acc, rolled
+
+    def _analyze_residency(self, due) -> tuple[np.ndarray, np.ndarray]:
+        """The §5.3.2 transition under residency: measure the due members
+        (activating evicted ones a cohort at a time), append one history
+        entry, then run the policy with the known-good banks on the host
+        (``_best_host``, one [K, ...] array)."""
+        acc = self._measure()
+        missing = due & np.isnan(acc)
+        while missing.any():
+            self._ensure_resident(np.nonzero(missing)[0][:self.n_resident])
+            fresh = self._measure()
+            acc = np.where(np.isnan(acc), fresh, acc).astype(np.float32)
+            missing = due & np.isnan(acc)
+        self._record(acc)
+        return acc, self._policy_apply_residency(due, acc)
+
+    def _policy_apply_residency(self, due, acc) -> np.ndarray:
+        """:meth:`AdaptPolicy.transition` on host-side known-good banks: a
+        collapse writes the member's bank (its slot or its snapshot), an
+        improve copies it into ``_best_host``."""
+        collapse, improve = self.policy.transition(self._ps, due, acc)
+        for rid in np.nonzero(collapse)[0]:
+            self._write_bank(int(rid), self._best_host[rid])
+        if improve.any():
+            if self._best_host is None:
+                ta = self._ss.tm.ta_state
+                self._best_host = np.zeros(
+                    (self.n_replicas,) + tuple(ta.shape[1:]),
+                    dtype=torch.empty(0, dtype=ta.dtype).numpy().dtype)
+            for rid in np.nonzero(improve)[0]:
+                self._best_host[rid] = self._read_bank(int(rid))
+        return collapse
+
+    def _read_bank(self, rid: int) -> np.ndarray:
+        self._settle_spills()
+        slot = int(self._res.slot_of[rid])
+        if slot >= 0:
+            return _host(self._ss.tm.ta_state[slot])
+        return np.asarray(self._res.store[rid][0].tm.ta_state)
+
+    def _write_bank(self, rid: int, bank) -> None:
+        self._settle_spills()
+        slot = int(self._res.slot_of[rid])
+        if slot >= 0:
+            ta = self._ss.tm.ta_state
+            idx = torch.tensor([slot], device=ta.device)
+            src = torch.from_numpy(np.array(bank)[None]).to(ta.device,
+                                                            ta.dtype)
+            self._ss = self._ss._replace(tm=TMState(ta.index_copy(0, idx,
+                                                                  src)))
+        else:
+            ss_s, key_s = self._res.store[rid]
+            self._res.store[rid] = (ss_s._replace(tm=TMState(np.array(bank))),
+                                    key_s)
 
     def tick(self, max_points=None,
              on_chunk: Optional[Callable[[ChunkAux], None]] = None
              ) -> TickReport:
         """One Fig-3 consumer cycle: flush ingress, drain up to
         ``max_points`` (default: one chunk) per replica, advance the
-        analysis cadence, and apply the mitigation policy to due
+        analysis cadence, re-partition an ``"auto"`` plane when its
+        estimate left the bands, and apply the mitigation policy to due
         members."""
         budget = self.chunk if max_points is None else max_points
         with self._device_lock:
             trained = self.drain(budget, on_chunk)
             self._ps.since += trained
+            if self._auto:
+                target = self._res.autotune_target()
+                if target != self.n_resident:
+                    self._repartition(target)
             out = self._maybe_analyze()
             if self.tuner is not None and self.sc.tunable.adapt:
                 # The queue depth after the drain is the observed backlog:
@@ -742,11 +1297,20 @@ class TMService:
         banks, the analysis history, the router's loss counters and a
         calibrated tuner. Staged ingress flushes first, so every accepted
         row is in a saved ring or already consumed: save -> restore ->
-        continue equals never stopping, bit for bit. Returns the path."""
+        continue equals never stopping, bit for bit. A residency service
+        saves the assembled full-K fleet, so the checkpoint restores under
+        any ``resident`` budget. Returns the path."""
         with self._device_lock:
             self.flush()
+            ss_K, keys_K = convert.host_plane_to_reference(
+                *self._assemble_plane())
             ps = self._ps
             K = self.n_replicas
+            if self._res is not None:
+                best = (None if self._best_host is None
+                        else TMState(self._best_host))
+            else:
+                best = convert.to_numpy(ps.best_state)
             if self.history:
                 hsteps = np.stack([np.asarray(h[0]) for h in self.history])
                 haccs = np.stack([np.asarray(h[1]) for h in self.history])
@@ -757,13 +1321,13 @@ class TMService:
                 router_state = {"dropped": self.router.dropped.copy(),
                                 "flushes": np.int64(self.router.flushes)}
             tree = {
-                "ss": convert.session_state_to_numpy(self._ss),
-                "keys": self.rng_keys,
+                "ss": ss_K,
+                "keys": keys_K,
                 "rt": convert.to_numpy(self.rt),
                 "policy": {
                     "since": ps.since, "best": ps.best,
                     "rollbacks": ps.rollbacks, "lost": ps.lost,
-                    "best_state": convert.to_numpy(ps.best_state),
+                    "best_state": best,
                 },
                 "router": router_state,
                 "history": {"steps": hsteps, "acc": haccs},
@@ -775,7 +1339,7 @@ class TMService:
                                    "weights": self.tuner.weights}
             extra = {
                 "service": self._service_manifest(),
-                "has_best_state": ps.best_state is not None,
+                "has_best_state": best is not None,
                 "has_tunable": has_tun,
                 "tunable_weighted": has_tun and self.tuner.weights is not None,
                 "tunable_scored": has_tun and self.tuner.score is not None,
@@ -823,9 +1387,12 @@ class TMService:
         """Restore a :meth:`save` checkpoint (of either package) into this
         service. The service must match the writer structurally (TMConfig
         shapes, replicas, capacity, packing; :meth:`restore` guarantees
-        it). Anything staged or held now is discarded: the checkpoint
-        defines the complete state."""
+        it); the ``resident`` budget may differ. Anything staged or held
+        now is discarded: the checkpoint defines the complete state."""
         with self._device_lock:
+            # pending spills settle before the install clears the store,
+            # so no stale snapshot lands in the fresh one
+            self._settle_spills()
             while self.router.take_block() is not None:
                 pass  # drop staged rows (traffic from before the restore)
             man = ckpt_mod.read_manifest(directory, step=step)
@@ -867,9 +1434,14 @@ class TMService:
                 since=np.asarray(pol["since"], dtype=np.int64),
                 best=np.asarray(pol["best"], dtype=np.float64),
                 rollbacks=np.asarray(pol["rollbacks"], dtype=np.int64),
-                lost=np.asarray(pol["lost"], dtype=np.int64),
-                best_state=(convert.state_from_numpy(pol["best_state"], dev)
-                            if has_best else None))
+                lost=np.asarray(pol["lost"], dtype=np.int64))
+            self._best_host = None
+            if has_best:
+                if self._res is not None:
+                    self._best_host = np.asarray(pol["best_state"].ta_state)
+                else:
+                    self._ps.best_state = convert.state_from_numpy(
+                        pol["best_state"], dev)
             hsteps, haccs = tree["history"]["steps"], tree["history"]["acc"]
             self.history = [(np.asarray(hsteps[i]), np.asarray(haccs[i]))
                             for i in range(len(hsteps))]
@@ -889,27 +1461,69 @@ class TMService:
                 saved_b = man["extra"].get("tunable_budget")
                 if saved_b is not None:
                     self.tuner.budget = float(saved_b)
-            self._ss = convert.session_state_from_numpy(tree["ss"], dev)
-            self._keys = convert.key_from_numpy(tree["keys"], dev)
             with self.router.lock:
                 self.router.dropped[:] = np.asarray(tree["router"]["dropped"])
                 self.router.flushes = int(tree["router"]["flushes"])
                 self._dev_size = np.asarray(
                     tree["ss"].buf.size, dtype=np.int64).reshape(
                         self.n_replicas).copy()
+            self._install_plane(*convert.host_plane_from_reference(
+                tree["ss"], tree["keys"]))
 
     def _check_shapes(self, tree) -> None:
         """A checkpoint whose device state would not fit this service's
-        (another TMConfig width, capacity or packing) is rejected."""
+        (another TMConfig width, capacity or packing) is rejected. Leaves
+        lead with K in the checkpoint and with the plane's length here."""
         saved = ckpt_mod._flatten_with_paths({"ss": tree["ss"],
                                               "keys": tree["keys"]})
         mine = ckpt_mod._flatten_with_paths({"ss": self._ss,
                                              "keys": self._keys})
         for k, v in saved.items():
-            if tuple(v.shape) != tuple(mine[k].shape):
+            if tuple(v.shape[1:]) != tuple(mine[k].shape[1:]):
                 raise ValueError(
                     f"checkpoint leaf {k} has shape {tuple(v.shape)}, this "
                     f"service holds {tuple(mine[k].shape)}")
+
+    def _install_plane(self, ss_K: SessionState, keys_K: np.ndarray) -> None:
+        """Install a full-K logical (state, keys) host tree in the port's
+        dtypes. Under residency the fleet partitions afresh: replicas
+        0..resident-1 take the slots, the rest are snapshots, which no
+        trajectory can see."""
+        R = self.n_resident
+        host = (ss_K, keys_K)
+        self._ss, self._keys = online_mod.tree_map(
+            lambda a: torch.from_numpy(np.ascontiguousarray(a[:R])).to(
+                self.device, copy=True), host)
+        if self._res is None:
+            return
+        res = self._res
+        res.store.clear()
+        res.slot_of[:] = -1
+        res.replica_of[:] = -1
+        res.last_use[:] = 0
+        res.assign(np.arange(R), np.arange(R))
+        for rid in range(R, self.n_replicas):
+            res.store[rid] = online_mod.tree_map(lambda a, _r=rid: a[_r],
+                                                 host)
+
+    def _repartition(self, new_r: int) -> None:
+        """Resize the device plane to ``new_r`` slots (``"auto"``): the
+        full-K fleet assembles on the host, a fresh residency map takes
+        over at the new width and :meth:`_install_plane` lands it (the
+        machinery that migrates checkpoints across budgets), so
+        trajectories are bitwise unchanged across re-partitions."""
+        ss_K, keys_K = self._assemble_plane()    # settles pending spills
+        old = self._res
+        self.n_resident = int(new_r)
+        res = res_mod.ResidencyMap(self.n_replicas, self.n_resident)
+        # lifetime counters and the EWMA survive the resize; the LRU clock
+        # and the assignment restart deterministically
+        res.activations = old.activations
+        res.evictions = old.evictions
+        res.ewma_active = old.ewma_active
+        self._res = res
+        self.repartitions += 1
+        self._install_plane(ss_K, keys_K)
 
     @classmethod
     def restore(cls, directory: str, *, step: Optional[int] = None,
@@ -919,18 +1533,11 @@ class TMService:
         """Rebuild a service from a :meth:`save` checkpoint of either
         package: construction knobs from the manifest, arrays from the
         npz. The eval set is a runtime resource and is passed fresh.
-        ``resident`` defaults to the saved budget; a checkpoint is
-        residency-agnostic, so ``resident=None`` migrates a residency
-        service's checkpoint onto a wholly device-resident one. Residency
-        budgets are the residency slice of the port and raise."""
+        ``resident`` defaults to the saved budget and may be overridden
+        (to None, an int or "auto"): a checkpoint is residency-agnostic,
+        so this migrates a fleet across device budgets."""
         man = ckpt_mod.read_manifest(directory, step=step)
         meta = man["extra"]["service"]
-        res = meta["resident"] if resident == "saved" else resident
-        if res is not None:
-            raise NotImplementedError(
-                f"TMService.restore(resident={res!r}): residency belongs to "
-                "the residency slice, which is not ported yet; pass "
-                "resident=None to restore the whole fleet on the device")
         cfgd = dict(meta["cfg"])
         cfgd["backend"] = _BACKEND_IN.get(cfgd["backend"], cfgd["backend"])
         cfg = TMConfig(**cfgd)
@@ -946,6 +1553,7 @@ class TMService:
             policy=AdaptPolicy(**meta["policy"]),
             seed=meta["seed"],
             mesh=mesh,
+            resident=meta["resident"] if resident == "saved" else resident,
             tunable=(None if meta.get("tunable") is None
                      else tun_mod.TunableConfig(**meta["tunable"])),
         )
@@ -959,12 +1567,22 @@ class TMService:
     @property
     def steps(self) -> np.ndarray:
         """Online datapoints consumed, [K] i32."""
-        return self._ss.step.cpu().numpy()
+        if self._res is None:
+            return _host(self._ss.step)
+        self._settle_spills()
+        out = np.zeros(self.n_replicas, dtype=np.int32)
+        m = self._res.replica_of >= 0
+        out[self._res.replica_of[m]] = _host(self._ss.step)[m]
+        for rid, snap in self._res.store.items():
+            out[rid] = snap[0].step
+        return out
 
     @property
     def rng_keys(self) -> np.ndarray:
         """RNG keys as the reference's raw uint32 key data, [K, 2]."""
-        return self._keys.cpu().numpy().astype(np.uint32)
+        if self._res is None:
+            return _host(self._keys).astype(np.uint32)
+        return self._assemble_plane()[1].astype(np.uint32)
 
     @property
     def rollbacks(self) -> np.ndarray:

@@ -7,10 +7,10 @@
   JAX service continuing, and a port checkpoint restores in the JAX
   package and continues bitwise (interchange, both directions);
 * the same state writes identical manifest keys, dtypes and shapes;
-* save flushes staged ingress; a mismatched service is rejected;
-  ``resident="saved"`` with a saved residency budget raises, naming the
-  residency slice, and ``resident=None`` migrates it; the ``OnlineFleet``
-  passthrough.
+* save flushes staged ingress; a mismatched service is rejected; a
+  residency checkpoint restores as saved and continues bitwise, and
+  migrates to other budgets (tests/test_torch_residency.py holds the rest
+  of residency's durable state); the ``OnlineFleet`` passthrough.
 """
 import json
 import os
@@ -264,23 +264,29 @@ def test_restore_rejects_mismatched_service(tmp_path):
 
 
 def test_residency_checkpoint_raises_or_migrates(tmp_path):
-    """A checkpoint of a residency service names its budget: restoring it
-    as saved raises, naming the residency slice; resident=None migrates
-    the whole fleet onto the device, bitwise the JAX fleet."""
+    """A checkpoint of a JAX residency service restores in the port as
+    saved (two device slots) and continues bitwise with the JAX service;
+    resident=3 and resident=None migrate it across budgets, continuing
+    bitwise too."""
     js = _jsvc(resident=2)
     _drive(js, 20, seed=5)
     js.save(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="residency slice"):
-        TService.restore(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="residency slice"):
-        TService.restore(str(tmp_path), resident=3, device="cpu")
-    ts = TService.restore(str(tmp_path), resident=None, eval_x=EVAL_X,
-                          eval_y=EVAL_Y, device="cpu")
-    assert ts.sc.resident is None
-    _assert_same(js, ts, "migration changed state")
+    js.load(str(tmp_path))
+    ports = [TService.restore(str(tmp_path), resident=r, eval_x=EVAL_X,
+                              eval_y=EVAL_Y, device="cpu")
+             for r in ("saved", 3, None)]
+    assert [t.sc.resident for t in ports] == [2, 3, None]
+    assert [t.n_resident for t in ports] == [2, 3, K]
+    for ts in ports:
+        _assert_same(js, ts, f"restore at {ts.sc.resident} changed state")
     _drive(js, 12, seed=11)
-    _drive(ts, 12, seed=11)
-    _assert_same(js, ts, "the migrated fleet diverged")
+    jaxes = [JService.restore(str(tmp_path), resident=r, eval_x=EVAL_X,
+                              eval_y=EVAL_Y) for r in (3, None)]
+    for other in jaxes:
+        _drive(other, 12, seed=11)
+    for ts, jo in zip(ports, [js] + jaxes):
+        _drive(ts, 12, seed=11)
+        _assert_same(jo, ts, f"the fleet at {ts.sc.resident} diverged")
 
 
 def test_fleet_save_restore_passthrough(tmp_path):

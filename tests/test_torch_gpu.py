@@ -746,3 +746,122 @@ def test_word_count_body_large_tiles_equal_plain(cuda, W):
                 lits, sel)
             assert torch.equal(got6, want6), (kind, where)
             assert torch.equal(got7, want7), (kind, where, sel.dtype)
+
+
+def _res_service(device, resident, *, packed=False, batched=True):
+    """K = 6 iris-width machines on ``resident`` slots (the reference's
+    residency test geometry), drain-only."""
+    from repro_torch.core import TMConfig, init_state
+    from repro_torch.serve import AdaptPolicy, ServiceConfig, TMService
+
+    cfg = TMConfig(n_features=16, max_classes=3, max_clauses=16,
+                   n_states=16, backend="cuda")
+    return TMService(cfg, init_state(cfg, device=device), ServiceConfig(
+        replicas=6, buffer_capacity=8, chunk=4, ingress_block=4,
+        packed=packed, s=3.0, T=15, seed=7, resident=resident,
+        batched_moves=batched, policy=AdaptPolicy(analyze_every=10 ** 9)),
+        device=device)
+
+
+def _res_fleet(svc) -> list:
+    """The logical fleet on the host: assembled banks, rings, steps, keys."""
+    ss = svc.ss
+    return [a.cpu() for a in (ss.tm.ta_state, *ss.buf, ss.step)] + [
+        torch.from_numpy(svc.rng_keys.astype(np.int64)),
+        torch.from_numpy(svc.steps)]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("batched", [True, False])
+def test_residency_on_card_equals_cpu(cuda, packed, batched):
+    """K = 6 on 2 slots on the card (kernels, pinned moves and events, or
+    the synchronous moves) against the same service on the CPU (the plain
+    versions), bit for bit: the logical fleet, the placement and served
+    predictions."""
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        svc = _res_service(dev, 2, packed=packed, batched=batched)
+        rng = np.random.default_rng(3)
+        for i in range(40):
+            svc.submit_rows(rng.random(16) > 0.5, int(rng.integers(0, 3)))
+            if i % 4 == 3:
+                svc.tick()
+        assert svc._res.evictions > 10
+        preds = svc.serve_replicas([0, 3, 5], rng.random((5, 16)) > 0.5)
+        out[dev.type] = (_res_fleet(svc), svc._res.slot_of.copy(), preds)
+    a, c = out["cuda"], out["cpu"]
+    assert all(torch.equal(x, y) for x, y in zip(a[0], c[0]))
+    assert np.array_equal(a[1], c[1]) and np.array_equal(a[2], c[2])
+
+
+def test_deferred_spill_survives_a_drain_before_settling(cuda):
+    """A spill issued (a gather into pinned host memory, an event) behind a
+    stream held busy, so its copy has not run when the issue returns: the
+    event is not done, and awaiting it alone (no other synchronisation)
+    gives the replica's rows bitwise. Then at once a drain that rewrites
+    the plane before the spill settles: the snapshot that settles is the
+    replica's state at the spill, bitwise its always-resident twin's, held
+    in pageable memory of its own, and so is the whole fleet."""
+    from repro_torch.core import online
+
+    res, twin = _res_service(cuda, 3), _res_service(cuda, None)
+    rng = np.random.default_rng(5)
+    for i in range(24):
+        x, y = rng.random(16) > 0.5, int(rng.integers(0, 3))
+        res.submit_rows(x, y)
+        twin.submit_rows(x, y)
+        if i % 4 == 3:
+            res.flush()
+            drive = res.buffered > 0
+            res.tick()
+            twin.tick(np.where(drive, twin.chunk, 0))
+    res.activate([0, 1, 2])
+    mask = np.array([False, True, True, False, False, False])
+    for x, y in ((rng.random(16) > 0.5, 1), (rng.random(16) > 0.5, 2)):
+        res.submit_rows(x, y, mask)
+        twin.submit_rows(x, y, mask)
+    res.flush()
+    drive = res.buffered > 0
+    assert not drive[0] and drive[1] and drive[2]
+    tss = twin.ss
+    want = [a.cpu().numpy() for a in (tss.tm.ta_state[0],
+                                      *(a[0] for a in tss.buf),
+                                      tss.step[0], twin._keys[0])]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 29)     # hold the stream: the copy waits
+    res._spill_issue([res._res.slot_of[0]])
+    gather, _ = res._pending_spills[0]
+    assert gather.event is not None and not gather.event.query()
+    assert all(h.is_pinned() for h in online.tree_leaves(gather.host))
+    snap, key = online.gather_replicas_await(gather)
+    assert gather.event.query()
+    for got, w in zip((snap.tm.ta_state, *snap.buf, snap.step, key), want):
+        assert np.array_equal(np.asarray(got)[0], w)
+    before = res._ss.tm.ta_state.clone()
+    res.drain(4)                   # rewrites the plane, then settles
+    twin.drain(np.where(drive, 4, 0))
+    assert not torch.equal(res._ss.tm.ta_state, before)
+    assert not res._pending_spills and not res.resident[0]
+    snap, key = res._res.store[0]
+    leaves = (snap.tm.ta_state, *snap.buf, snap.step, key)
+    assert all(isinstance(a, np.generic) or a.flags.owndata
+               for a in leaves)
+    for got, w in zip(leaves, want):
+        assert np.array_equal(np.asarray(got), w)
+    assert all(torch.equal(x, y)
+               for x, y in zip(_res_fleet(res), _res_fleet(twin)))
+
+
+def test_filter_masks_land_on_the_card(cuda):
+    """``limit_mask`` with an int limit and ``class_filter_mask`` of host
+    labels, with no device named, run on the card, equal to the CPU's."""
+    from repro_torch.data import filter as filt
+
+    m = filt.limit_mask(30, 20)
+    assert m.device.type == "cuda"
+    assert torch.equal(m.cpu(), filt.limit_mask(30, 20, "cpu"))
+    ys = [0, 1, 2, 1, 0]
+    c = filt.class_filter_mask(ys, 1, True)
+    assert c.device.type == "cuda"
+    assert torch.equal(c.cpu(), filt.class_filter_mask(ys, 1, True,
+                                                       device="cpu"))

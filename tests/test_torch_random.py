@@ -49,6 +49,19 @@ def test_fold_in(seed, data):
 
 
 @CFG
+@given(seed=SEEDS, data=st.lists(st.integers(0, 2**32 - 1), min_size=1,
+                                 max_size=9))
+def test_fold_in_many_data(seed, data):
+    """A sequence of data folds into one key each, in one call: the
+    service keys a fleet of K this way (``fold_in(PRNGKey(seed), r)``)."""
+    key = jax.random.PRNGKey(seed)
+    want = jnp.stack([jax.random.fold_in(key, d) for d in data])
+    got = rnd.fold_in(rnd.PRNGKey(seed), np.asarray(data))
+    assert got.shape == (len(data), 2)
+    assert np.array_equal(_words(want), got.numpy())
+
+
+@CFG
 @given(seed=SEEDS, shape=SHAPES)
 def test_uniform_bits(seed, shape):
     want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape))

@@ -20,6 +20,7 @@ from repro.data import mnist
 from repro.serve import AdaptPolicy as JPolicy
 from repro.serve import ServiceConfig as JConfig
 from repro.serve import TMService as JService
+from repro.serve import TunableConfig as JTunable
 from repro_torch.configs import tm_mnist as t_mnist_cfg
 from repro_torch.configs.tm_iris import CONFIG as T_IRIS
 from repro_torch.core import init_runtime as t_init_runtime
@@ -179,26 +180,88 @@ def test_online_session_shim_matches_reference():
     dict(mesh=object()),
 ])
 def test_later_slices_raise(sc):
-    """Fleets, packing, per-replica ports and tunable serving are served
-    (test_torch_fleet.py, test_torch_tunable.py); residency and meshes
-    still raise, naming their slice, tunable or not."""
+    """Fleets, packing, per-replica ports, tunable serving and residency
+    are served; only a mesh still raises, naming what is not ported. The
+    residency cases construct and drive the service beside the JAX one
+    (iris rows into a random subset of replicas, ticks with analysis
+    every 8 points, then ``serve_replicas``, calibrated and budgeted in the
+    tunable case) and must agree bit for bit."""
     cfg = T_IRIS.tm
-    with pytest.raises(NotImplementedError, match="slice|not ported"):
-        TService(cfg, t_init_state(cfg, device="cpu"), TConfig(**sc),
-                 device="cpu")
+    if "mesh" in sc:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TService(cfg, t_init_state(cfg, device="cpu"), TConfig(**sc),
+                     device="cpu")
+        return
+    xs, ys = iris.load()
+    jsc = dict(sc)
+    if "tunable" in sc:
+        jsc["tunable"] = JTunable(**dataclasses.asdict(sc["tunable"]))
+    knobs = dict(s=3.0, T=15, chunk=4, buffer_capacity=16, ingress_block=4)
+    ev = dict(eval_x=xs[100:], eval_y=ys[100:])
+    js = JService(J_IRIS.tm, j_init_state(J_IRIS.tm), JConfig(
+        policy=JPolicy(analyze_every=8), **knobs, **jsc), **ev)
+    ts = TService(cfg, t_init_state(cfg, device="cpu"), TConfig(
+        policy=TPolicy(analyze_every=8), **knobs, **sc), device="cpu", **ev)
+    K = ts.n_replicas
+    rng = np.random.default_rng(0)
+    for i in range(24):
+        idx = rng.integers(0, 100, K)
+        mask = rng.random(K) < 0.6
+        assert _eq(js.submit_rows(xs[idx], ys[idx], mask),
+                   ts.submit_rows(xs[idx], ys[idx], mask))
+        if i % 3 == 2:
+            rj, rt = js.tick(), ts.tick()
+            assert _eq(rj.trained, rt.trained)
+            assert _eq(rj.rolled_back, rt.rolled_back)
+            assert (rj.accuracy is None) == (rt.accuracy is None)
+            if rj.accuracy is not None:
+                assert np.array_equal(rj.accuracy, rt.accuracy,
+                                      equal_nan=True)
+    assert ts.n_resident == js.n_resident
+    assert _eq(ts.resident, js.resident)
+    assert _eq(js.ss.tm.ta_state, ts.ss.tm.ta_state.numpy())
+    assert _eq(js.rng_keys, ts.rng_keys) and _eq(js.steps, ts.steps)
+    assert _eq(js.buffered, ts.buffered) and _eq(js.rollbacks, ts.rollbacks)
+    assert len(js.history) == len(ts.history) > 0
+    rids = np.arange(K)[::-1]
+    if "tunable" in sc:
+        assert _eq(js.calibrate(), ts.calibrate())
+        pj, aj = js.serve_replicas(rids, xs[:50], budget=0.5,
+                                   return_aux=True)
+        pt, at = ts.serve_replicas(rids, xs[:50], budget=0.5,
+                                   return_aux=True)
+        assert _eq(pj, pt) and _eq(aj.evaluated, at.evaluated)
+    assert _eq(js.serve_replicas(rids, xs[:50]),
+               ts.serve_replicas(rids, xs[:50]))
+    assert _eq(js.ss.tm.ta_state, ts.ss.tm.ta_state.numpy())
 
 
 def test_durable_state_raises(tmp_path):
-    """save/load/restore serve services that hold every replica on the
-    device (test_torch_checkpoint.py); restoring a residency budget still
-    raises, naming the residency slice."""
+    """save/load/restore serve every residency budget: a checkpoint of a
+    wholly resident fleet restores at resident 1 and "auto" holding the
+    same logical fleet, as the JAX package's restore of it does; loading
+    a missing checkpoint still raises."""
     cfg = T_IRIS.tm
-    svc = TService(cfg, t_init_state(cfg, device="cpu"), TConfig(replicas=2),
-                   device="cpu")
+    xs, ys = iris.load()
+    svc = TService(cfg, t_init_state(cfg, device="cpu"),
+                   TConfig(replicas=2, s=3.0, T=15, chunk=4), device="cpu")
+    for i in range(10):
+        svc.submit_rows(xs[[i, 50 + i]], ys[[i, 50 + i]])
+    svc.tick()
     svc.save(str(tmp_path))
     svc.load(str(tmp_path))
     for resident in (1, "auto"):
-        with pytest.raises(NotImplementedError, match="residency slice"):
-            TService.restore(str(tmp_path), resident=resident, device="cpu")
+        ts = TService.restore(str(tmp_path), resident=resident, device="cpu")
+        js = JService.restore(str(tmp_path), resident=resident)
+        assert ts.n_resident == js.n_resident == 1
+        assert ts.sc.resident == resident
+        for other in (svc, js):
+            o = other.ss
+            assert _eq(o.tm.ta_state, ts.ss.tm.ta_state.numpy())
+            for f in ("data_x", "data_y", "head", "size"):
+                assert _eq(getattr(o.buf, f), getattr(ts.ss.buf, f).numpy())
+            assert _eq(other.rng_keys, ts.rng_keys)
+            assert _eq(other.steps, ts.steps)
+            assert _eq(other.buffered, ts.buffered)
     with pytest.raises(FileNotFoundError):
         svc.load(str(tmp_path / "missing"))

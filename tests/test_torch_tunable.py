@@ -11,7 +11,9 @@ integer weights must agree bitwise. Predictions and per-request
 three error cases and the adapt rule's budget trajectory. The JAX side
 runs backend "ref"; the port runs "cuda" (on CPU tensors: K7's plain
 version) and "ref". The ``resident=2`` cases of tests/test_tunable.py
-wait for the residency slice of the port.
+(K = 4 on two device slots) run beside the JAX residency service: full
+budget through ``serve_replicas`` cohorts equal to plain serve, and ranks
+that survive eviction and activation.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -55,18 +57,19 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _jsvc(*, packed=False, tunable=None, replicas=K):
+def _jsvc(*, packed=False, tunable=None, replicas=K, resident=None):
     cfg = JTMConfig(n_features=F, max_classes=C, max_clauses=J, n_states=N)
     sc = JConfig(replicas=replicas, buffer_capacity=64, chunk=8, s=3.0, T=10,
-                 seed=0, packed=packed, tunable=tunable)
+                 seed=0, packed=packed, tunable=tunable, resident=resident)
     return JService(cfg, j_init_state(cfg), sc, eval_x=X, eval_y=Y)
 
 
-def _tsvc(backend="cuda", *, packed=False, tunable=None, replicas=K):
+def _tsvc(backend="cuda", *, packed=False, tunable=None, replicas=K,
+          resident=None):
     cfg = TTMConfig(n_features=F, max_classes=C, max_clauses=J, n_states=N,
                     backend=backend)
     sc = TConfig(replicas=replicas, buffer_capacity=64, chunk=8, s=3.0, T=10,
-                 seed=0, packed=packed, tunable=tunable)
+                 seed=0, packed=packed, tunable=tunable, resident=resident)
     return TService(cfg, t_init_state(cfg, device="cpu"), sc, eval_x=X,
                     eval_y=Y, device="cpu")
 
@@ -103,14 +106,14 @@ def trained(tmp_path_factory):
     return out
 
 
-def _pair(trained, packed, tc: dict, backend="cuda"):
+def _pair(trained, packed, tc: dict, backend="cuda", resident=None):
     """A JAX and a port service with the tunable config ``tc``, each
     loaded from its own package's trained checkpoint and calibrated."""
     dj, dt, _ = trained[packed]
     jt, tt = _tj(tc)
-    js = _jsvc(packed=packed, tunable=jt)
+    js = _jsvc(packed=packed, tunable=jt, resident=resident)
     js.load(dj)
-    ts = _tsvc(backend, packed=packed, tunable=tt)
+    ts = _tsvc(backend, packed=packed, tunable=tt, resident=resident)
     ts.load(dt)
     sj, st_ = js.calibrate(), ts.calibrate()
     assert st_.dtype == np.int32 and np.array_equal(sj, st_)
@@ -189,6 +192,45 @@ def test_full_budget_equals_plain_serve(trained, backend, packed):
     assert np.array_equal(ts.serve(X, budget=1.0), base)
     assert np.array_equal(ts.serve_replicas(np.arange(K), X, budget=1.0),
                           base)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "ref"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_full_budget_under_residency_equals_plain_serve(trained, backend,
+                                                        packed):
+    """resident=2: budget 1.0 through ``serve_replicas`` cohorts (members
+    activated two at a time) equals the plain serve, in the port as in
+    the JAX residency service."""
+    _, _, base = trained[packed]
+    js, ts = _pair(trained, packed, dict(budget=1.0), backend, resident=2)
+    assert ts._res is not None and ts.n_resident == 2
+    assert np.array_equal(js.tuner.order, ts.tuner.order)
+    got = ts.serve_replicas(np.arange(K), X, budget=1.0)
+    assert np.array_equal(got, base)
+    assert np.array_equal(js.serve_replicas(np.arange(K), X, budget=1.0),
+                          got)
+    assert np.array_equal(ts.resident, js.resident)
+
+
+def test_ranks_survive_eviction():
+    """Rankings are host-side per-replica state: serving after every
+    member was evicted and activated again uses the same ranks, with the
+    same predictions and evaluated counts as the JAX residency service."""
+    tc = dict(budget=0.5, early_exit=True, group=2)
+    js = _train(_jsvc(resident=2, tunable=JTunable(**tc)))
+    ts = _train(_tsvc(resident=2, tunable=TTunable(**tc)))
+    assert np.array_equal(js.calibrate(), ts.calibrate())
+    first, aux = ts.serve_replicas(np.arange(K), X, return_aux=True)
+    jfirst, jaux = js.serve_replicas(np.arange(K), X, return_aux=True)
+    assert np.array_equal(first, jfirst)
+    assert np.array_equal(aux.evaluated, jaux.evaluated)
+    for r in range(K):
+        assert np.array_equal(ts.serve_replicas([r], X[:2]),
+                              js.serve_replicas([r], X[:2]))
+    assert ts._res.evictions == js._res.evictions >= K
+    again = ts.serve_replicas(np.arange(K), X)
+    assert np.array_equal(first, again)
+    assert np.array_equal(js.serve_replicas(np.arange(K), X), again)
 
 
 @pytest.mark.parametrize("group", [1, 2, 3, 8])
