@@ -114,7 +114,16 @@ Phases, each with its seconds:
    must launch as the code implies. Then ``traffic``: the iris
    service at the reference's traffic geometry (K = 4 producers) with an
    adapting tuner, steady and fault_injected threaded on the card, each
-   replayed from one thread to the same fingerprint;
+   replayed from one thread to the same fingerprint. Then ``lm``: the
+   dense LM serving path (``phase_lm``; no CUDA kernel of its own):
+   gemma3-1b at full width and depth, bf16, through ``Engine.generate``
+   (4 x 1024-token prompts, 64 new tokens: the streaming-softmax prefill
+   and a wrapped 512-token window) with prefill ms, decode ms a step,
+   tokens/s, peak memory and a torch.profiler window of 8 decode steps;
+   the float32 checks at full width (prefill -> decode == forward,
+   ``generate`` == a full-forward greedy re-run); the four other dense
+   archs at full width, one pattern repetition deep; the card against
+   the CPU;
 9. profile -- torch.profiler over one more 16-point drain chunk of the
    service, over one offline epoch of the f = 784, O = 8 engine, and over
    one drain chunk of the K = 16 fleet: wall time, device busy time, idle
@@ -2836,6 +2845,344 @@ def phase_time_pruned_bytes(torch, np, ce):
     return recs
 
 
+# The LM serving path (phase ``lm``): gemma3-1b at full width and depth
+# (26 layers, d_model 1152, vocab 262,144, 5:1 local:global, window 512),
+# random weights from SEED. 4 prompts of 1024 tokens take the streaming-
+# softmax prefill (S > attn_chunk 512) and 64 new tokens wrap the local
+# windows. Float32 checks: max |a - b| <= LM_TOL * max |b|, TF32 off.
+LM_ARCH = "gemma3_1b"
+LM_B, LM_PROMPT, LM_NEW = 4, 1024, 64
+LM_TOL = 1e-4
+LM_PROFILE_STEPS = 8
+LM_OTHER = ("granite_8b", "phi3_medium_14b", "qwen25_14b", "musicgen_medium")
+LM_OTHER_B, LM_OTHER_S = 2, 128
+LM_DENSE_S = 520                # a forward on the dense path past the window
+
+
+def _lm_close(torch, got, want, what: str) -> float:
+    """max |got - want| / max |want| (float32, on the CPU); fails above
+    LM_TOL."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(bool(torch.isfinite(got).all()), f"lm {what}: non-finite values")
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    check(err <= LM_TOL, f"lm {what}: max|d| / max|ref| {err:.3e} > "
+          f"{LM_TOL}")
+    return err
+
+
+def _lm_tokens_match(torch, np, got, want, decision, what: str) -> int:
+    """Greedy tokens equal, or each row's first difference at a near-tie
+    of the reference's logits (``decision(step)`` [B, V]). Returns the
+    rows that differed."""
+    rows = 0
+    for b in range(want.shape[0]):
+        diff = np.nonzero(got[b] != want[b])[0]
+        if not len(diff):
+            continue
+        rows += 1
+        i = int(diff[0])
+        vals = decision(i)[b].float()
+        top2 = torch.topk(vals, 2).values
+        gap = (top2[0] - top2[1]).item()
+        check(gap <= LM_TOL * vals.abs().max().item(),
+              f"lm {what}: row {b} step {i}: {got[b, i]} vs {want[b, i]} at "
+              f"a top-2 gap of {gap}")
+    return rows
+
+
+def _lm_model(torch, cfg, seed: int, dev):
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return P.materialize(transformer.model_specs(cfg), gen, torch.float32,
+                         device=dev)
+
+
+def _lm_prefill_decode_vs_forward(torch, np, cfg, tree, B, S, dev, what):
+    """decode(prefill(x[:S]), x[S]) against forward(x[:S+1])[S]."""
+    from repro_torch.models.transformer import Transformer
+
+    m = Transformer(cfg, tree, device=dev)
+    rng = np.random.default_rng(SEED)
+    if cfg.embeds_input:
+        x = torch.from_numpy(0.05 * rng.standard_normal(
+            (B, S + 1, cfg.d_model))).float().to(dev)
+        full, pre, step = {"embeds": x}, {"embeds": x[:, :S]}, {
+            "embeds": x[:, S:S + 1]}
+    else:
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (B, S + 1))).to(dev)
+        full, pre, step = {"tokens": t}, {"tokens": t[:, :S]}, {
+            "token": t[:, S:S + 1]}
+    want = m(full)[0][:, S].clone()
+    _, cache = m.prefill(pre, S + 16)
+    got, _ = m.decode_step({**step, "pos": S}, cache)
+    return _lm_close(torch, got, want, what)
+
+
+def phase_lm(torch, np):
+    """The dense LM serving path on the card (no CUDA kernel of its own:
+    plain PyTorch ops).
+
+    1. gemma3-1b, full width and depth, bfloat16 compute: ``materialize``
+       on the card, ``Engine(batch_slots=4, max_seq=1088).generate`` of 4
+       x 1024-token prompts, 64 new tokens; prefill ms, decode ms a step
+       (median of CUDA-event windows), tokens/s, peak memory, and
+       torch.profiler over 8 decode steps (launches a step, idle share);
+    2. the same model at float32 compute: prefill -> decode == forward at
+       position 1024, and ``generate`` of 8 tokens equal to a full-forward
+       greedy re-run;
+    3. granite-8b, phi3-medium-14b, qwen2.5-14b and musicgen-medium at
+       full width, depth cut to one pattern repetition: prefill -> decode
+       == forward, float32;
+    4. gemma3-1b at full width cut to 6 layers: the same parameters on
+       the card and on the CPU, forward (dense path, 520 tokens), prefill
+       (flash path, 1024 tokens) logits and caches, and one decode step.
+       At float64 compute the two agree within LM_TOL. At float32 they
+       need not: at this random init (a stacked leaf's fan-in is the
+       super-block count) the attention scores are large, so the
+       last-bit differences of two summation orders move the
+       softmax of rows whose top scores lie a few units apart, and some
+       positions' logits move by more than LM_TOL of the range (the phase
+       prints how many). So the float32 results are each held
+       to the float64 evaluation: the card's error may not exceed
+       max(LM_TOL, 4 x the CPU's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config(LM_ARCH)
+    check(cfg.compute_dtype == "bfloat16", "gemma3-1b computes in bf16")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    tree = _lm_model(torch, cfg, SEED, dev)
+    torch.cuda.synchronize()
+    print(f"lm {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_count():,} parameters "
+          f"materialized on the card in {time.perf_counter() - t:.2f} s "
+          f"({torch.cuda.memory_allocated() - base:,} bytes, float32)",
+          flush=True)
+    max_seq = LM_PROMPT + LM_NEW
+    ec = EngineConfig(max_seq=max_seq, batch_slots=LM_B)
+    before = torch.cuda.memory_allocated()
+    eng = Engine(cfg, tree, ec, device=dev)
+    print(f"lm compute-dtype copies: {torch.cuda.memory_allocated() - before:,}"
+          f" bytes (bfloat16)", flush=True)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (LM_B, LM_PROMPT)).astype(np.int32)
+
+    # 1. the user's call, twice (the first pays cuBLAS's set-up)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(eng.generate(prompts, LM_NEW))
+        walls.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    out = outs[1]
+    check(out.shape == (LM_B, LM_NEW) and out.dtype == np.int32,
+          f"lm generate: shape {out.shape} {out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "lm generate: a token outside the vocabulary")
+    check(np.array_equal(outs[0], outs[1]), "lm generate is not repeatable")
+
+    m = eng.model
+    toks = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    pre_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = m.prefill({"tokens": toks}, max_seq)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t) * 1e3)
+    check(bool(torch.isfinite(logits).all()), "lm prefill: non-finite logits")
+    tok = torch.argmax(logits, dim=-1)
+    check(np.array_equal(tok.cpu().numpy(), out[:, 0]),
+          "lm prefill's greedy token differs from generate's")
+    step_ms = []
+    for i in range(1, LM_NEW):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = m.decode_step({"token": tok[:, None],
+                                       "pos": LM_PROMPT + i - 1}, cache)
+        tok = torch.argmax(logits, dim=-1)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    check(np.array_equal(tok.cpu().numpy(), out[:, -1]),
+          "lm decode steps' last token differs from generate's")
+    pre = sorted(pre_ms)[1]
+    step = sorted(step_ms)[len(step_ms) // 2]
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(m.compute))
+    print(f"lm generate {LM_B} x {LM_PROMPT} + {LM_NEW} tokens (bf16, greedy):"
+          f" {walls[1] * 1e3:.3f} ms ({LM_B * LM_NEW / walls[1]:.1f} tokens/s;"
+          f" first call {walls[0] * 1e3:.3f} ms); prefill {pre:.3f} ms "
+          f"(median of 3: {', '.join(f'{x:.3f}' for x in pre_ms)}); decode "
+          f"{step:.3f} ms a step (median of {len(step_ms)}, min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory "
+          f"{peak:,} bytes; decode bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms (the {wbytes:,} bytes of compute weights read once)",
+          flush=True)
+
+    logits, cache = m.prefill({"tokens": toks}, max_seq)
+    tok = torch.argmax(logits, dim=-1)
+    pos = LM_PROMPT
+    for _ in range(2):               # warm
+        logits, cache = m.decode_step({"token": tok[:, None], "pos": pos},
+                                      cache)
+        tok = torch.argmax(logits, dim=-1)
+        pos += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            logits, cache = m.decode_step({"token": tok[:, None],
+                                           "pos": pos}, cache)
+            tok = torch.argmax(logits, dim=-1)
+            pos += 1
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ka = prof.key_averages()
+    devk = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in devk) / 1e3
+    launches = sum(e.count for e in ka
+                   if e.key.startswith("cudaLaunchKernel")
+                   or e.key.startswith("cuLaunchKernel"))
+    kernels = sum(e.count for e in devk)
+    top = sorted(devk, key=lambda e: -e.self_device_time_total)[:6]
+    check(busy > 0, "lm profile: no device time traced")
+    print(f"profile lm decode ({LM_PROFILE_STEPS} steps, bf16): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / wall:.4f}, launches "
+          f"{launches / LM_PROFILE_STEPS:.1f} a step (device ops "
+          f"{kernels / LM_PROFILE_STEPS:.1f} a step)", flush=True)
+    print("profile lm decode top device kernels: " + "; ".join(
+        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+        for e in top), flush=True)
+    del eng, m, cache, logits
+
+    # 2. exactness at full width, float32 compute (TF32 off)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    err = _lm_prefill_decode_vs_forward(
+        torch, np, cfg32, tree, 2, LM_PROMPT, dev,
+        f"{cfg.arch_id} f32 prefill -> decode vs forward")
+    n8, S8 = 8, LM_PROMPT
+    eng32 = Engine(cfg32, tree, EngineConfig(max_seq=S8 + n8, batch_slots=2),
+                   device=dev)
+    p8 = prompts[:2]
+    got = eng32.generate(p8, n8)
+    seq = torch.from_numpy(p8.astype(np.int64)).to(dev)
+    want, steps = [], []
+    for _ in range(n8):
+        last = eng32.model({"tokens": seq})[0][:, -1]
+        steps.append(last.cpu())
+        nxt = torch.argmax(last, dim=-1)
+        want.append(nxt.cpu().numpy().astype(np.int32))
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+    want = np.stack(want, axis=1)
+    rows = _lm_tokens_match(torch, np, got, want, lambda i: steps[i],
+                            "f32 generate vs forward re-run")
+    print(f"lm {cfg.arch_id} f32: prefill({LM_PROMPT}, flash) -> decode vs "
+          f"forward({LM_PROMPT + 1}, dense) max|d|/max|ref| {err:.3e}; "
+          f"generate {n8} tokens == full-forward greedy re-run "
+          f"({rows} rows differed at a near-tie)", flush=True)
+    del eng32, tree
+    torch.cuda.empty_cache()
+
+    # 3. the other dense archs at full width, one pattern repetition
+    for arch in LM_OTHER:
+        full = configs.get_config(arch)
+        c = dataclasses.replace(full, n_layers=len(full.layer_pattern),
+                                compute_dtype="float32")
+        tr = _lm_model(torch, c, SEED, dev)
+        err = _lm_prefill_decode_vs_forward(
+            torch, np, c, tr, LM_OTHER_B, LM_OTHER_S, dev,
+            f"{arch} prefill -> decode vs forward")
+        print(f"lm {c.arch_id} (reduced: n_layers {full.n_layers} -> "
+              f"{c.n_layers}; d_model {c.d_model}, vocab {c.vocab_size}, "
+              f"f32): prefill({LM_OTHER_S}) -> decode vs forward "
+              f"max|d|/max|ref| {err:.3e}", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+
+    # 4. card against CPU, gemma3-1b at full width cut to 6 layers
+    c32 = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern),
+                              compute_dtype="float32")
+    tr = _lm_model(torch, c32, SEED + 1, dev)
+    tr_cpu = _map(lambda t: t.cpu(), tr)
+    td = torch.from_numpy(rng.integers(0, c32.vocab_size, (1, LM_DENSE_S)))
+    t1k = torch.from_numpy(rng.integers(0, c32.vocab_size,
+                                        (1, LM_PROMPT + 1)))
+
+    def outputs(c, tree, where):
+        """forward(LM_DENSE_S) logits, prefill(LM_PROMPT) logits, its
+        caches, one decode step's logits: all on the CPU, as float64."""
+        m = Transformer(c, tree, device=where)
+        fwd = m({"tokens": td.to(where)})[0]
+        pre, cache = m.prefill({"tokens": t1k[:, :LM_PROMPT].to(where)},
+                               LM_PROMPT + 8)
+        dec, _ = m.decode_step({"token": t1k[:, LM_PROMPT:].to(where),
+                                "pos": LM_PROMPT}, cache)
+        return [x.double().cpu() for x in (fwd, pre, dec, *_leaves(cache))]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    c64 = dataclasses.replace(c32, compute_dtype="float64")
+    gpu64, cpu64 = outputs(c64, tr, dev), outputs(c64, tr_cpu, "cpu")
+    gpu32, cpu32 = outputs(c32, tr, dev), outputs(c32, tr_cpu, "cpu")
+    names = ["forward", "prefill", "decode"] + [
+        f"cache {i}" for i in range(len(gpu64) - 3)]
+    e64 = [rel(g, c) for g, c in zip(gpu64, cpu64)]
+    check(max(e64) <= LM_TOL, f"lm card vs cpu, float64: {max(e64):.3e}")
+    e32 = [rel(g, c) for g, c in zip(gpu32, cpu32)]
+    card = [rel(g, t) for g, t in zip(gpu32, cpu64)]
+    host = [rel(c, t) for c, t in zip(cpu32, cpu64)]
+    for n, a, b in zip(names, card, host):
+        check(a <= max(LM_TOL, 4 * b),
+              f"lm card vs cpu, float32 {n}: the card's error against the "
+              f"float64 evaluation {a:.3e} > max(LM_TOL, 4 x the CPU's "
+              f"{b:.3e})")
+    rows = ((gpu32[0] - cpu32[0]).abs().amax(-1)
+            > LM_TOL * cpu32[0].abs().max())
+    print(f"lm {c32.arch_id} card vs CPU (reduced: n_layers {cfg.n_layers} "
+          f"-> {c32.n_layers}; forward({LM_DENSE_S}), prefill({LM_PROMPT}) "
+          f"and its {len(gpu64) - 3} caches, one decode step): float64 "
+          f"max|d|/max|cpu| {max(e64):.3e}; float32 "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names[:3], e32[:3]))
+          + f", caches {max(e32[3:]):.3e} ({int(rows.sum())} of "
+          f"{LM_DENSE_S} forward positions beyond {LM_TOL}); float32 "
+          "against float64, card / CPU: "
+          + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, a, b in
+                      zip(names[:3], card[:3], host[:3]))
+          + f", caches {max(card[3:]):.3e} / {max(host[3:]):.3e}",
+          flush=True)
+
+
+def _leaves(tree: dict) -> list:
+    out = []
+    for v in tree.values():
+        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def _map(fn, tree: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-from", type=Path, metavar="DIR",
@@ -2913,6 +3260,7 @@ def main() -> int:
     launches.update(timed("tunable", phase_tunable, torch, np, ce, fb))
     timed("residency", phase_residency, torch, np, ce, fb)
     timed("traffic", phase_traffic, torch, np, ce, fb)
+    timed("lm", phase_lm, torch, np)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)
     timed("profile_fleet", phase_profile_fleet, torch, np)

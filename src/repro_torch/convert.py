@@ -160,3 +160,73 @@ def host_plane_from_reference(ss, keys):
                                         size=i32(ss.buf.size)),
                          step=i32(ss.step)),
             np.asarray(keys, dtype=np.uint32).astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate: parameter and cache trees (nested dicts of arrays)
+# ---------------------------------------------------------------------------
+
+
+def _lm_tensor(a, dev) -> torch.Tensor:
+    """One numpy leaf -> a tensor on ``dev``; a bfloat16 array (the
+    reference's, an ``ml_dtypes`` dtype numpy itself lacks) crosses by its
+    bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The reference's LM parameter tree taken as numpy arrays
+    (``jax.tree.map(np.asarray, params)``) -> the port's parameter tree on
+    ``device`` (what ``models.transformer.Transformer`` and
+    ``serve.engine.Engine`` take), key for key, every key and shape checked
+    against ``model_specs(cfg)``."""
+    from repro_torch.models.params import PSpec
+    from repro_torch.models.transformer import model_specs
+
+    dev = resolve_device(device)
+
+    def walk(spec: dict, node: dict, path: str) -> dict:
+        if set(node) != set(spec):
+            raise ValueError(f"{path or 'params'}: keys {sorted(node)}, the "
+                             f"model's {sorted(spec)}")
+        out = {}
+        for k, s in spec.items():
+            if isinstance(s, PSpec):
+                out[k] = _lm_tensor(node[k], dev)
+                if tuple(out[k].shape) != s.shape:
+                    raise ValueError(f"{path}{k}: shape "
+                                     f"{tuple(out[k].shape)}, the model's "
+                                     f"{s.shape}")
+            else:
+                out[k] = walk(s, node[k], f"{path}{k}.")
+        return out
+
+    return walk(model_specs(cfg), tree, "")
+
+
+def lm_cache_from_numpy(cache: dict, device=None) -> dict:
+    """The reference's decode cache as numpy (``blocks.pos{i}.k`` [n_super,
+    B, T, Hkv, D], ``rem.rem{i}.v`` ...) -> the port's, key for key, on
+    ``device``."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: _lm_tensor(a, dev), cache)
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """The port's decode cache -> numpy, key for key; bfloat16 leaves come
+    back as float32 (exact)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+    return _map_tree(leaf, cache)

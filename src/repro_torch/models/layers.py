@@ -1,0 +1,426 @@
+"""Transformer building blocks: norms, RoPE, GQA attention, gated MLPs.
+
+Plain functions over explicit parameter dicts (built from the PSpec trees
+of :mod:`repro_torch.models.params`), each the twin of the reference's
+function of the same name. Attention comes in two temporal modes here:
+
+* full-sequence (prefill and the full forward) with causal or
+  sliding-window masks: a dense mask up to ``cfg.attn_chunk`` keys, and the
+  streaming-softmax ("flash") forward as a loop over key chunks above it;
+* single-token decode against a KV cache, written in place.
+
+Numerics follow the reference: parameters in their own dtype, products in
+``cfg.compute_dtype``, softmax and norms in float32 (``acc_dtype``: float64
+when the compute dtype is float64, a setting the reference never uses and
+the chip smoke test uses to evaluate a float32 model's function without
+float32 rounding on two devices). Every weight is cast
+with ``.to(cd)``, which is free when the caller already holds the
+compute-dtype copy (``transformer.compute_params``).
+
+Where a straight translation would go wrong:
+* ``jax.nn.gelu`` is the tanh approximation, and JAX evaluates its formula
+  op by op in the input's dtype with the constants rounded to it; so does
+  :func:`gelu_tanh` (in bfloat16, ``F.gelu(approximate="tanh")`` rounds
+  once, with exact constants, and differs in the last bits);
+* ``jnp.mod`` is a floor mod; ``torch.remainder`` (and Python's ``%``) is too;
+* rope's frequencies are ``exp(-log(theta) * arange(half) / half)`` in
+  float32, not ``theta ** (...)``, computed on the host for every device;
+* the dense path divides the scores by ``sqrt(D)``, the flash path multiplies
+  them by ``1 / sqrt(D)``;
+* ``dynamic_update_slice`` clamps an index out of range; the cache writes
+  here raise instead.
+
+The CROSS attention (``cross_attention``) waits for the CROSS slice and the
+flash backward for the training slice (ROADMAP queue 1 item 7).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import PSpec
+
+_F32 = torch.float32
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Where the reference computes in float32 (norms, scores, softmax,
+    rope's angles, logits): float32, or float64 for float64 inputs."""
+    return torch.promote_types(dtype, _F32)
+
+
+def _scalar(value, dtype, device) -> torch.Tensor:
+    """A scalar made on ``device`` (a fill, not a copy that waits for the
+    stream). A divisor there divides: CUDA turns division by a host scalar
+    into a product with its reciprocal."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Param spec builders
+# ---------------------------------------------------------------------------
+
+
+def norm_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": PSpec((d,), ("embed",), "ones"),
+                "bias": PSpec((d,), ("embed",), "zeros")}
+    return {"scale": PSpec((d,), ("embed",), "ones")}
+
+
+def attention_specs(cfg: ModelConfig) -> dict:
+    d, dh = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    sp = {
+        "wq": PSpec((d, hq, dh), ("embed", "heads", "head_dim")),
+        "wk": PSpec((d, hkv, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": PSpec((d, hkv, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": PSpec((hq, dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        sp["bq"] = PSpec((hq, dh), ("heads", "head_dim"), "zeros")
+        sp["bk"] = PSpec((hkv, dh), ("kv_heads", "head_dim"), "zeros")
+        sp["bv"] = PSpec((hkv, dh), ("kv_heads", "head_dim"), "zeros")
+    return sp
+
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
+    d = cfg.d_model
+    f = cfg.d_ff if d_ff is None else d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {
+            "w_gate": PSpec((d, f), ("embed", "ff")),
+            "w_up": PSpec((d, f), ("embed", "ff")),
+            "w_down": PSpec((f, d), ("ff", "embed")),
+        }
+    return {
+        "w_up": PSpec((d, f), ("embed", "ff")),
+        "w_down": PSpec((f, d), ("ff", "embed")),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward ops
+# ---------------------------------------------------------------------------
+
+
+def norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    acc = acc_dtype(x.dtype)
+    xf = x.to(acc)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + 1e-6)
+        out = out * p["scale"].to(acc) + p["bias"].to(acc)
+    else:
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + 1e-6) * p["scale"].to(acc)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """rope's frequencies ``exp(-log(theta) * arange(half) / half)``,
+    computed in float32 on the host and copied to ``device`` once. CUDA's
+    ``expf`` and the CPU's ``exp`` differ in the last bit of some of
+    these, and the angle ``pos * freq`` carries that error times the
+    position; this way every device rotates by the same angles."""
+    with torch.inference_mode(False):
+        freqs = torch.exp(
+            -torch.log(torch.tensor(theta, dtype=_F32))
+            * torch.arange(0, half, dtype=_F32)
+            / torch.tensor(half, dtype=_F32))
+        return freqs.to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding. x: [..., S, H, D]; positions: [..., S] or [S]."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(half, float(theta), x.device)
+    acc = acc_dtype(x.dtype)
+    ang = positions[..., :, None].to(acc) * freqs.to(acc)  # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat(
+        [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1
+    ).to(x.dtype)
+
+
+def _project_qkv(cfg, p, x, xkv=None):
+    """q: [B,S,Hq,D]; k,v: [B,T,Hkv,D] (xkv defaults to x)."""
+    cd = compute_dtype(cfg)
+    xkv = x if xkv is None else xkv
+    q = torch.einsum("bsd,dhk->bshk", x.to(cd), p["wq"].to(cd))
+    k = torch.einsum("btd,dhk->bthk", xkv.to(cd), p["wk"].to(cd))
+    v = torch.einsum("btd,dhk->bthk", xkv.to(cd), p["wv"].to(cd))
+    if "bq" in p:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    return q, k, v
+
+
+def _gqa_scores_out(cfg, q, k, v, mask):
+    """Grouped-query attention core. mask: [B or 1, 1, S, T] additive f32."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    g = hq // hkv
+    B, S, D = q.shape[0], q.shape[1], q.shape[-1]
+    qg = q.reshape(B, S, hkv, g, D)
+    acc = acc_dtype(q.dtype)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(acc)
+    scores = scores / torch.sqrt(_scalar(D, acc, q.device))
+    scores = scores + mask[:, :, None, :, :]  # [B,kv,g,S,T]
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(B, S, hq, D)
+
+
+def _chunk_mask(S: int, j: int, chunk: int, window: Optional[int], device):
+    """Validity of (query i, key j*chunk+t) pairs. [S, chunk] bool."""
+    qi = torch.arange(S, device=device)
+    kpos = j * chunk + torch.arange(chunk, device=device)
+    ok = kpos[None, :] <= qi[:, None]
+    if window is not None:
+        ok &= (qi[:, None] - kpos[None, :]) < window
+    return ok
+
+
+def _flash_fwd_impl(q, k, v, window: Optional[int], chunk: int):
+    """Streaming-softmax forward, one key chunk at a time.
+    q:[B,S,Hq,D], k/v:[B,S,Hkv,D]. Returns (out [B,S,Hq,D], lse
+    [B,Hkv,g,S] f32)."""
+    cd = q.dtype
+    dev = q.device
+    B, S, hq, D = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(B, S, hkv, g, D)
+    f = acc_dtype(cd)
+    scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=f))
+
+    m = torch.full((B, hkv, g, S), -torch.inf, dtype=f, device=dev)
+    l = torch.zeros((B, hkv, g, S), dtype=f, device=dev)
+    acc = torch.zeros((B, hkv, g, S, D), dtype=f, device=dev)
+    for j in range(S // chunk):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kj).to(f)
+        s = s * scale
+        ok = _chunk_mask(S, j, chunk, window, dev)
+        s = torch.where(ok, s, -torch.inf)
+
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        live = ~torch.isinf(m_new)   # fully-masked prefix guard (window warmup)
+        p = torch.where(live[..., None], torch.exp(s - m_new[..., None]), 0.0)
+        r = torch.where(live & ~torch.isinf(m), torch.exp(m - m_new), 0.0)
+        l = l * r + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(cd), vj)
+        acc = acc * r[..., None] + pv.to(f)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, hq, D)
+    return out.to(cd), lse
+
+
+def gqa_attention(cfg, q, k, v, *, window: Optional[int]):
+    """Full-sequence GQA dispatch: dense mask up to the chunk threshold,
+    the streaming-softmax forward above it."""
+    S = q.shape[1]
+    chunk = cfg.attn_chunk
+    if S > chunk and S % chunk == 0:
+        return _flash_fwd_impl(q, k, v, window, chunk)[0]
+    mask = causal_mask(S, S, window=window, device=q.device)
+    return _gqa_scores_out(cfg, q, k, v, mask)
+
+
+def causal_mask(S: int, T: int, offset: int = 0,
+                window: Optional[int] = None, device=None) -> torch.Tensor:
+    """Additive mask [1,1,S,T]: query i attends keys j with
+    j <= i+offset and (window is None or i+offset - j < window)."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    kj = torch.arange(T, device=device)[None, :]
+    ok = kj <= qi
+    if window is not None:
+        ok &= (qi - kj) < window
+    return _additive(ok)[None, None]
+
+
+def _additive(ok: torch.Tensor) -> torch.Tensor:
+    """0 where ``ok``, -inf elsewhere, float32."""
+    zero = torch.zeros((), dtype=_F32, device=ok.device)
+    return torch.where(ok, zero, -torch.inf)
+
+
+def self_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,               # [B, S, D]
+    *,
+    window: Optional[int] = None,
+    pos_offset: int = 0,
+) -> torch.Tensor:
+    """Full-sequence causal (optionally sliding-window) self-attention."""
+    cd = compute_dtype(cfg)
+    S = x.shape[1]
+    q, k, v = _project_qkv(cfg, p, x)
+    pos = torch.arange(S, device=x.device) + pos_offset
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    out = gqa_attention(cfg, q, k, v, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+
+
+def _check_index(i: int, n: Optional[int], what: str) -> None:
+    """Raise where ``dynamic_update_slice`` would clamp: i outside [0, n)
+    (n None: no upper end)."""
+    if i < 0 or (n is not None and i >= n):
+        raise IndexError(f"{what} {i} is outside [0, {n})")
+
+
+def _decode_qkv(cfg, p, x, pos: int):
+    q, k, v = _project_qkv(cfg, p, x)
+    at = torch.full((1,), pos, device=x.device)
+    return (rope(q, at, cfg.rope_theta), rope(k, at, cfg.rope_theta), v)
+
+
+def _decode_out(cfg, p, q, ck, cv, ok):
+    cd = compute_dtype(cfg)
+    mask = _additive(ok)[None, None, None]
+    out = _gqa_scores_out(cfg, q, ck.to(cd), cv.to(cd), mask)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+
+
+def decode_self_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,        # [B, 1, D] — the new token
+    cache_k: torch.Tensor,  # [B, S_max, Hkv, Dh]
+    cache_v: torch.Tensor,
+    pos: int,               # index of the new token
+    *,
+    window: Optional[int] = None,
+):
+    """One decode step: write K/V at ``pos`` (in place), attend to the
+    valid prefix. Returns (out, cache_k, cache_v)."""
+    q, k, v = _decode_qkv(cfg, p, x, pos)
+    T = cache_k.shape[1]
+    _check_index(pos, T, "decode position")
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    kj = torch.arange(T, device=x.device)
+    ok = kj <= pos
+    if window is not None:
+        ok &= (pos - kj) < window
+    return _decode_out(cfg, p, q, cache_k, cache_v, ok), cache_k, cache_v
+
+
+def _window_ok(pos: int, W: int, device) -> torch.Tensor:
+    """Slot s of a rotating window cache holds the key of absolute position
+    pos - ((pos - s) mod W) (a floor mod); it is valid once that is >= 0."""
+    slots = torch.arange(W, device=device)
+    return (pos - torch.remainder(pos - slots, W)) >= 0
+
+
+def decode_local_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,        # [B, 1, D]
+    cache_k: torch.Tensor,  # [B, W, Hkv, Dh] rotating window cache
+    cache_v: torch.Tensor,
+    pos: int,               # ABSOLUTE position of the new token
+):
+    """Sliding-window decode against a rotating cache (slot = pos % W),
+    written in place.
+
+    Keys were RoPE'd at their absolute positions when written; a slot s holds
+    the key for absolute position  pos - ((pos - s) mod W),  which is negative
+    (=> masked) until the window has warmed up.
+    """
+    W = cache_k.shape[1]
+    q, k, v = _decode_qkv(cfg, p, x, pos)
+    _check_index(pos, None, "decode position")
+    slot = pos % W
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    ok = _window_ok(pos, W, x.device)
+    return _decode_out(cfg, p, q, cache_k, cache_v, ok), cache_k, cache_v
+
+
+def decode_attention_stacked(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,          # [B, 1, D]
+    buf_k: torch.Tensor,      # [L, B, S|W, Hkv, Dh] (idx given) or unstacked
+    buf_v: torch.Tensor,
+    idx: Optional[int],       # layer index into the stacked dim, or None
+    pos: int,                 # absolute position of the new token
+    *,
+    local: bool,
+):
+    """One decode step writing the new K/V **in place into the (stacked)
+    cache buffer** at layer ``idx``. Returns (out, buf_k, buf_v).
+
+    Global attention masks keys beyond `pos`; local attention uses a rotating
+    window buffer (slot = pos % W) with absolute-position masking.
+    """
+    q, k, v = _decode_qkv(cfg, p, x, pos)
+    if idx is not None:
+        _check_index(idx, buf_k.shape[0], "layer index")
+        ck, cv = buf_k[idx], buf_v[idx]
+    else:
+        ck, cv = buf_k, buf_v
+    W = ck.shape[1]
+    _check_index(pos, None if local else W, "decode position")
+    write_pos = pos % W if local else pos
+    ck[:, write_pos] = k[:, 0].to(ck.dtype)
+    cv[:, write_pos] = v[:, 0].to(cv.dtype)
+
+    if local:
+        ok = _window_ok(pos, W, x.device)
+    else:
+        ok = torch.arange(W, device=x.device) <= pos
+    return _decode_out(cfg, p, q, ck, cv, ok), buf_k, buf_v
+
+
+def _const(value: float, x: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to x's dtype, as a host scalar (no launch)."""
+    return torch.tensor(value, dtype=x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)`` (approximate=True) as JAX computes it: one op at
+    a time in x's dtype, each result rounded to it, the constants too."""
+    x3 = (x * x) * x
+    inner = _const(np.sqrt(2 / np.pi), x) * (x + _const(0.044715, x) * x3)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), two rounded ops."""
+    return x * torch.sigmoid(x)
+
+
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    cd = compute_dtype(cfg)
+    xc = x.to(cd)
+    if cfg.act in ("swiglu", "geglu"):
+        g = xc @ p["w_gate"].to(cd)
+        u = xc @ p["w_up"].to(cd)
+        g = silu(g) if cfg.act == "swiglu" else gelu_tanh(g)
+        return (g * u) @ p["w_down"].to(cd)
+    h = gelu_tanh(xc @ p["w_up"].to(cd))
+    return h @ p["w_down"].to(cd)

@@ -1,0 +1,377 @@
+"""Pattern-based decoder stacks: the dense families (GLOBAL and LOCAL
+attention with a dense MLP).
+
+A model is `n_layers` of per-kind blocks described by `cfg.layer_pattern`.
+As in the reference, one repetition of the pattern (a super-block) is
+stacked: every leaf of ``blocks.pos{i}`` carries a leading ``[n_super]``
+layer dim, and the remainder layers sit unstacked under ``rem.rem{i}``. The
+parameter and cache trees therefore correspond to the reference's key for
+key. Where the reference scans over the stacked dim, the port loops over it
+in Python, reading layer ``j`` as a view and writing the stacked cache in
+place.
+
+Three temporal modes:
+  forward     — full sequence (logits at every position)
+  prefill     — forward + KV cache construction (serving)
+  decode_step — one token against the cache
+
+Sliding-window layers keep **window-sized rotating caches** (slot = pos %
+window). The MoE, CROSS, RG-LRU and SSD kinds, ``loss_fn`` and the sharding
+hints are not ported yet (ROADMAP queue 1 item 7): building a model of such
+a family raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import (
+    CROSS, GLOBAL, LOCAL, RGLRU, SSD, ModelConfig,
+)
+from repro_torch.core.tm import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.params import PSpec, ShapeDtype, stack_specs
+
+_UNPORTED = {
+    CROSS: "the CROSS layer kind (cross_attention, vlm)",
+    RGLRU: "the RG-LRU layer kind (models/rglru.py)",
+    SSD: "the SSD layer kind (models/ssm.py)",
+}
+_NORMS = ("ln1", "ln2", "final_norm")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item 7); "
+        "the port builds the dense GLOBAL/LOCAL stacks only")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+def block_specs(cfg: ModelConfig, kind: str) -> dict:
+    if kind in (GLOBAL, LOCAL):
+        if cfg.moe is not None:
+            raise _not_ported("the MoE FFN (models/moe.py)")
+        return {
+            "ln1": layers.norm_specs(cfg),
+            "attn": layers.attention_specs(cfg),
+            "ln2": layers.norm_specs(cfg),
+            "ffn": layers.mlp_specs(cfg),
+        }
+    if kind in _UNPORTED:
+        raise _not_ported(_UNPORTED[kind])
+    raise ValueError(kind)
+
+
+def _pattern_split(cfg: ModelConfig) -> tuple[int, int]:
+    P = len(cfg.layer_pattern)
+    return cfg.n_layers // P, cfg.n_layers % P
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab_size
+    n_super, n_rem = _pattern_split(cfg)
+    sp: dict = {}
+    if not cfg.embeds_input:
+        sp["embed"] = PSpec((v, d), ("vocab", "embed"), "scaled", 0.02)
+    if n_super > 0:
+        sp["blocks"] = {
+            f"pos{i}": stack_specs(block_specs(cfg, k), n_super, "layers")
+            for i, k in enumerate(cfg.layer_pattern)
+        }
+    if n_rem:
+        sp["rem"] = {
+            f"rem{i}": block_specs(cfg, cfg.layer_pattern[i])
+            for i in range(n_rem)
+        }
+    sp["final_norm"] = layers.norm_specs(cfg)
+    if not cfg.tie_embeddings:
+        sp["head"] = PSpec((d, v), ("embed", "vocab"), "scaled", 0.02)
+    return sp
+
+
+def compute_params(cfg: ModelConfig, params: dict) -> dict:
+    """The tree the forward passes read: every weight the reference casts to
+    ``compute_dtype`` inside each call (``.astype(cd)``) cast once here, the
+    norms left in their own dtype (the reference reads them in float32).
+    A cast is deterministic, so the values are the reference's. At a
+    float32 compute dtype the tree holds the same tensors; at bfloat16 the
+    copies cost 2 bytes a parameter on the device."""
+    cd = layers.compute_dtype(cfg)
+
+    def walk(node, key):
+        if key in _NORMS:
+            return node
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return node.to(cd)
+
+    return walk(params, None)
+
+
+def _layer(tree: dict, j: int) -> dict:
+    """Layer ``j`` of a stacked tree (views)."""
+    return {k: _layer(v, j) if isinstance(v, dict) else v[j]
+            for k, v in tree.items()}
+
+
+def _layers(cfg: ModelConfig, tree: dict):
+    """(kind, layer tree, stacked index or None, key) of every layer, in
+    order: the super-blocks, then the remainder."""
+    n_super, n_rem = _pattern_split(cfg)
+    for j in range(n_super):
+        for i, kind in enumerate(cfg.layer_pattern):
+            yield kind, _layer(tree["blocks"][f"pos{i}"], j), j, ("blocks",
+                                                                  f"pos{i}")
+    for i in range(n_rem):
+        yield cfg.layer_pattern[i], tree["rem"][f"rem{i}"], None, ("rem",
+                                                                   f"rem{i}")
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(cfg, kind, p, x):
+    """One GLOBAL or LOCAL layer over the full sequence."""
+    w = cfg.sliding_window if kind == LOCAL else None
+    x = x + layers.self_attention(cfg, p["attn"],
+                                  layers.norm(cfg, p["ln1"], x), window=w)
+    return x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
+
+
+def embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    cd = layers.compute_dtype(cfg)
+    if cfg.embeds_input:
+        return batch["embeds"].to(cd)
+    return params["embed"].to(cd)[batch["tokens"]]
+
+
+def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = layers.norm(cfg, params["final_norm"], x)
+    w = (params["embed"].T if cfg.tie_embeddings else params["head"])
+    return (x @ w.to(x.dtype)).to(layers.acc_dtype(x.dtype))
+
+
+def forward(cfg: ModelConfig, params: dict,
+            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. batch: {tokens|embeds}.
+
+    Returns (logits [B,S,V] f32, aux_loss scalar): the aux loss is the MoE
+    router's, 0 for the dense stacks, kept for the reference's contract.
+    """
+    x = embed_inputs(cfg, params, batch)
+    for kind, p, _, _ in _layers(cfg, params):
+        x = _apply_block(cfg, kind, p, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(cfg, params, x), aux
+
+
+# ---------------------------------------------------------------------------
+# Cache + decode
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache_struct(cfg: ModelConfig, kind: str, batch: int,
+                        max_seq: int) -> dict:
+    """Cache shapes for one layer."""
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    cd = layers.compute_dtype(cfg)
+    if kind == GLOBAL:
+        n = max_seq
+    elif kind == LOCAL:
+        n = min(cfg.sliding_window, max_seq)
+    elif kind in _UNPORTED:
+        raise _not_ported(_UNPORTED[kind])
+    else:
+        raise ValueError(kind)
+    return {"k": ShapeDtype((batch, n, hkv, dh), cd),
+            "v": ShapeDtype((batch, n, hkv, dh), cd)}
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """Abstract cache tree (ShapeDtype leaves) matching the params tree."""
+    n_super, n_rem = _pattern_split(cfg)
+    out: dict = {}
+    if n_super > 0:
+        out["blocks"] = {}
+        for i, kind in enumerate(cfg.layer_pattern):
+            leaf = _layer_cache_struct(cfg, kind, batch, max_seq)
+            out["blocks"][f"pos{i}"] = {
+                k: ShapeDtype((n_super,) + s.shape, s.dtype)
+                for k, s in leaf.items()}
+    if n_rem:
+        out["rem"] = {
+            f"rem{i}": _layer_cache_struct(cfg, cfg.layer_pattern[i], batch,
+                                           max_seq)
+            for i in range(n_rem)
+        }
+    return out
+
+
+@torch.inference_mode()
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> dict:
+    """A zero cache on ``device`` (the card unless told otherwise)."""
+    dev = resolve_device(device)
+    return {
+        top: {name: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                     for k, s in leaf.items()}
+              for name, leaf in sub.items()}
+        for top, sub in cache_struct(cfg, batch, max_seq).items()
+    }
+
+
+def _decode_block(cfg, kind, p, x, cache, pos, idx=None):
+    """One layer, one token; the K/V land in ``cache`` (stacked: at layer
+    ``idx``) in place. Returns x."""
+    h = layers.norm(cfg, p["ln1"], x)
+    a, _, _ = layers.decode_attention_stacked(
+        cfg, p["attn"], h, cache["k"], cache["v"], idx, pos,
+        local=(kind == LOCAL),
+    )
+    x = x + a
+    return x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
+
+
+@torch.inference_mode()
+def decode_step(
+    cfg: ModelConfig,
+    params: dict,
+    batch: dict,     # {token: [B,1] int | embeds: [B,1,D], pos: int}
+    cache: dict,
+) -> tuple[torch.Tensor, dict]:
+    """One decode step for the whole stack. Returns (logits [B,V], cache):
+    the cache is updated in place and returned."""
+    pos = int(batch["pos"])
+    if cfg.embeds_input:
+        x = batch["embeds"].to(layers.compute_dtype(cfg))
+    else:
+        x = params["embed"].to(layers.compute_dtype(cfg))[batch["token"]]
+    for kind, p, idx, (top, name) in _layers(cfg, params):
+        x = _decode_block(cfg, kind, p, x, cache[top][name], pos, idx)
+    return unembed(cfg, params, x)[:, 0, :], cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill: forward + cache construction
+# ---------------------------------------------------------------------------
+
+
+def _prefill_block(cfg, kind, p, x):
+    """Layer forward that also returns its roped K and V [B, S, Hkv, D]."""
+    cd = layers.compute_dtype(cfg)
+    w = cfg.sliding_window if kind == LOCAL else None
+    h = layers.norm(cfg, p["ln1"], x)
+    S = h.shape[1]
+    q, k, v = layers._project_qkv(cfg, p["attn"], h)
+    pos = torch.arange(S, device=x.device)
+    q = layers.rope(q, pos, cfg.rope_theta)
+    k = layers.rope(k, pos, cfg.rope_theta)
+    a = layers.gqa_attention(cfg, q, k, v, window=w)
+    x = x + torch.einsum("bshk,hkd->bsd", a, p["attn"]["wo"].to(cd))
+    x = x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
+    return x, k, v
+
+
+def _store_prompt(kind, ck, cv, k, v):
+    """Write a prompt's K/V into one layer's (zeroed) cache [B, T, Hkv, D]:
+    a global cache at positions 0..S-1, a local one its last W entries at
+    their rotating slots (abs % W)."""
+    S, T = k.shape[1], ck.shape[1]
+    if kind == GLOBAL:
+        if S > T:
+            raise ValueError(f"a {S}-token prompt does not fit a {T}-slot "
+                             "cache")
+        ck[:, :S] = k.to(ck.dtype)
+        cv[:, :S] = v.to(cv.dtype)
+        return
+    first = max(S - T, 0)
+    slots = torch.arange(first, S, device=k.device) % T
+    ck[:, slots] = k[:, first:].to(ck.dtype)
+    cv[:, slots] = v[:, first:].to(cv.dtype)
+
+
+@torch.inference_mode()
+def prefill(
+    cfg: ModelConfig,
+    params: dict,
+    batch: dict,
+    max_seq: int,
+) -> tuple[torch.Tensor, dict]:
+    """Consume the prompt; return (last-position logits [B,V], decode cache)."""
+    x = embed_inputs(cfg, params, batch)
+    cache = init_cache(cfg, x.shape[0], max_seq, device=x.device)
+    for kind, p, idx, (top, name) in _layers(cfg, params):
+        x, k, v = _prefill_block(cfg, kind, p, x)
+        c = cache[top][name]
+        ck, cv = (c["k"], c["v"]) if idx is None else (c["k"][idx],
+                                                       c["v"][idx])
+        _store_prompt(kind, ck, cv, k, v)
+    # The reference unembeds all S positions and keeps the last; the norm
+    # and the head act row by row, so unembedding the last row alone gives
+    # the same values without the [B, S, V] logits.
+    return unembed(cfg, params, x[:, -1:])[:, 0, :], cache
+
+
+# ---------------------------------------------------------------------------
+# The model as a module
+# ---------------------------------------------------------------------------
+
+
+class Transformer(torch.nn.Module):
+    """A dense decoder stack on one device, its tensors registered under the
+    reference's parameter paths (``blocks.pos0.attn.wq``, ``rem.rem0.ln1.
+    scale``, ``embed``, ...), so ``state_dict()`` keys are those paths.
+
+    ``params`` is a parameter tree (``params.materialize`` or
+    ``convert.lm_params_from_numpy``); it is moved to ``device`` (the card
+    unless told otherwise). The compute-dtype copies of the weights are
+    built once here (:func:`compute_params`) and every pass reads them.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = _register(self, model_specs(cfg), params, self.device)
+        self.compute = compute_params(cfg, self.params)
+
+    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        with torch.inference_mode():
+            return forward(self.cfg, self.compute, batch)
+
+    def prefill(self, batch: dict, max_seq: int):
+        return prefill(self.cfg, self.compute, batch, max_seq)
+
+    def decode_step(self, batch: dict, cache: dict):
+        return decode_step(self.cfg, self.compute, batch, cache)
+
+    def init_cache(self, batch: int, max_seq: int) -> dict:
+        return init_cache(self.cfg, batch, max_seq, device=self.device)
+
+
+def _register(module: torch.nn.Module, specs: dict, tree: dict, device) -> dict:
+    """Register ``tree``'s tensors on ``module`` under the spec tree's keys,
+    checking every shape; returns the tree of registered parameters."""
+    if set(tree) != set(specs):
+        raise ValueError(f"parameter keys {sorted(tree)} differ from the "
+                         f"model's {sorted(specs)}")
+    out = {}
+    for k, spec in specs.items():
+        if isinstance(spec, PSpec):
+            t = tree[k].to(device)
+            if tuple(t.shape) != spec.shape:
+                raise ValueError(f"parameter {k}: shape {tuple(t.shape)}, "
+                                 f"the model's {spec.shape}")
+            param = torch.nn.Parameter(t, requires_grad=False)
+            module.register_parameter(k, param)
+            out[k] = param
+        else:
+            sub = torch.nn.Module()
+            module.add_module(k, sub)
+            out[k] = _register(sub, spec, tree[k], device)
+    return out

@@ -135,3 +135,22 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """
     u = uniform(key, logits.shape[key.dim() - 1:])
     return torch.argmax(torch.where(logits == 0, u, -1.0), dim=-1)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, its default low mode:
+    ``-log(-log(uniform(minval=tiny)))``. The uniform is bitwise the
+    reference's; each ``log`` may differ from XLA's in the last bits."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, minval=tiny)))
+
+
+def categorical_logits(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for any float32
+    logits ``[..., V]`` and one key ``[2]``: the argmax of the gumbel noise
+    over the whole logits shape plus the logits (first index on ties).
+
+    Unlike :func:`categorical` (masks of 0/-inf only, and free of ``log``),
+    this takes ``log`` twice, so a sample can differ from the reference's
+    where two classes' noisy logits lie within a few ulp of each other."""
+    return torch.argmax(gumbel(key, logits.shape) + logits, dim=-1)

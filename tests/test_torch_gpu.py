@@ -865,3 +865,84 @@ def test_filter_masks_land_on_the_card(cuda):
     assert c.device.type == "cuda"
     assert torch.equal(c.cpu(), filt.class_filter_mask(ys, 1, True,
                                                        device="cpu"))
+
+
+# The LM substrate on the card against the CPU port. It has no CUDA kernel
+# of its own (plain PyTorch ops); these hold the card's float32 results to
+# the CPU's: max |card - cpu| <= 1e-4 * max |cpu| (TF32 off, torch's
+# default), and tokens equal unless the CPU's top-2 gap at the first
+# differing step is within that tolerance.
+LM_TOL = 1e-4
+
+
+def _lm_pair(cuda, arch="gemma3_1b"):
+    from repro_torch import configs
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    tree = P.materialize(transformer.model_specs(cfg), gen, device="cpu")
+    return (cfg, tree, transformer.Transformer(cfg, tree, device="cpu"),
+            transformer.Transformer(cfg, tree, device=cuda))
+
+
+def _lm_close(got, want):
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= LM_TOL * want.float().abs().max().item(), err
+
+
+def test_lm_gemma3_smoke_on_card_equals_cpu(cuda):
+    """forward, prefill (logits and the cache, key for key; a prompt past
+    the 8-slot window) and decode steps that wrap it."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, _, cpu, gpu = _lm_pair(cuda)
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)))
+    _lm_close(gpu({"tokens": toks.to(cuda)})[0], cpu({"tokens": toks})[0])
+    lc, cc = cpu.prefill({"tokens": toks[:, :12]}, 24)
+    lg, cg = gpu.prefill({"tokens": toks[:, :12].to(cuda)}, 24)
+    _lm_close(lg, lc)
+    for top in cc:
+        for name in cc[top]:
+            for k in ("k", "v"):
+                _lm_close(cg[top][name][k], cc[top][name][k])
+    for i in range(12, 20):
+        lc, cc = cpu.decode_step({"token": toks[:, i:i + 1], "pos": i}, cc)
+        lg, cg = gpu.decode_step({"token": toks[:, i:i + 1].to(cuda),
+                                  "pos": i}, cg)
+        _lm_close(lg, lc)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_lm_generate_on_card_equals_cpu(cuda, temperature):
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    cfg, tree, cpu, _ = _lm_pair(cuda)
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    ec = EngineConfig(max_seq=18, batch_slots=2, temperature=temperature)
+    want = Engine(cfg, tree, ec, seed=5, device="cpu").generate(prompts, 12)
+    got = Engine(cfg, tree, ec, seed=5, device=cuda).generate(prompts, 12)
+    from repro_torch import random as R
+
+    for b in range(2):
+        diff = np.nonzero(got[b] != want[b])[0]
+        if not len(diff):
+            continue
+        # only at a near-tie of the CPU's decision values at that step:
+        # its logits, or its gumbel noise plus logits / T
+        i = int(diff[0])
+        toks = torch.from_numpy(np.concatenate(
+            [prompts, want[:, :i]], axis=1).astype(np.int64))
+        logits = cpu({"tokens": toks})[0][:, -1]
+        scale = logits.abs().max()
+        if temperature > 0:
+            key = R.PRNGKey(5)
+            for _ in range(i + 1):
+                key, k = R.split(key)
+            logits = R.gumbel(k, logits.shape) + logits / torch.tensor(
+                temperature)
+            scale = scale / temperature
+        top2 = torch.topk(logits[b], 2).values
+        assert top2[0] - top2[1] <= LM_TOL * scale, (b, i)

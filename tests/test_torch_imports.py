@@ -167,3 +167,45 @@ def test_fleet_entry_points_default_to_cuda(no_cuda):
     svc = TMService(cfg, state, ServiceConfig(replicas=3, packed=True),
                     device="cpu")
     assert svc.serve(xs).shape == (3, 4)
+
+
+def test_scan_covers_the_lm_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"configs/base.py", "configs/gemma3_1b.py", "models/params.py",
+            "models/layers.py", "models/transformer.py", "models/stubs.py",
+            "serve/engine.py", "launch/serve.py"} <= names
+
+
+def test_lm_entry_points_default_to_cuda(no_cuda):
+    """The LM serving path runs on the card unless told otherwise."""
+    from repro_torch import configs, convert
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import params as P
+    from repro_torch.models import stubs, transformer
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    cfg = configs.get_smoke_config("gemma3-1b")
+    specs = transformer.model_specs(cfg)
+    gen = torch.Generator().manual_seed(0)
+    tree = P.materialize(specs, gen, device="cpu")
+    ec = EngineConfig(max_seq=8, batch_slots=1)
+    for call in (lambda: P.materialize(specs, gen),
+                 lambda: transformer.Transformer(cfg, tree),
+                 lambda: Engine(cfg, tree, ec),
+                 lambda: transformer.init_cache(cfg, 1, 8),
+                 lambda: stubs.synthetic_batch(
+                     cfg, ShapeConfig("s", 8, 1, "prefill")),
+                 lambda: convert.lm_params_from_numpy(
+                     {k: v.numpy() for k, v in tree.items()
+                      if not isinstance(v, dict)}, cfg),
+                 lambda: convert.lm_cache_from_numpy({}),
+                 lambda: serve.main(["--arch", "gemma3-1b"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    out = Engine(cfg, tree, ec, device="cpu").generate(
+        np.zeros((1, 4), np.int32), 4)
+    assert out.shape == (1, 4)
+    assert serve.main(["--arch", "gemma3-1b", "--device", "cpu",
+                       "--max-new", "3"]).shape == (4, 3)
