@@ -123,7 +123,13 @@ Phases, each with its seconds:
    the float32 checks at full width (prefill -> decode == forward,
    ``generate`` == a full-forward greedy re-run); the four other dense
    archs at full width, one pattern repetition deep; the card against
-   the CPU;
+   the CPU. Then ``lm_train`` (``phase_lm_train``; no CUDA kernel of its
+   own): gemma3-1b trained at full width and depth, bf16, remat dots,
+   AdamW, B = 4 x 1024 tokens: remat's gradients equal no remat's bit for
+   bit, step ms, tokens/s, peak memory with and without remat, a
+   torch.profiler window of 2 steps, the step split into gradient pass,
+   cross-entropy and optimizer, a float32 SGD descent step, and the
+   streaming-softmax backward and a 6-layer train step against the CPU;
 9. profile -- torch.profiler over one more 16-point drain chunk of the
    service, over one offline epoch of the f = 784, O = 8 engine, and over
    one drain chunk of the K = 16 fleet: wall time, device busy time, idle
@@ -2298,10 +2304,10 @@ def _res_equal(torch, np, a, b) -> bool:
 
 def _snapshot_bytes(svc) -> int:
     """Bytes of one replica's device state: bank, ring, step, key."""
-    from repro_torch.core.online import tree_leaves
+    from repro_torch import tree as T
 
     return sum(a[0].numel() * a.element_size()
-               for a in tree_leaves((svc._ss, svc._keys)))
+               for a in T.leaves((svc._ss, svc._keys)))
 
 
 def _copy_ms(torch, np, nbytes: int) -> tuple[float, float, float]:
@@ -2338,7 +2344,7 @@ def _move_ms(torch, np, svc, cycles: int = 9) -> tuple[float, float, int]:
     activate, ``cycles`` times): the median ms a replica for each, and
     the cohort. Each evicted snapshot must own pageable memory of its
     own (no view of the cohort's pinned batch stays in the store)."""
-    from repro_torch.core.online import tree_leaves
+    from repro_torch import tree as T
 
     cohort = np.nonzero(svc.resident)[0][:svc.n_resident]
     t_evict, t_act = [], []
@@ -2349,7 +2355,7 @@ def _move_ms(torch, np, svc, cycles: int = 9) -> tuple[float, float, int]:
         torch.cuda.synchronize()
         t_evict.append(time.perf_counter() - t)
         check(all(isinstance(a, np.generic) or a.flags.owndata
-                  for r in cohort for a in tree_leaves(svc._res.store[r])),
+                  for r in cohort for a in T.leaves(svc._res.store[r])),
               "residency: an evicted snapshot is a view of its batch")
         t = time.perf_counter()
         svc.activate(cohort)
@@ -2439,8 +2445,9 @@ def phase_residency(torch, np, ce, fb):
     import importlib
     import tempfile
 
+    from repro_torch import tree as T
     from repro_torch.configs import tm_mnist
-    from repro_torch.core import TMState, online
+    from repro_torch.core import TMState
     from repro_torch.data import iris, mnist
     from repro_torch.serve import TMService, TunableConfig
 
@@ -2501,7 +2508,7 @@ def phase_residency(torch, np, ce, fb):
         del sync, twin
         snap = _snapshot_bytes(svc)
         store_mb = sum(a.nbytes for snap in svc._res.store.values()
-                       for a in online.tree_leaves(snap)) / 2 ** 20
+                       for a in T.leaves(snap)) / 2 ** 20
         # timed: batched and synchronous windows, alternating
         tb, ts, wall_b, wall_s, pts = _res_timed(
             torch, np, cfg, K, R, rounds, active, xs, ys, packed, bank)
@@ -2951,6 +2958,7 @@ def phase_lm(torch, np):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
+    from repro_torch import tree as T
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.engine import Engine, EngineConfig
 
@@ -3023,7 +3031,7 @@ def phase_lm(torch, np):
     pre = sorted(pre_ms)[1]
     step = sorted(step_ms)[len(step_ms) // 2]
     wbytes = sum(t.numel() * t.element_size()
-                 for t in _leaves(m.compute))
+                 for t in T.leaves(m.compute))
     print(f"lm generate {LM_B} x {LM_PROMPT} + {LM_NEW} tokens (bf16, greedy):"
           f" {walls[1] * 1e3:.3f} ms ({LM_B * LM_NEW / walls[1]:.1f} tokens/s;"
           f" first call {walls[0] * 1e3:.3f} ms); prefill {pre:.3f} ms "
@@ -3121,7 +3129,7 @@ def phase_lm(torch, np):
     c32 = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern),
                               compute_dtype="float32")
     tr = _lm_model(torch, c32, SEED + 1, dev)
-    tr_cpu = _map(lambda t: t.cpu(), tr)
+    tr_cpu = T.map(lambda t: t.cpu(), tr)
     td = torch.from_numpy(rng.integers(0, c32.vocab_size, (1, LM_DENSE_S)))
     t1k = torch.from_numpy(rng.integers(0, c32.vocab_size,
                                         (1, LM_PROMPT + 1)))
@@ -3135,7 +3143,7 @@ def phase_lm(torch, np):
                                LM_PROMPT + 8)
         dec, _ = m.decode_step({"token": t1k[:, LM_PROMPT:].to(where),
                                 "pos": LM_PROMPT}, cache)
-        return [x.double().cpu() for x in (fwd, pre, dec, *_leaves(cache))]
+        return [x.double().cpu() for x in (fwd, pre, dec, *T.leaves(cache))]
 
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
@@ -3171,16 +3179,372 @@ def phase_lm(torch, np):
           flush=True)
 
 
-def _leaves(tree: dict) -> list:
-    out = []
-    for v in tree.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+# lm_train: gemma3-1b at full width and depth, bf16, remat "dots", AdamW
+# (float32 moments), B = 4 x S = 1024 from data.synthetic, 8 timed steps.
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 1024, 8
+LM_TRAIN_PROFILE_STEPS = 2
+LM_SGD_DECREASE = 1e-3          # the descent step's first-order decrease
+LM_CUT_LAYERS = 6               # the card-against-CPU train step
+
+
+def _per_layer_init(torch, cfg, tree: dict) -> dict:
+    """``tree`` with every stacked fan-in-scaled leaf rescaled to its one
+    layer's fan-in (std scale / sqrt(d), as the unstacked layers are), in
+    place of ``materialize``'s super-block count: at one super-block that
+    count gives std 1 weights, and float32 gradients there are
+    ill-conditioned (tests/test_torch_lm_train.py)."""
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    def walk(spec, node):
+        if isinstance(spec, P.PSpec):
+            if spec.init == "normal" and spec.axes[0] == "layers":
+                node.mul_((spec.shape[0] / spec.shape[1]) ** 0.5)
+            return
+        for k in spec:
+            walk(spec[k], node[k])
+
+    walk(transformer.model_specs(cfg), tree)
+    return tree
+
+
+def _rel_tree(torch, got, want) -> float:
+    """max over leaves of max |got - want| / max |want| (float64, CPU)."""
+    from repro_torch import tree as T
+
+    out = 0.0
+    for a, b in zip(T.leaves(got), T.leaves(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        out = max(out, ((a - b).abs().max() / b.abs().max()).item())
     return out
 
 
-def _map(fn, tree: dict) -> dict:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def _lm_train_launcher(torch, np, cfg) -> None:
+    """``python -m repro_torch.launch.train --full`` as a user runs it, at
+    full width and depth: 2 steps with a checkpoint of the whole state
+    (parameters and moments, through the host) at step 2, then a restart
+    with ``--steps 3`` that resumes from it (``restore_tensors``) and runs
+    the third step."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt_mod
+
+    ck = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+    args = ["--arch", cfg.arch_id, "--full", "--batch", str(LM_TRAIN_B),
+            "--seq", str(LM_TRAIN_S), "--ckpt-every", "2", "--ckpt-dir", ck,
+            "--seed", str(SEED)]
+    try:
+        t = time.perf_counter()
+        state, rep = launch_train.main(args + ["--steps", "2"])
+        first = time.perf_counter() - t
+        check(rep.steps_run == 2 and ckpt_mod.latest_step(ck) == 2
+              and all(np.isfinite(rep.losses)),
+              f"lm_train launcher: {rep}")
+        del state
+        torch.cuda.empty_cache()
+        nbytes = sum(f.stat().st_size for f in os.scandir(
+            os.path.join(ck, "step_000000002")))
+        t = time.perf_counter()
+        state, rep2 = launch_train.main(args + ["--steps", "3"])
+        second = time.perf_counter() - t
+        check(rep2.steps_run == 1 and int(state.opt.step) == 3
+              and state.opt.step.is_cuda and rep2.restores == 0
+              and all(np.isfinite(rep2.losses)),
+              f"lm_train launcher resume: {rep2}")
+        del state
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"lm_train launcher {cfg.arch_id} --full (B {LM_TRAIN_B} x S "
+          f"{LM_TRAIN_S}): 2 steps and a {nbytes:,}-byte checkpoint in "
+          f"{first:.2f} s (losses "
+          + ", ".join(f"{x:.6f}" for x in rep.losses)
+          + f"); the restart resumed at step 2 and ran step 3 in "
+          f"{second:.2f} s (loss {rep2.losses[0]:.6f})", flush=True)
+
+
+def phase_lm_train(torch, np):
+    """The dense LM training path on the card (no CUDA kernel of its own:
+    plain PyTorch ops, the streaming-softmax backward included).
+
+    0. the launcher, ``launch.train.main([... "--full"])``: train, save the
+       whole state, restart and resume (``_lm_train_launcher``);
+
+    1. gemma3-1b, full width and depth, bf16 compute, ``remat="dots"``:
+       gradients with remat equal (``torch.equal``) to those without, on
+       one batch, with each pass's peak memory;
+    2. 8 ``train_step(donate=True)`` calls (AdamW, float32 moments) on
+       ``data.synthetic`` batches: step ms (CUDA events, median of steps
+       3-8), tokens/s, peak memory, the losses and gradient norms (finite);
+       one step without remat for its peak; torch.profiler over 2 steps
+       (launches a step, idle share, top device ops);
+    3. one plain SGD step at float32 compute lowers the loss on the same
+       batch (tests/test_models_smoke.py's descent check), full width,
+       with a step whose first-order decrease is LM_SGD_DECREASE;
+    4. the streaming-softmax backward on the card against the CPU at
+       gemma3's head shape, S = 1024, GLOBAL and LOCAL: float64 within
+       LM_TOL, float32 each against float64, the card's error at most
+       max(LM_TOL, 4 x the CPU's);
+    5. one ``train_step`` of gemma3-1b at full width cut to 6 layers, B =
+       1, S = 1024, on the card and on the CPU from the same state (drawn
+       with each layer's fan-in): the loss, gradient norm, parameters and
+       moments, under the same rule."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models import layers, transformer
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as TS
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config(LM_ARCH)
+    check(cfg.remat == "dots" and cfg.compute_dtype == "bfloat16",
+          "gemma3-1b trains in bf16 with remat dots")
+    tc = TS.TrainConfig()
+    torch.cuda.empty_cache()
+    _lm_train_launcher(torch, np, cfg)
+    tree = _lm_model(torch, cfg, SEED, dev)
+    state = TS.init_state(tc, tree)
+    del tree
+    shape = ShapeConfig("lm_train", LM_TRAIN_S, LM_TRAIN_B, "train")
+    data = synthetic.token_batches(cfg, shape, seed=SEED)
+    batches = [next(data) for _ in range(LM_TRAIN_STEPS + 2
+                                         + LM_TRAIN_PROFILE_STEPS)]
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      T.leaves(state.params) + T.leaves(state.opt.mu)
+                      + T.leaves(state.opt.nu))
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+
+    # 1. remat: the same bits, less memory
+    def grads(c):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, g = TS.grad_fn(c, tc, state.params, batches[0])
+        torch.cuda.synchronize()
+        return loss, g, torch.cuda.max_memory_allocated()
+
+    no_remat = dataclasses.replace(cfg, remat="none")
+    l_dots, g_dots, pk_dots = grads(cfg)
+    l_none, g_none, pk_none = grads(no_remat)
+    same = torch.equal(l_dots, l_none) and all(
+        torch.equal(a, b) for a, b in zip(T.leaves(g_dots), T.leaves(g_none)))
+    check(same, "lm_train: gradients with remat dots differ from those "
+          "without")
+    del g_dots, g_none
+
+    # 2. the training steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, norms = [], [], []
+    for i in range(LM_TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = TS.train_step(cfg, tc, state, batches[i], donate=True)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"lm_train: non-finite losses {losses} or norms {norms}")
+    check(int(state.opt.step) == LM_TRAIN_STEPS, "lm_train: step counter")
+    torch.cuda.reset_peak_memory_stats()
+    state, m = TS.train_step(no_remat, tc, state, batches[LM_TRAIN_STEPS],
+                             donate=True)
+    torch.cuda.synchronize()
+    peak_none = torch.cuda.max_memory_allocated()
+    check(np.isfinite(m["loss"].item()), "lm_train: no-remat step")
+    timed_ms = sorted(step_ms[2:])
+    med = (timed_ms[len(timed_ms) // 2 - 1] + timed_ms[len(timed_ms) // 2]) / 2
+    print(f"lm_train {cfg.arch_id} (bf16, remat dots, AdamW float32 moments, "
+          f"B {LM_TRAIN_B} x S {LM_TRAIN_S}): step {med:.3f} ms (median of "
+          f"steps 3-{LM_TRAIN_STEPS}: "
+          + ", ".join(f"{x:.3f}" for x in step_ms[2:])
+          + f"; step 1 {step_ms[0]:.3f}, step 2 {step_ms[1]:.3f}), "
+          f"{tokens / med * 1e3:.1f} tokens/s; peak memory "
+          f"{peak:,} bytes over the steps ({state_bytes:,} of them the "
+          f"parameters and moments), {peak_none:,} for a step without remat;"
+          f" gradient pass alone {pk_dots:,} (dots) / {pk_none:,} (none), "
+          "the gradients equal bit for bit", flush=True)
+    print("lm_train losses: " + ", ".join(f"{x:.6f}" for x in losses)
+          + "; grad norms: " + ", ".join(f"{x:.6f}" for x in norms),
+          flush=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(LM_TRAIN_PROFILE_STEPS):
+            state, m = TS.train_step(cfg, tc, state,
+                                     batches[LM_TRAIN_STEPS + 1 + i],
+                                     donate=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ka = prof.key_averages()
+    devk = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in devk) / 1e3
+    launches = sum(e.count for e in ka
+                   if e.key.startswith("cudaLaunchKernel")
+                   or e.key.startswith("cuLaunchKernel"))
+    kernels = sum(e.count for e in devk)
+    top = sorted(devk, key=lambda e: -e.self_device_time_total)[:10]
+    check(busy > 0, "lm_train profile: no device time traced")
+    n = LM_TRAIN_PROFILE_STEPS
+    print(f"profile lm_train ({n} steps, bf16, remat dots): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / wall:.4f}, launches {launches / n:.1f} a step "
+          f"(device ops {kernels / n:.1f} a step)", flush=True)
+    print("profile lm_train top device ops: " + "; ".join(
+        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+        for e in top), flush=True)
+
+    # where a step's time goes: the gradient pass, the optimizer, and the
+    # float32 cross-entropy over the [B, S, V] logits alone (forward and
+    # backward), each between CUDA events
+    def ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), out
+
+    batch = batches[LM_TRAIN_STEPS + 1]
+    t_grad, (_, _, g) = ms(lambda: TS.grad_fn(cfg, tc, state.params, batch))
+    t_opt, _ = ms(lambda: opt_mod.apply(tc.opt, state.opt, state.params, g,
+                                        donate=True))
+    del g
+    logits = torch.randn((LM_TRAIN_B, LM_TRAIN_S, cfg.vocab_size),
+                         device=dev, requires_grad=True)
+    toks = TS.batch_on(batch, dev)["tokens"]
+
+    def ce():
+        lse = torch.logsumexp(logits[:, :-1], dim=-1)
+        gold = torch.gather(logits[:, :-1], -1,
+                            toks[:, 1:, None].long())[..., 0]
+        return torch.autograd.grad((lse - gold).mean(), logits)
+
+    ms(ce)
+    t_ce, _ = ms(ce)
+    del logits
+    print(f"lm_train step parts (CUDA events, one call each): gradient pass "
+          f"{t_grad:.3f} ms (of it the float32 cross-entropy alone, forward "
+          f"and backward over [{LM_TRAIN_B}, {LM_TRAIN_S}, {cfg.vocab_size}]"
+          f" logits: {t_ce:.3f} ms), optimizer {t_opt:.3f} ms (clip + "
+          f"AdamW over {len(T.leaves(state.params))} leaves)", flush=True)
+
+    # 3. one plain SGD step lowers the loss (float32 compute, full width).
+    # tests/test_models_smoke.py steps 0.005 x the gradient at smoke width
+    # (gradient norms 17-62); at full width the norm is 100-450 and that
+    # step leaves the linear regime (on an H100 it raised the loss 12.6459
+    # -> 12.6578). So the step is eta = LM_SGD_DECREASE / |g|^2,
+    # whose first-order decrease eta |g|^2 is LM_SGD_DECREASE nats; the
+    # loss must fall (the curvature along g takes part of that decrease).
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    batch = batches[0]
+    loss, _, g = TS.grad_fn(c32, tc, state.params, batch)
+    gsq = sum(torch.square(x).sum() for x in T.leaves(g)).item()
+    eta = LM_SGD_DECREASE / gsq
+    moved = T.map(lambda p, d: p - eta * d, state.params, g)
+    del g
+    with torch.no_grad():
+        loss2 = transformer.loss_fn(
+            c32, moved, TS.batch_on(batch, dev))[0].item()
+    del moved
+    drop = loss.item() - loss2
+    check(drop > 0, f"lm_train: one SGD step of {eta:.3e} (first-order "
+          f"decrease {LM_SGD_DECREASE}) moves the loss {loss.item()} -> "
+          f"{loss2}")
+    print(f"lm_train SGD descent (float32, full width, |g| "
+          f"{gsq ** 0.5:.3f}, step {eta:.3e}): loss {loss.item():.6f} -> "
+          f"{loss2:.6f}, a decrease of {drop:.6f} against "
+          f"{LM_SGD_DECREASE} to first order", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # 4. the streaming-softmax backward, card against CPU
+    rng = np.random.default_rng(SEED)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = []
+    for window in (None, cfg.sliding_window):
+        q, do = (torch.from_numpy(rng.standard_normal((1, LM_TRAIN_S, hq, dh)))
+                 for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal((1, LM_TRAIN_S, hkv, dh)))
+                for _ in range(2))
+
+        def bwd(dtype, where):
+            xs = [x.to(dtype).to(where).requires_grad_() for x in (q, k, v)]
+            out = layers._Flash.apply(*xs, window, cfg.attn_chunk)
+            return [out.detach()] + list(torch.autograd.grad(
+                out, xs, do.to(dtype).to(where)))
+
+        g64, c64 = bwd(torch.float64, dev), bwd(torch.float64, "cpu")
+        g32, h32 = bwd(torch.float32, dev), bwd(torch.float32, "cpu")
+        names = ["out", "dq", "dk", "dv"]
+        e64 = [_rel_tree(torch, {"x": a}, {"x": b}) for a, b in zip(g64, c64)]
+        check(max(e64) <= LM_TOL, f"lm_train flash backward card vs cpu "
+              f"float64: {max(e64):.3e}")
+        card = [_rel_tree(torch, {"x": a}, {"x": b}) for a, b in zip(g32, c64)]
+        host = [_rel_tree(torch, {"x": a}, {"x": b}) for a, b in zip(h32, c64)]
+        for nme, a, b in zip(names, card, host):
+            check(a <= max(LM_TOL, 4 * b), f"lm_train flash backward "
+                  f"{window} float32 {nme}: card {a:.3e} > max(LM_TOL, 4 x "
+                  f"cpu {b:.3e})")
+        rows.append(f"{'LOCAL ' + str(window) if window else 'GLOBAL'}: "
+                    f"float64 {max(e64):.3e}; float32 against float64, "
+                    "card / CPU: " + ", ".join(
+                        f"{nme} {a:.3e} / {b:.3e}"
+                        for nme, a, b in zip(names, card, host)))
+    print(f"lm_train flash backward card vs CPU (1 x {LM_TRAIN_S}, {hq} "
+          f"heads of {dh}, {hkv} kv head, chunk {cfg.attn_chunk}): "
+          + "; ".join(rows), flush=True)
+
+    # 5. one train step, card against CPU, 6 layers at full width
+    c6 = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS,
+                             compute_dtype="float32")
+    tree = _per_layer_init(torch, c6, _lm_model(torch, c6, SEED + 2, dev))
+    tree_cpu = T.map(lambda t: t.cpu(), tree)
+    tok = rng.integers(0, c6.vocab_size, (1, LM_TRAIN_S)).astype(np.int32)
+
+    def step(dtype, params):
+        c = dataclasses.replace(c6, compute_dtype=dtype)
+        st, m = TS.train_step(c, tc, TS.init_state(tc, params),
+                              {"tokens": tok})
+        return {"loss": {"x": m["loss"]}, "grad_norm": {"x": m["grad_norm"]},
+                "params": st.params, "mu": st.opt.mu, "nu": st.opt.nu}
+
+    out = {}
+    for dtype in ("float64", "float32"):
+        out[dtype] = (step(dtype, tree), step(dtype, tree_cpu))
+    e64 = {k: _rel_tree(torch, out["float64"][0][k], out["float64"][1][k])
+           for k in out["float64"][0]}
+    check(max(e64.values()) <= LM_TOL, f"lm_train step card vs cpu, "
+          f"float64: {e64}")
+    truth = out["float64"][1]
+    card = {k: _rel_tree(torch, out["float32"][0][k], truth[k]) for k in truth}
+    host = {k: _rel_tree(torch, out["float32"][1][k], truth[k]) for k in truth}
+    for k in truth:
+        check(card[k] <= max(LM_TOL, 4 * host[k]), f"lm_train step card vs "
+              f"cpu, float32 {k}: card {card[k]:.3e} > max(LM_TOL, 4 x cpu "
+              f"{host[k]:.3e})")
+    print(f"lm_train {c6.arch_id} train step card vs CPU (reduced: n_layers "
+          f"{cfg.n_layers} -> {c6.n_layers}, B 1 x S {LM_TRAIN_S}, each "
+          f"layer's fan-in; AdamW): float64 max|d|/max|cpu| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in e64.items())
+          + "; float32 against float64, card / CPU: "
+          + ", ".join(f"{k} {card[k]:.3e} / {host[k]:.3e}" for k in truth),
+          flush=True)
+
 
 
 def main() -> int:
@@ -3191,6 +3555,7 @@ def main() -> int:
                     "phases, the launch floor and the K7 byte timings, "
                     "and stop (no ok line)")
     args = ap.parse_args()
+    started = time.perf_counter()
     src = args.kernels_from or ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources ({src}/repro_torch) are "
@@ -3261,11 +3626,14 @@ def main() -> int:
     timed("residency", phase_residency, torch, np, ce, fb)
     timed("traffic", phase_traffic, torch, np, ce, fb)
     timed("lm", phase_lm, torch, np)
+    timed("lm_train", phase_lm_train, torch, np)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)
     timed("profile_fleet", phase_profile_fleet, torch, np)
     for rec in recs:
         rec["launches"] = launches[rec["name"]]
+    print(f"chip_smoke wall: {time.perf_counter() - started:.1f} s (the "
+          "build included)", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 The reference package's ``TMState`` (one bank [C, J, L] or R replicas
 [R, C, J, L]), ``TMRuntime`` (scalar or per-replica [R] s/T ports), uint32
 key pairs ([2] or batches [D, 2]), ``manager.Sets``, packed np.uint32
-words and ``online.SessionState`` (one machine or a [K, ...] fleet, with
-bool or packed rings), taken as numpy arrays
+words, ``online.SessionState`` (one machine or a [K, ...] fleet, with
+bool or packed rings) and the LM's parameter trees, decode caches and
+``TrainState``, taken as numpy arrays
 (``jax.tree.map(np.asarray, x)``), become the port's on a given device;
 :func:`to_numpy` and :func:`session_state_to_numpy` go back;
 :func:`host_plane_to_reference` and :func:`host_plane_from_reference`
@@ -22,6 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.core.tm import TMRuntime, TMState, resolve_device
 from repro_torch.kernels.packing import words_to_numpy  # noqa: F401
 
@@ -178,12 +180,6 @@ def _lm_tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def lm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """The reference's LM parameter tree taken as numpy arrays
     (``jax.tree.map(np.asarray, params)``) -> the port's parameter tree on
@@ -219,14 +215,48 @@ def lm_cache_from_numpy(cache: dict, device=None) -> dict:
     B, T, Hkv, D], ``rem.rem{i}.v`` ...) -> the port's, key for key, on
     ``device``."""
     dev = resolve_device(device)
-    return _map_tree(lambda a: _lm_tensor(a, dev), cache)
+    return T.map(lambda a: _lm_tensor(a, dev), cache)
+
+
+def _lm_numpy(t: torch.Tensor) -> np.ndarray:
+    """One LM tensor -> numpy; bfloat16 comes back as float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def lm_cache_to_numpy(cache: dict) -> dict:
     """The port's decode cache -> numpy, key for key; bfloat16 leaves come
     back as float32 (exact)."""
-    def leaf(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+    return T.map(_lm_numpy, cache)
 
-    return _map_tree(leaf, cache)
+
+def lm_train_state_from_numpy(tree: Any, cfg, device=None):
+    """The reference's ``TrainState`` taken as numpy arrays
+    (``jax.tree.map(np.asarray, state)``: params, ``OptState(step, mu,
+    nu)``, the compression residual or None) -> the port's
+    ``train.train_step.TrainState`` on ``device``. The parameter and moment
+    trees go through :func:`lm_params_from_numpy` (keys and shapes
+    checked); the step stays a 0-d int32."""
+    from repro_torch.distributed.collectives import CompressionState
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.train_step import TrainState
+
+    dev = resolve_device(device)
+    opt = tree.opt
+    comp = tree.compress
+    return TrainState(
+        params=lm_params_from_numpy(tree.params, cfg, dev),
+        opt=OptState(
+            step=torch.from_numpy(np.array(opt.step, dtype=np.int32)).to(dev),
+            mu=lm_params_from_numpy(opt.mu, cfg, dev),
+            nu=lm_params_from_numpy(opt.nu, cfg, dev)),
+        compress=None if comp is None else CompressionState(
+            residual=lm_params_from_numpy(comp.residual, cfg, dev)),
+    )
+
+
+def lm_train_state_to_numpy(state):
+    """The port's ``TrainState`` -> the same NamedTuples of numpy arrays,
+    key for key (bfloat16 leaves as float32, exact; the step a 0-d
+    int32)."""
+    return T.map(_lm_numpy, state)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
+from repro_torch import tree as T
 from repro_torch.core import feedback as fb_mod
 from repro_torch.core import tm as tm_mod
 from repro_torch.core.tm import TMConfig, TMRuntime, TMState
@@ -71,26 +72,6 @@ def replica_gate(valid: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of equally shaped trees of tuples and
-    NamedTuples (a ``(SessionState, keys)`` plane, say); ``None`` stays
-    ``None``."""
-    t0 = trees[0]
-    if t0 is None:
-        return None
-    if isinstance(t0, tuple):
-        vals = [tree_map(fn, *kids) for kids in zip(*trees)]
-        return type(t0)(*vals) if hasattr(t0, "_fields") else tuple(vals)
-    return fn(*trees)
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a tree of tuples, in :func:`tree_map` order."""
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
 def _to_device(v: np.ndarray, device) -> torch.Tensor:
     """A small host array onto ``device`` without waiting for the stream:
     on a card it goes through pinned memory (a pageable copy would first
@@ -111,7 +92,7 @@ def _take_rows(tree, idx: torch.Tensor):
     """Rows ``idx`` of every replica-leading leaf as NEW device tensors
     (an index gather, never a view: the rows cannot change when the plane
     is later written)."""
-    return tree_map(lambda a: a.index_select(0, idx), tree)
+    return T.map(lambda a: a.index_select(0, idx), tree)
 
 
 class PendingGather(NamedTuple):
@@ -130,7 +111,7 @@ def gather_replicas_issue(tree, idx) -> PendingGather:
     write to the plane (in place or not) cannot reach the snapshot; the
     host tensors are read only after :func:`gather_replicas_await`. On CPU
     tensors both halves are plain copies."""
-    leaves = tree_leaves(tree)
+    leaves = T.leaves(tree)
     dev = leaves[0].device
     rows = _take_rows(tree, _index(idx, dev))
     if dev.type != "cuda":
@@ -141,7 +122,7 @@ def gather_replicas_issue(tree, idx) -> PendingGather:
         h.copy_(a, non_blocking=True)
         return h
 
-    host = tree_map(to_pinned, rows)
+    host = T.map(to_pinned, rows)
     event = torch.cuda.Event()
     event.record()
     return PendingGather(host, event)
@@ -152,16 +133,16 @@ def gather_replicas_await(pending: PendingGather):
     host numpy (views of the pinned copies)."""
     if pending.event is not None:
         pending.event.synchronize()
-    return tree_map(lambda a: a.numpy(), pending.host)
+    return T.map(lambda a: a.numpy(), pending.host)
 
 
 def gather_replicas(tree, idx):
     """Rows ``idx`` of every replica-leading leaf as host numpy, a
     blocking copy per leaf: the synchronous spill (``batched_moves=
     False``), kept as the oracle the batched path is held against."""
-    leaves = tree_leaves(tree)
+    leaves = T.leaves(tree)
     i = _index(idx, leaves[0].device)
-    return tree_map(lambda a: a[i].cpu().numpy(), tree)
+    return T.map(lambda a: a[i].cpu().numpy(), tree)
 
 
 def _host_to(v, like: torch.Tensor) -> torch.Tensor:
@@ -181,10 +162,10 @@ def scatter_replicas(tree, idx, values):
     ``idx`` of every replica-leading leaf, out of place: the synchronous
     activation. Dtypes are the destination's (int8 banks, packed words and
     bool rows keep their bits)."""
-    leaves = tree_leaves(tree)
+    leaves = T.leaves(tree)
     i = _index(idx, leaves[0].device)
-    return tree_map(lambda a, v: a.index_copy(0, i, _host_to(v, a)), tree,
-                    values)
+    return T.map(lambda a, v: a.index_copy(0, i, _host_to(v, a)), tree,
+                 values)
 
 
 def activate_replicas(plane, act_plane, mask):
@@ -194,11 +175,11 @@ def activate_replicas(plane, act_plane, mask):
     the mask never reach the result), so there is no index scatter. Host leaves cross
     to the device first (pinned ones without blocking); dtypes are the
     destination's."""
-    leaves = tree_leaves(plane)
+    leaves = T.leaves(plane)
     m = _to_device(np.asarray(mask, dtype=bool), leaves[0].device)
     gate = replica_gate(m)
-    return tree_map(lambda new, old: gate(_host_to(new, old), old),
-                    act_plane, plane)
+    return T.map(lambda new, old: gate(_host_to(new, old), old),
+                 act_plane, plane)
 
 
 def _feedback_rows(cfg: TMConfig, x: torch.Tensor) -> torch.Tensor:

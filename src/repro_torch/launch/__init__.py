@@ -1,1 +1,1 @@
-"""Launchers: the LM serving CLI."""
+"""Launchers: the LM serving and training CLIs."""

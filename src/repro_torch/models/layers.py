@@ -28,10 +28,13 @@ Where a straight translation would go wrong:
 * the dense path divides the scores by ``sqrt(D)``, the flash path multiplies
   them by ``1 / sqrt(D)``;
 * ``dynamic_update_slice`` clamps an index out of range; the cache writes
-  here raise instead.
+  here raise instead;
+* the streaming-softmax path differentiates through its own backward
+  (``_Flash``, the reference's ``custom_vjp``), not through the forward's
+  ops.
 
-The CROSS attention (``cross_attention``) waits for the CROSS slice and the
-flash backward for the training slice (ROADMAP queue 1 item 7).
+The CROSS attention (``cross_attention``) waits for the CROSS slice
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -159,13 +162,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     ).to(x.dtype)
 
 
+def _dot(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
+    """The contraction of x's last ``n_in`` dims with w's first ``n_in`` (an
+    einsum with no batch dims), as one matrix product (``aten.mm``, which
+    the ``remat="dots"`` policy saves; ``torch.einsum`` would lower it to
+    a batched product over a batch of one)."""
+    lead, tail = x.shape[:x.dim() - n_in], w.shape[n_in:]
+    w2 = w.reshape(-1, int(np.prod(tail, dtype=np.int64)))
+    return (x.reshape(*lead, w2.shape[0]) @ w2).reshape(*lead, *tail)
+
+
 def _project_qkv(cfg, p, x, xkv=None):
     """q: [B,S,Hq,D]; k,v: [B,T,Hkv,D] (xkv defaults to x)."""
     cd = compute_dtype(cfg)
     xkv = x if xkv is None else xkv
-    q = torch.einsum("bsd,dhk->bshk", x.to(cd), p["wq"].to(cd))
-    k = torch.einsum("btd,dhk->bthk", xkv.to(cd), p["wk"].to(cd))
-    v = torch.einsum("btd,dhk->bthk", xkv.to(cd), p["wv"].to(cd))
+    q = _dot(x.to(cd), p["wq"].to(cd), 1)
+    k = _dot(xkv.to(cd), p["wk"].to(cd), 1)
+    v = _dot(xkv.to(cd), p["wv"].to(cd), 1)
     if "bq" in p:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -236,13 +249,70 @@ def _flash_fwd_impl(q, k, v, window: Optional[int], chunk: int):
     return out.to(cd), lse
 
 
+class _Flash(torch.autograd.Function):
+    """Streaming-softmax attention with the reference's custom backward
+    (``_flash_fn`` of ``repro/models/layers.py``): the backward recomputes
+    each key chunk's probabilities from the saved logsumexp, never storing
+    the [S, chunk] score tiles of every chunk, and its casts are the
+    reference's.
+
+    Autograd does not differentiate :func:`_flash_fwd_impl` itself: that
+    would keep every chunk's tiles, and in the rows whose first chunks are
+    all masked (a LOCAL layer's window warm-up) the discarded branch
+    ``exp(-inf - -inf)`` is NaN, whose gradient 0 * NaN only the mask's
+    ``where`` stops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: Optional[int], chunk: int):
+        out, lse = _flash_fwd_impl(q, k, v, window, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.chunk = window, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        window, chunk = ctx.window, ctx.chunk
+        cd = q.dtype
+        dev = q.device
+        B, S, hq, D = q.shape
+        hkv = k.shape[2]
+        g = hq // hkv
+        f = acc_dtype(cd)
+        scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=f))
+        qg = q.reshape(B, S, hkv, g, D)
+        dog = do.reshape(B, S, hkv, g, D)
+        og = out.reshape(B, S, hkv, g, D)
+        # D_row = sum_d do * o   [B,hkv,g,S]
+        Drow = torch.einsum("bskgd,bskgd->bkgs", dog.to(f), og.to(f))
+
+        dq = torch.zeros((B, S, hkv, g, D), dtype=f, device=dev)
+        dks, dvs = [], []
+        for j in range(S // chunk):
+            kj = k[:, j * chunk:(j + 1) * chunk]
+            vj = v[:, j * chunk:(j + 1) * chunk]
+            s = torch.einsum("bskgd,btkd->bkgst", qg, kj).to(f)
+            s = s * scale
+            ok = _chunk_mask(S, j, chunk, window, dev)
+            p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+            dvs.append(torch.einsum("bkgst,bskgd->btkd", p.to(cd), dog))
+            dp = torch.einsum("bskgd,btkd->bkgst", dog, vj).to(f)
+            ds = p * (dp - Drow[..., None]) * scale
+            dq = dq + torch.einsum("bkgst,btkd->bskgd", ds.to(cd), kj).to(f)
+            dks.append(torch.einsum("bkgst,bskgd->btkd", ds.to(cd), qg))
+        dk = torch.cat(dks, dim=1)
+        dv = torch.cat(dvs, dim=1)
+        return (dq.to(cd).reshape(B, S, hq, D), dk.to(cd), dv.to(cd), None,
+                None)
+
+
 def gqa_attention(cfg, q, k, v, *, window: Optional[int]):
     """Full-sequence GQA dispatch: dense mask up to the chunk threshold,
-    the streaming-softmax forward above it."""
+    the streaming-softmax attention (custom backward) above it."""
     S = q.shape[1]
     chunk = cfg.attn_chunk
     if S > chunk and S % chunk == 0:
-        return _flash_fwd_impl(q, k, v, window, chunk)[0]
+        return _Flash.apply(q, k, v, window, chunk)
     mask = causal_mask(S, S, window=window, device=q.device)
     return _gqa_scores_out(cfg, q, k, v, mask)
 
@@ -281,7 +351,7 @@ def self_attention(
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     out = gqa_attention(cfg, q, k, v, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    return _dot(out, p["wo"].to(cd), 2)
 
 
 def _check_index(i: int, n: Optional[int], what: str) -> None:
@@ -301,7 +371,7 @@ def _decode_out(cfg, p, q, ck, cv, ok):
     cd = compute_dtype(cfg)
     mask = _additive(ok)[None, None, None]
     out = _gqa_scores_out(cfg, q, ck.to(cd), cv.to(cd), mask)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    return _dot(out, p["wo"].to(cd), 2)
 
 
 def decode_self_attention(

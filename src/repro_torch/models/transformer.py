@@ -11,18 +11,24 @@ in Python, reading layer ``j`` as a view and writing the stacked cache in
 place.
 
 Three temporal modes:
-  forward     — full sequence (logits at every position)
+  forward     — full sequence (logits at every position; under autograd
+                it trains: :func:`loss_fn`, remat per super-block)
   prefill     — forward + KV cache construction (serving)
   decode_step — one token against the cache
 
 Sliding-window layers keep **window-sized rotating caches** (slot = pos %
-window). The MoE, CROSS, RG-LRU and SSD kinds, ``loss_fn`` and the sharding
-hints are not ported yet (ROADMAP queue 1 item 7): building a model of such
-a family raises ``NotImplementedError``.
+window). The MoE, CROSS, RG-LRU and SSD kinds and the sharding hints are not
+ported yet (ROADMAP queue 1 item 7): building a model of such a family
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import (
     CROSS, GLOBAL, LOCAL, RGLRU, SSD, ModelConfig,
@@ -111,20 +117,23 @@ def compute_params(cfg: ModelConfig, params: dict) -> dict:
     return walk(params, None)
 
 
-def _layer(tree: dict, j: int) -> dict:
-    """Layer ``j`` of a stacked tree (views)."""
-    return {k: _layer(v, j) if isinstance(v, dict) else v[j]
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree (views), each leaf unbound once
+    (under autograd one node a leaf, whose backward stacks the layers'
+    gradients)."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
             for k, v in tree.items()}
+    return [{k: v[j] for k, v in flat.items()} for j in range(n)]
 
 
 def _layers(cfg: ModelConfig, tree: dict):
     """(kind, layer tree, stacked index or None, key) of every layer, in
     order: the super-blocks, then the remainder."""
     n_super, n_rem = _pattern_split(cfg)
-    for j in range(n_super):
+    for j, blk in enumerate(_unstack(tree["blocks"], n_super)
+                            if n_super else []):
         for i, kind in enumerate(cfg.layer_pattern):
-            yield kind, _layer(tree["blocks"][f"pos{i}"], j), j, ("blocks",
-                                                                  f"pos{i}")
+            yield kind, blk[f"pos{i}"], j, ("blocks", f"pos{i}")
     for i in range(n_rem):
         yield cfg.layer_pattern[i], tree["rem"][f"rem{i}"], None, ("rem",
                                                                    f"rem{i}")
@@ -156,18 +165,79 @@ def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype)).to(layers.acc_dtype(x.dtype))
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the matrix products' outputs, recompute the
+    rest (batched products, element-wise ops), the counterpart of
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` (the
+    contractions with no batch dims are ``aten.mm`` here: ``layers._dot``,
+    the MLPs and the unembedding)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` rematerialised in the backward per ``cfg.remat`` (none | full
+    | dots). As ``jax.checkpoint`` outside a differentiated call, it is
+    ``fn`` itself when autograd is off. Remat changes memory only: the
+    backward recomputes with the same kernels, so the gradients are the
+    same bits."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"remat {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _super_block(cfg: ModelConfig, x: torch.Tensor, blk: dict) -> torch.Tensor:
+    for i, kind in enumerate(cfg.layer_pattern):
+        x = _apply_block(cfg, kind, blk[f"pos{i}"], x)
+    return x
+
+
 def forward(cfg: ModelConfig, params: dict,
             batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch: {tokens|embeds}.
+    """Full-sequence forward. batch: {tokens|embeds}. Runs under autograd
+    (training, with ``cfg.remat`` per super-block) or without it.
 
     Returns (logits [B,S,V] f32, aux_loss scalar): the aux loss is the MoE
     router's, 0 for the dense stacks, kept for the reference's contract.
     """
     x = embed_inputs(cfg, params, batch)
-    for kind, p, _, _ in _layers(cfg, params):
-        x = _apply_block(cfg, kind, p, x)
+    n_super, n_rem = _pattern_split(cfg)
+    if n_super > 0:
+        body = _maybe_remat(cfg, functools.partial(_super_block, cfg))
+        for blk in _unstack(params["blocks"], n_super):
+            x = body(x, blk)
+    for i in range(n_rem):
+        x = _apply_block(cfg, cfg.layer_pattern[i], params["rem"][f"rem{i}"],
+                         x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict,
+            batch: dict) -> tuple[torch.Tensor, dict]:
+    """Next-token (or provided-labels) cross-entropy + router aux: the mean
+    over positions of ``logsumexp(logits) - logits[label]`` in float32, as
+    the reference computes it (no fused cross-entropy). Returns (loss,
+    {"ce", "aux"})."""
+    logits, aux = forward(cfg, params, batch)
+    if "labels" in batch:
+        labels = batch["labels"]
+    else:
+        labels = batch["tokens"][:, 1:]
+        logits = logits[:, :-1]
+    valid = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = ((lse - gold) * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +342,7 @@ def _prefill_block(cfg, kind, p, x):
     q = layers.rope(q, pos, cfg.rope_theta)
     k = layers.rope(k, pos, cfg.rope_theta)
     a = layers.gqa_attention(cfg, q, k, v, window=w)
-    x = x + torch.einsum("bshk,hkd->bsd", a, p["attn"]["wo"].to(cd))
+    x = x + layers._dot(a, p["attn"]["wo"].to(cd), 2)
     x = x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
     return x, k, v
 

@@ -1,6 +1,6 @@
 """Serving on torch: ``TMService`` (K >= 1), its batch router, the
-``OnlineFleet`` shim, the Fig-3 adapt managers, runtime-tunable serving
-and the traffic harness."""
+``OnlineFleet`` shim, the Fig-3 adapt managers (TM and LM),
+runtime-tunable serving and the traffic harness."""
 from repro_torch.serve.router import BatchRouter  # noqa: F401
 from repro_torch.serve.service import (  # noqa: F401
     AdaptPolicy,
@@ -10,6 +10,8 @@ from repro_torch.serve.service import (  # noqa: F401
 )
 from repro_torch.serve.fleet import OnlineFleet  # noqa: F401
 from repro_torch.serve.online_adapt import (  # noqa: F401
+    OnlineAdaptConfig,
+    OnlineAdaptManager,
     TMFleetAdaptManager,
     TMOnlineAdaptConfig,
     TMOnlineAdaptManager,

@@ -11,20 +11,29 @@ reference's two TM faces as thin shims:
 * :class:`TMFleetAdaptManager` -- the same FSM for a fleet: per-replica
   [K] counters, snapshots and rollbacks, per-replica ``s``/``T`` ports.
 
-The reference's ``OnlineAdaptManager`` serves the LM substrate and is not
-ported.
+* :class:`OnlineAdaptManager` -- the FSM generalised to an LM of the dense
+  families: offline training, online updates, periodic eval-loss analysis
+  and the §5.3.2 rollback to the best checkpoint.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Optional, Sequence, Union
 
 import numpy as np
+import torch
 
+from repro_torch import tree as T
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.online import OnlineSession
-from repro_torch.core.tm import TMConfig, TMRuntime, TMState
+from repro_torch.core.tm import TMConfig, TMRuntime, TMState, resolve_device
+from repro_torch.models import transformer
 from repro_torch.serve.fleet import OnlineFleet
 from repro_torch.serve.service import AdaptPolicy, ServiceConfig, TMService
+from repro_torch.train import checkpoint as ckpt_mod
+from repro_torch.train import train_step as ts_mod
 
 
 @dataclasses.dataclass
@@ -179,3 +188,76 @@ class TMFleetAdaptManager(_Manager):
         mask = np.zeros(self._svc.n_replicas, dtype=bool)
         mask[r] = True
         return self.observe_rows(x, y, mask)
+
+
+@dataclasses.dataclass
+class OnlineAdaptConfig:
+    analyze_every: int = 8          # online updates between accuracy analyses
+    rollback_threshold: float = 0.25  # relative eval-loss degradation
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(),
+                                             "repro_torch_online_adapt"))
+
+
+class OnlineAdaptManager:
+    """The Fig-3 FSM for an LM, on the host; the device work is two
+    functions, ``_update`` (one ``train_step``) and ``_eval`` (the eval
+    batch's loss), kept as attributes so a caller can swap them.
+
+    ``state`` (a ``train.train_step.TrainState``) is moved to ``device``,
+    the card unless told otherwise."""
+
+    def __init__(self, cfg: ModelConfig, tc: ts_mod.TrainConfig,
+                 state: ts_mod.TrainState, oc: OnlineAdaptConfig, *,
+                 device=None):
+        dev = resolve_device(device)
+        self.cfg, self.tc, self.oc = cfg, tc, oc
+        self.state = _to(state, dev)
+        self._update = lambda s, b: ts_mod.train_step(cfg, tc, s, b)
+        self._eval = lambda p, b: _eval_loss(cfg, p, b, dev)
+        self.history: list = []       # (step, eval_loss)
+        self.rollbacks = 0
+        self._steps = 0
+        self._best: Optional[float] = None
+
+    def analyze(self, eval_batch: dict) -> float:
+        loss = float(self._eval(self.state.params, eval_batch))
+        self.history.append((self._steps, loss))
+        return loss
+
+    def offline_train(self, batches, eval_batch: dict) -> float:
+        for b in batches:
+            self.state, _ = self._update(self.state, b)
+            self._steps += 1
+        loss = self.analyze(eval_batch)
+        self._best = loss
+        ckpt_mod.save(self.oc.checkpoint_dir, self._steps, self.state)
+        return loss
+
+    def online_step(self, batch: dict, eval_batch: dict) -> Optional[float]:
+        """One labelled online update; periodic analysis + rollback policy."""
+        self.state, _ = self._update(self.state, batch)
+        self._steps += 1
+        if self._steps % self.oc.analyze_every:
+            return None
+        loss = self.analyze(eval_batch)
+        if self._best is not None and loss > self._best * (
+                1.0 + self.oc.rollback_threshold):
+            # §5.3.2: accuracy collapsed; restore the known-good state.
+            self.state, _ = ckpt_mod.restore_tensors(
+                self.oc.checkpoint_dir, self.state)
+            self.rollbacks += 1
+        elif self._best is None or loss < self._best:
+            self._best = loss
+            ckpt_mod.save(self.oc.checkpoint_dir, self._steps, self.state)
+        return loss
+
+
+def _eval_loss(cfg, params, batch: dict, dev) -> torch.Tensor:
+    with torch.no_grad():
+        return transformer.loss_fn(cfg, params, ts_mod.batch_on(batch, dev))[0]
+
+
+def _to(state: ts_mod.TrainState, dev) -> ts_mod.TrainState:
+    """``state`` with every tensor on ``dev``."""
+    return T.map(lambda x: x.to(dev), state)

@@ -65,6 +65,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch import random as rnd
+from repro_torch import tree as T
 from repro_torch.core import accuracy as acc_mod
 from repro_torch.core import feedback as fb_mod
 from repro_torch.core import online as online_mod
@@ -395,7 +396,7 @@ class TMService:
             self._res = res_mod.ResidencyMap(K, P)
             self._res.assign(np.arange(P), np.arange(P))
             keys_host = _host(keys)
-            buf_host = online_mod.tree_map(_host, buf1)
+            buf_host = T.map(_host, buf1)
             banks_host = _host(ta)
             for rid in range(P, K):
                 self._res.store[rid] = (
@@ -454,7 +455,7 @@ class TMService:
             if self._res is None:
                 return self._ss
             ss_K, _ = self._assemble_plane()
-            return online_mod.tree_map(
+            return T.map(
                 lambda a: torch.from_numpy(a).to(self.device), ss_K)
 
     @ss.setter
@@ -483,7 +484,7 @@ class TMService:
         dtypes: slots gathered into replica order, spilled snapshots
         filled in."""
         self._settle_spills()
-        host = online_mod.tree_map(_host, (self._ss, self._keys))
+        host = T.map(_host, (self._ss, self._keys))
         if self._res is None:
             return host
         K = self.n_replicas
@@ -495,10 +496,10 @@ class TMService:
             out[rids] = leaf[m]
             return out
 
-        outs = online_mod.tree_map(fill, host)
-        flat = online_mod.tree_leaves(outs)
+        outs = T.map(fill, host)
+        flat = T.leaves(outs)
         for rid, snap in self._res.store.items():
-            for o, leaf in zip(flat, online_mod.tree_leaves(snap)):
+            for o, leaf in zip(flat, T.leaves(snap)):
                 o[rid] = leaf
         return outs
 
@@ -713,7 +714,7 @@ class TMService:
                 view[slot] = leaf
             return out
 
-        act_plane = online_mod.tree_map(to_plane, *snaps)
+        act_plane = T.map(to_plane, *snaps)
         act_mask = np.zeros(R, dtype=bool)
         act_mask[take] = True
         res.assign(need, take)
@@ -750,7 +751,7 @@ class TMService:
         for gather, rids in pending:
             host = online_mod.gather_replicas_await(gather)
             for j, rid in enumerate(rids):
-                self._res.store[int(rid)] = online_mod.tree_map(
+                self._res.store[int(rid)] = T.map(
                     lambda a, _j=j: a[_j].copy(), host)
 
     def _spill(self, slots) -> None:
@@ -762,14 +763,14 @@ class TMService:
         vals = online_mod.gather_replicas((self._ss, self._keys), slots)
         rids = self._res.release(slots)
         for j, rid in enumerate(rids):
-            self._res.store[int(rid)] = online_mod.tree_map(
+            self._res.store[int(rid)] = T.map(
                 lambda a, _j=j: a[_j].copy(), vals)
 
     def _activate(self, rids, slots) -> None:
         """Load the named (evicted) replicas' snapshots into free slots:
         one host -> device scatter a cohort."""
         snaps = [self._res.store.pop(int(r)) for r in rids]
-        vals = online_mod.tree_map(lambda *xs: np.stack(xs), *snaps)
+        vals = T.map(lambda *xs: np.stack(xs), *snaps)
         self._ss, self._keys = online_mod.scatter_replicas(
             (self._ss, self._keys), slots, vals)
         self._res.assign(np.asarray(rids, dtype=np.int64), slots)
@@ -1491,7 +1492,7 @@ class TMService:
         trajectory can see."""
         R = self.n_resident
         host = (ss_K, keys_K)
-        self._ss, self._keys = online_mod.tree_map(
+        self._ss, self._keys = T.map(
             lambda a: torch.from_numpy(np.ascontiguousarray(a[:R])).to(
                 self.device, copy=True), host)
         if self._res is None:
@@ -1503,8 +1504,7 @@ class TMService:
         res.last_use[:] = 0
         res.assign(np.arange(R), np.arange(R))
         for rid in range(R, self.n_replicas):
-            res.store[rid] = online_mod.tree_map(lambda a, _r=rid: a[_r],
-                                                 host)
+            res.store[rid] = T.map(lambda a, _r=rid: a[_r], host)
 
     def _repartition(self, new_r: int) -> None:
         """Resize the device plane to ``new_r`` slots (``"auto"``): the

@@ -1,1 +1,2 @@
-"""Durable state: the port's checkpoint layout (:mod:`.checkpoint`)."""
+"""Training: the optimizers, the train step, the fault-tolerant loop and
+durable state (the reference's checkpoint layout)."""

@@ -12,9 +12,11 @@ package writes restores in the other.
   and keys, bool rows.
 
 Leaves are numpy arrays or tensors (saved through ``.cpu().numpy()``);
-trees are dicts, tuples, lists and NamedTuples, and ``None`` leaves are
-skipped. The port has no typed key arrays: keys are plain uint32 pairs,
-so ``key_impls`` is always empty.
+trees are dicts, tuples, lists and NamedTuples (a ``TrainState``: its
+``OptState``, a 0-d int32 step), and ``None`` leaves are skipped.
+:func:`restore` returns host arrays; :func:`restore_tensors` places each
+leaf on its template leaf's device. The port has no typed key arrays:
+keys are plain uint32 pairs, so ``key_impls`` is always empty.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import tree as T
 
 
 def _flatten_with_paths(tree) -> dict[str, Any]:
@@ -137,6 +141,17 @@ def read_manifest(directory: str, *, step: Optional[int] = None) -> dict:
     template from ``extra`` before loading the arrays."""
     with open(os.path.join(_step_dir(directory, step), "manifest.json")) as f:
         return json.load(f)
+
+
+def restore_tensors(directory: str, template, *,
+                    step: Optional[int] = None):
+    """:func:`restore`, with every leaf whose template leaf is a tensor made
+    a tensor on that leaf's device (the reference's default placement; a
+    ``TrainState`` restores this way). Returns (tree, manifest)."""
+    tree, manifest = restore(directory, template, step=step)
+    return T.map(lambda t, a: (torch.from_numpy(a).to(t.device)
+                               if torch.is_tensor(t) else a),
+                 template, tree), manifest
 
 
 def restore(directory: str, template, *, step: Optional[int] = None):

@@ -802,6 +802,7 @@ def test_deferred_spill_survives_a_drain_before_settling(cuda):
     the plane before the spill settles: the snapshot that settles is the
     replica's state at the spill, bitwise its always-resident twin's, held
     in pageable memory of its own, and so is the whole fleet."""
+    from repro_torch import tree as T
     from repro_torch.core import online
 
     res, twin = _res_service(cuda, 3), _res_service(cuda, None)
@@ -832,7 +833,7 @@ def test_deferred_spill_survives_a_drain_before_settling(cuda):
     res._spill_issue([res._res.slot_of[0]])
     gather, _ = res._pending_spills[0]
     assert gather.event is not None and not gather.event.query()
-    assert all(h.is_pinned() for h in online.tree_leaves(gather.host))
+    assert all(h.is_pinned() for h in T.leaves(gather.host))
     snap, key = online.gather_replicas_await(gather)
     assert gather.event.query()
     for got, w in zip((snap.tm.ta_state, *snap.buf, snap.step, key), want):
@@ -946,3 +947,199 @@ def test_lm_generate_on_card_equals_cpu(cuda, temperature):
             scale = scale / temperature
         top2 = torch.topk(logits[b], 2).values
         assert top2[0] - top2[1] <= LM_TOL * scale, (b, i)
+
+
+# The LM training path on the card against the CPU (plain PyTorch ops, the
+# streaming-softmax backward included): float32, TF32 off, max |card - cpu|
+# <= LM_TOL * max |cpu| per tensor or leaf.
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_lm_flash_backward_on_card_equals_cpu(cuda, window):
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(7)
+    q, do = (torch.from_numpy(rng.standard_normal((2, 32, 4, 16))).float()
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 32, 1, 16))).float()
+            for _ in range(2))
+    out = []
+    for where in ("cpu", cuda):
+        xs = [x.to(where).requires_grad_() for x in (q, k, v)]
+        o = layers._Flash.apply(*xs, window, 8)
+        out.append([o] + list(torch.autograd.grad(o, xs, do.to(where))))
+    for g, c in zip(out[1], out[0]):
+        _lm_close(g.detach(), c.detach())
+
+
+def _lm_train_tree(cfg, device):
+    """The smoke model's parameters on ``device``, each stacked layer drawn
+    with its own fan-in (at materialize's one-super-block std 1, float32
+    gradients are ill-conditioned; tests/test_torch_lm_train.py)."""
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    def walk(spec, node):
+        if isinstance(spec, P.PSpec):
+            if spec.init == "normal" and spec.axes[0] == "layers":
+                node.mul_((spec.shape[0] / spec.shape[1]) ** 0.5)
+            return node.to(device)
+        return {k: walk(spec[k], node[k]) for k in spec}
+
+    specs = transformer.model_specs(cfg)
+    gen = torch.Generator().manual_seed(0)
+    return walk(specs, P.materialize(specs, gen, device="cpu"))
+
+
+@pytest.mark.parametrize("case", ["adamw", "sgd_microbatches"])
+def test_lm_train_step_on_card_equals_cpu(cuda, case):
+    """One gemma3 smoke train step (S = 32, attn_chunk 8 so every layer
+    takes the streaming path) on the card and on the CPU from the same
+    state: the loss, gradients, moments and parameters within LM_TOL. AdamW's
+    first step lr * g / (|g| + eps) turns a gradient difference within
+    LM_TOL into a step difference up to lr * eps * |dg| / (|g| + eps)^2,
+    large where |g| is near eps: where the step difference that the two
+    runs' first moments and second moments imply (each from the gradient
+    its step used, g = mu / (1 - b1)) is beyond LM_TOL, the parameters are
+    held within LM_TOL of that prediction instead, and each such element
+    is printed with both gradients. On the card remat dots gives the same
+    gradient bits as no remat."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(configs.get_smoke_config("gemma3_1b"),
+                              attn_chunk=8)
+    tc = (TS.TrainConfig(opt=opt.OptConfig(lr=1e-3, warmup_steps=1))
+          if case == "adamw" else
+          TS.TrainConfig(opt=opt.OptConfig(name="sgd", lr=1e-3,
+                                           warmup_steps=1),
+                         microbatches=2))
+    batch = {"tokens": np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 32))}
+    trees = [_lm_train_tree(cfg, d) for d in ("cpu", cuda)]
+    grads = [TS.grad_fn(cfg, tc, t, batch) for t in trees]
+    _lm_close(grads[1][0], grads[0][0])
+    for g, c in zip(T.leaves(grads[1][2]), T.leaves(grads[0][2])):
+        _lm_close(g, c)
+    out = [TS.train_step(cfg, tc, TS.init_state(tc, t), batch) for t in trees]
+    _lm_close(out[1][1]["loss"], out[0][1]["loss"])
+    for part in ("mu", "nu"):
+        for g, c in zip(T.leaves(getattr(out[1][0].opt, part)),
+                        T.leaves(getattr(out[0][0].opt, part))):
+            if c.abs().max() > 0:
+                _lm_close(g, c)
+    lr, oc = out[0][1]["lr"].item(), tc.opt
+
+    def adam_step(m, v):     # apply's first AdamW step (t = 1)
+        m, v = m.cpu().float(), v.cpu().float()
+        return (m / (1 - oc.b1)) / (torch.sqrt(v / (1 - oc.b2)) + oc.eps)
+
+    def paths(tree, pre=""):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in paths(tree[k],
+                                                           f"{pre}{k}.")]
+        return [pre[:-1]]
+
+    amplified, flipped = [], 0
+    card, host = out[1][0], out[0][0]
+    for name, p, q, mg, mc, vg, vc in zip(
+            paths(trees[0]), T.leaves(card.params), T.leaves(host.params),
+            T.leaves(card.opt.mu), T.leaves(host.opt.mu),
+            T.leaves(card.opt.nu), T.leaves(host.opt.nu)):
+        gap, tol = p.cpu() - q, LM_TOL * q.abs().max().item()
+        if case == "adamw":
+            pred = -lr * (adam_step(mg, vg) - adam_step(mc, vc))
+            gg, gc = mg.cpu() / (1 - oc.b1), mc / (1 - oc.b1)
+            amp = pred.abs() > tol
+            for i in amp.nonzero().tolist():
+                i = tuple(i)
+                amplified.append(
+                    f"{name}{list(i)}: card g {gg[i].item():.3e}, CPU g "
+                    f"{gc[i].item():.3e}, parameter gap {gap[i].item():.3e} "
+                    f"(predicted {pred[i].item():.3e})")
+            flipped += int((torch.sign(gg) != torch.sign(gc)).sum())
+            gap = torch.where(amp, gap - pred, gap)
+        err = gap.abs().max().item()
+        assert err <= tol, (name, err)
+    print(f"{case}: {len(amplified)} elements held to AdamW's predicted "
+          f"step difference ({flipped} gradients of opposite sign)"
+          + "".join("\n  " + a for a in amplified))
+    remat = [TS.grad_fn(dataclasses.replace(cfg, remat=r), tc, trees[1],
+                        batch)[2] for r in ("none", "dots")]
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(remat[0]),
+                                                 T.leaves(remat[1])))
+
+
+
+def test_lm_online_adapt_rollback_on_card(cuda, tmp_path):
+    """The LM online-adapt FSM on the card (tests/test_torch_lm_train.py's
+    twin of the reference's rollback test runs it on the CPU): offline
+    training checkpoints the state, updates at a ruinous learning rate
+    make the analysis restore it, bit for bit, on the card. The offline
+    eval loss equals the CPU run's within LM_TOL, and both runs roll back
+    as often."""
+    import dataclasses
+
+    from repro_torch import configs, convert
+    from repro_torch import tree as T
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serve.online_adapt import (OnlineAdaptConfig,
+                                                OnlineAdaptManager)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    cfg = configs.get_smoke_config("gemma3_1b")
+    tc = TS.TrainConfig(opt=opt.OptConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=1000))
+    tc_bad = dataclasses.replace(tc, opt=dataclasses.replace(tc.opt, lr=0.5))
+    rng = np.random.default_rng(1)
+    good, evalb, bad = ({"tokens": rng.integers(0, cfg.vocab_size, (2, 32))}
+                        for _ in range(3))
+    runs = []
+    for dev in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(0)
+        prm = P.materialize(transformer.model_specs(cfg), gen, device="cpu")
+        oc = OnlineAdaptConfig(analyze_every=2, rollback_threshold=0.05,
+                               checkpoint_dir=str(tmp_path / str(dev)))
+        m = OnlineAdaptManager(cfg, tc, TS.init_state(tc, prm), oc,
+                               device=dev)
+        base = m.offline_train([good, good], evalb)
+        saved = convert.lm_train_state_to_numpy(m.state)
+        m._update = lambda s, b: TS.train_step(cfg, tc_bad, s, b)
+        for _ in range(6):
+            m.online_step(bad, evalb)
+        runs.append((m, base, saved))
+    (m_cpu, base_cpu, _), (m, base, saved) = runs
+    assert m.state.opt.step.device.type == "cuda"
+    _lm_close(torch.tensor(base), torch.tensor(base_cpu))
+    assert m.rollbacks == m_cpu.rollbacks >= 1, (m.history, m_cpu.history)
+    assert m.history[-1][1] > base * (1 + oc.rollback_threshold)
+    now = convert.lm_train_state_to_numpy(m.state)
+    assert all(np.array_equal(a, b) for a, b in zip(T.leaves(saved),
+                                                    T.leaves(now)))
+
+def test_grad_compression_on_card_equals_cpu_bitwise(cuda):
+    """int8 compression with error feedback is the same bits on the card
+    as on the CPU for the same float32 inputs (round half to even, the
+    scale divided by a tensor)."""
+    from repro_torch.distributed import collectives as C
+
+    rng = np.random.default_rng(8)
+    for scale in (1e-6, 1e-2, 1e3):
+        g = {"w": torch.from_numpy((rng.standard_normal((64, 33)) * scale)
+                                   .astype(np.float32)),
+             "b": torch.from_numpy(rng.standard_normal(7).astype(np.float32))}
+        r = {k: torch.from_numpy((rng.standard_normal(v.shape) * 1e-3 * scale)
+                                 .astype(np.float32)) for k, v in g.items()}
+        want = C.compress_grads(g, C.CompressionState(r))
+        got = C.compress_grads({k: v.to(cuda) for k, v in g.items()},
+                               C.CompressionState({k: v.to(cuda)
+                                                   for k, v in r.items()}))
+        for k in g:
+            assert torch.equal(got[0][k].cpu(), want[0][k])
+            assert torch.equal(got[1].residual[k].cpu(), want[1].residual[k])

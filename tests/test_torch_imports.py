@@ -209,3 +209,41 @@ def test_lm_entry_points_default_to_cuda(no_cuda):
     assert out.shape == (1, 4)
     assert serve.main(["--arch", "gemma3-1b", "--device", "cpu",
                        "--max-new", "3"]).shape == (4, 3)
+
+
+def test_scan_covers_the_lm_training_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"tree.py", "data/synthetic.py", "distributed/collectives.py",
+            "train/optimizer.py", "train/train_step.py", "train/loop.py",
+            "launch/train.py"} <= names
+
+
+def test_lm_training_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """The trainer and the LM online-adapt manager run on the card unless
+    told otherwise, and raise without it; ``--device cpu`` trains on the
+    CPU."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.serve import OnlineAdaptConfig, OnlineAdaptManager
+    from repro_torch.train import train_step as TS
+
+    cfg = configs.get_smoke_config("gemma3-1b")
+    gen = torch.Generator().manual_seed(0)
+    tree = P.materialize(transformer.model_specs(cfg), gen, device="cpu")
+    tc = TS.TrainConfig()
+    state = TS.init_state(tc, tree)
+    oc = OnlineAdaptConfig(checkpoint_dir=str(tmp_path / "oa"))
+    for call in (lambda: OnlineAdaptManager(cfg, tc, state, oc),
+                 lambda: train.main(["--arch", "gemma3-1b", "--steps", "1",
+                                     "--ckpt-dir", str(tmp_path / "t")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    m = OnlineAdaptManager(cfg, tc, state, oc, device="cpu")
+    assert m.state.params["embed"].device.type == "cpu"
+    _, report = train.main(["--arch", "gemma3-1b", "--steps", "2",
+                            "--seq", "16", "--device", "cpu",
+                            "--ckpt-dir", str(tmp_path / "t")])
+    assert report.steps_run == 2

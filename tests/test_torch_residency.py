@@ -55,6 +55,7 @@ from repro.serve import AdaptPolicy as JPolicy
 from repro.serve import ServiceConfig as JConfig
 from repro.serve import TMService as JService
 from repro.serve import residency as j_res
+from repro_torch import tree as T
 from repro_torch.core import TMConfig as TTMConfig
 from repro_torch.core import init_state as t_init_state
 from repro_torch.core import online as t_online
@@ -288,7 +289,7 @@ def test_evicted_snapshots_own_their_memory(batched):
     assert len(rids) == 3
     ts.evict(rids)
     for rid in rids:
-        for a in t_online.tree_leaves(ts._res.store[int(rid)]):
+        for a in T.leaves(ts._res.store[int(rid)]):
             assert isinstance(a, np.generic) or a.flags.owndata, rid
 
 
@@ -790,7 +791,7 @@ def _planes(packed: bool, seed: int, R: int = 5):
 
 def _same_tree(jtree, ttree):
     jl = [np.asarray(a) for a in jax.tree.leaves(jtree)]
-    tl = t_online.tree_leaves(ttree)
+    tl = T.leaves(ttree)
     assert len(jl) == len(tl)
     for a, b in zip(jl, tl):
         b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
@@ -815,9 +816,9 @@ def test_device_moves_match_reference(packed):
     def flip(a):             # an in-place write, undone by a second one
         return a.logical_not_() if a.dtype == torch.bool else a.neg_()
 
-    t_online.tree_map(flip, ttree)
+    T.map(flip, ttree)
     _same_tree(want, t_online.gather_replicas_await(pending))
-    t_online.tree_map(flip, ttree)
+    T.map(flip, ttree)
     _same_tree(jtree, ttree)
     # scatter: stacked host values into rows [1, 2, 0]
     vals_j = j_online.gather_replicas(jtree, np.array([4, 3, 3]))
