@@ -123,13 +123,30 @@ Phases, each with its seconds:
    the float32 checks at full width (prefill -> decode == forward,
    ``generate`` == a full-forward greedy re-run); the four other dense
    archs at full width, one pattern repetition deep; the card against
-   the CPU. Then ``lm_train`` (``phase_lm_train``; no CUDA kernel of its
+   the CPU; what ``layers.silu``'s bf16 expansion costs granite-8b (one
+   layer) against one ``torch.sigmoid``, in decode launches and ms and
+   in train step ms and peak memory. Then ``lm_train`` (``phase_lm_train``; no CUDA kernel of its
    own): gemma3-1b trained at full width and depth, bf16, remat dots,
    AdamW, B = 4 x 1024 tokens: remat's gradients equal no remat's bit for
    bit, step ms, tokens/s, peak memory with and without remat, a
    torch.profiler window of 2 steps, the step split into gradient pass,
    cross-entropy and optimizer, a float32 SGD descent step, and the
-   streaming-softmax backward and a 6-layer train step against the CPU;
+   streaming-softmax backward and a 6-layer train step against the CPU.
+   Then ``lm_moe_ssd`` (``phase_lm_moe_ssd``; no CUDA kernel of its own):
+   ``launch.serve --full`` for olmoe-1b-7b and mamba2-780m; bf16 serving
+   through ``Engine.generate`` of 4 x 1024-token prompts, olmoe-1b-7b and
+   mamba2-780m at full width and depth (64 new tokens) and arctic-480b at
+   full width, one layer, bf16 parameters (16 new tokens): prefill ms,
+   decode ms a step, tokens/s, peak memory, the MoE slots dropped by
+   capacity, one layer's time split into its parts, 8 profiled decode
+   steps; the card against the CPU at full width, 2 layers (arctic 1),
+   the MoE routing integers equal, and mamba2's prefill -> decode
+   against a forward over S + chunk tokens. Then ``lm_moe_ssd_train``:
+   ``launch.train --full`` for mamba2-780m and olmoe-1b-7b (``--layers
+   4``), bf16 training (AdamW, 4 x 1024 tokens a step) of mamba2-780m at
+   full depth and olmoe-1b-7b at 4 layers with step ms, tokens/s, peak
+   memory and a 2-step profile, and one train step of each against the
+   CPU (olmoe at 1 layer, mamba2 at 2);
 9. profile -- torch.profiler over one more 16-point drain chunk of the
    service, over one offline epoch of the f = 784, O = 8 engine, and over
    one drain chunk of the K = 16 fleet: wall time, device busy time, idle
@@ -2955,8 +2972,6 @@ def phase_lm(torch, np):
        prints how many). So the float32 results are each held
        to the float64 evaluation: the card's error may not exceed
        max(LM_TOL, 4 x the CPU's)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import configs
     from repro_torch import tree as T
     from repro_torch.models.transformer import Transformer
@@ -2975,110 +2990,12 @@ def phase_lm(torch, np):
           f"materialized on the card in {time.perf_counter() - t:.2f} s "
           f"({torch.cuda.memory_allocated() - base:,} bytes, float32)",
           flush=True)
-    max_seq = LM_PROMPT + LM_NEW
-    ec = EngineConfig(max_seq=max_seq, batch_slots=LM_B)
-    before = torch.cuda.memory_allocated()
-    eng = Engine(cfg, tree, ec, device=dev)
-    print(f"lm compute-dtype copies: {torch.cuda.memory_allocated() - before:,}"
-          f" bytes (bfloat16)", flush=True)
+
+    # 1. the user's call, its parts and a profile window
+    _lm_serve(torch, np, "lm", cfg, tree, LM_NEW, _smi())
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.vocab_size,
                            (LM_B, LM_PROMPT)).astype(np.int32)
-
-    # 1. the user's call, twice (the first pays cuBLAS's set-up)
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    outs = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        outs.append(eng.generate(prompts, LM_NEW))
-        walls.append(time.perf_counter() - t)
-    peak = torch.cuda.max_memory_allocated()
-    out = outs[1]
-    check(out.shape == (LM_B, LM_NEW) and out.dtype == np.int32,
-          f"lm generate: shape {out.shape} {out.dtype}")
-    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-          "lm generate: a token outside the vocabulary")
-    check(np.array_equal(outs[0], outs[1]), "lm generate is not repeatable")
-
-    m = eng.model
-    toks = torch.from_numpy(prompts.astype(np.int64)).to(dev)
-    pre_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logits, cache = m.prefill({"tokens": toks}, max_seq)
-        torch.cuda.synchronize()
-        pre_ms.append((time.perf_counter() - t) * 1e3)
-    check(bool(torch.isfinite(logits).all()), "lm prefill: non-finite logits")
-    tok = torch.argmax(logits, dim=-1)
-    check(np.array_equal(tok.cpu().numpy(), out[:, 0]),
-          "lm prefill's greedy token differs from generate's")
-    step_ms = []
-    for i in range(1, LM_NEW):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        logits, cache = m.decode_step({"token": tok[:, None],
-                                       "pos": LM_PROMPT + i - 1}, cache)
-        tok = torch.argmax(logits, dim=-1)
-        b.record()
-        b.synchronize()
-        step_ms.append(a.elapsed_time(b))
-    check(np.array_equal(tok.cpu().numpy(), out[:, -1]),
-          "lm decode steps' last token differs from generate's")
-    pre = sorted(pre_ms)[1]
-    step = sorted(step_ms)[len(step_ms) // 2]
-    wbytes = sum(t.numel() * t.element_size()
-                 for t in T.leaves(m.compute))
-    print(f"lm generate {LM_B} x {LM_PROMPT} + {LM_NEW} tokens (bf16, greedy):"
-          f" {walls[1] * 1e3:.3f} ms ({LM_B * LM_NEW / walls[1]:.1f} tokens/s;"
-          f" first call {walls[0] * 1e3:.3f} ms); prefill {pre:.3f} ms "
-          f"(median of 3: {', '.join(f'{x:.3f}' for x in pre_ms)}); decode "
-          f"{step:.3f} ms a step (median of {len(step_ms)}, min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory "
-          f"{peak:,} bytes; decode bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f}"
-          f" ms (the {wbytes:,} bytes of compute weights read once)",
-          flush=True)
-
-    logits, cache = m.prefill({"tokens": toks}, max_seq)
-    tok = torch.argmax(logits, dim=-1)
-    pos = LM_PROMPT
-    for _ in range(2):               # warm
-        logits, cache = m.decode_step({"token": tok[:, None], "pos": pos},
-                                      cache)
-        tok = torch.argmax(logits, dim=-1)
-        pos += 1
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(LM_PROFILE_STEPS):
-            logits, cache = m.decode_step({"token": tok[:, None],
-                                           "pos": pos}, cache)
-            tok = torch.argmax(logits, dim=-1)
-            pos += 1
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    ka = prof.key_averages()
-    devk = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in devk) / 1e3
-    launches = sum(e.count for e in ka
-                   if e.key.startswith("cudaLaunchKernel")
-                   or e.key.startswith("cuLaunchKernel"))
-    kernels = sum(e.count for e in devk)
-    top = sorted(devk, key=lambda e: -e.self_device_time_total)[:6]
-    check(busy > 0, "lm profile: no device time traced")
-    print(f"profile lm decode ({LM_PROFILE_STEPS} steps, bf16): wall "
-          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
-          f"{1.0 - busy / wall:.4f}, launches "
-          f"{launches / LM_PROFILE_STEPS:.1f} a step (device ops "
-          f"{kernels / LM_PROFILE_STEPS:.1f} a step)", flush=True)
-    print("profile lm decode top device kernels: " + "; ".join(
-        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-        for e in top), flush=True)
-    del eng, m, cache, logits
 
     # 2. exactness at full width, float32 compute (TF32 off)
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
@@ -3177,6 +3094,113 @@ def phase_lm(torch, np):
                       zip(names[:3], card[:3], host[:3]))
           + f", caches {max(card[3:]):.3e} / {max(host[3:]):.3e}",
           flush=True)
+    del tr, tr_cpu
+    torch.cuda.empty_cache()
+    _lm_silu_cost(torch, np, _smi())
+
+
+# What ``layers.silu``'s bf16 sigmoid (XLA's op-by-op expansion,
+# ``layers._LogisticBF16``) costs a dense swiglu model against one
+# ``torch.sigmoid``: granite-8b at full width, depth cut to one layer.
+SILU_ARCH = "granite_8b"
+SILU_DECODE_STEPS, SILU_TRAIN_STEPS = 16, 3
+
+
+def _lm_silu_cost(torch, np, smi) -> None:
+    """granite-8b (one layer, full width, bf16 compute) with the port's
+    ``layers.silu`` and with ``x * torch.sigmoid(x)`` swapped in, in the
+    order plain, port, port, plain: decode at B = LM_B after a
+    LM_PROMPT-token prefill (launches a step over LM_PROFILE_STEPS steps;
+    ms a step, CUDA events, median of SILU_DECODE_STEPS), and AdamW train
+    steps at B LM_TRAIN_B x S LM_TRAIN_S (ms a step, median of
+    SILU_TRAIN_STEPS after a warm step; peak memory). The decode tokens of
+    the two variants are not compared: they round differently."""
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import train_step as TS
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get_config(SILU_ARCH), n_layers=1)
+    check(cfg.act == "swiglu" and cfg.compute_dtype == "bfloat16",
+          f"{SILU_ARCH}: a bf16 swiglu model")
+    tree = _lm_model(torch, cfg, SEED + 11, dev)
+    m = Transformer(cfg, tree, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_B, LM_PROMPT))).to(dev)
+    max_seq = LM_PROMPT + 2 + LM_PROFILE_STEPS + SILU_DECODE_STEPS
+    tc = TS.TrainConfig()
+    state = {"s": TS.init_state(tc, T.map(torch.clone, tree))}
+    data = synthetic.token_batches(
+        cfg, ShapeConfig("silu", LM_TRAIN_S, LM_TRAIN_B, "train"), seed=SEED)
+    port = layers.silu
+
+    def plain(x):
+        return x * torch.sigmoid(x)
+
+    def run(silu) -> dict:
+        layers.silu = silu
+        try:
+            logits, cache = m.prefill({"tokens": toks}, max_seq)
+            box = {"tok": torch.argmax(logits, -1), "pos": LM_PROMPT,
+                   "cache": cache}
+
+            def one():
+                lg, box["cache"] = m.decode_step(
+                    {"token": box["tok"][:, None], "pos": box["pos"]},
+                    box["cache"])
+                box["tok"] = torch.argmax(lg, dim=-1)
+                box["pos"] += 1
+
+            one()                                    # warm
+            pr = _profile(torch, one, LM_PROFILE_STEPS, "silu decode")
+            dec = []
+            for _ in range(SILU_DECODE_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                one()
+                b.record()
+                b.synchronize()
+                dec.append(a.elapsed_time(b))
+            del box, cache, logits
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr = []
+            for i in range(SILU_TRAIN_STEPS + 1):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                state["s"], met = TS.train_step(cfg, tc, state["s"],
+                                                next(data), donate=True)
+                b.record()
+                b.synchronize()
+                check(bool(torch.isfinite(met["loss"])),
+                      f"silu cost {SILU_ARCH}: non-finite loss")
+                if i:
+                    tr.append(a.elapsed_time(b))
+            return {"launches": pr["launches"],
+                    "decode": sorted(dec)[len(dec) // 2],
+                    "train": sorted(tr)[len(tr) // 2],
+                    "peak": torch.cuda.max_memory_allocated()}
+        finally:
+            layers.silu = port
+
+    runs = [("plain", run(plain)), ("port", run(port)),
+            ("port", run(port)), ("plain", run(plain))]
+    print(f"lm silu cost {cfg.arch_id} (reduced: n_layers "
+          f"{_full_layers(cfg)} -> 1) [{smi}] bf16, decode B {LM_B} after "
+          f"{LM_PROMPT} tokens, train B {LM_TRAIN_B} x S {LM_TRAIN_S} "
+          f"(remat {cfg.remat}, AdamW); x * torch.sigmoid(x) = plain, "
+          "layers.silu = port: " + "; ".join(
+              f"{k}: decode {r['decode']:.3f} ms a step, {r['launches']:.1f}"
+              f" launches a step, train {r['train']:.3f} ms a step, peak "
+              f"{r['peak']:,} bytes" for k, r in runs), flush=True)
+    del state, m, tree
+    torch.cuda.empty_cache()
 
 
 # lm_train: gemma3-1b at full width and depth, bf16, remat "dots", AdamW
@@ -3292,8 +3316,6 @@ def phase_lm_train(torch, np):
        1, S = 1024, on the card and on the CPU from the same state (drawn
        with each layer's fan-in): the loss, gradient norm, parameters and
        moments, under the same rule."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import configs
     from repro_torch import tree as T
     from repro_torch.configs.base import ShapeConfig
@@ -3378,33 +3400,21 @@ def phase_lm_train(torch, np):
           + "; grad norms: " + ", ".join(f"{x:.6f}" for x in norms),
           flush=True)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for i in range(LM_TRAIN_PROFILE_STEPS):
-            state, m = TS.train_step(cfg, tc, state,
-                                     batches[LM_TRAIN_STEPS + 1 + i],
-                                     donate=True)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    ka = prof.key_averages()
-    devk = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in devk) / 1e3
-    launches = sum(e.count for e in ka
-                   if e.key.startswith("cudaLaunchKernel")
-                   or e.key.startswith("cuLaunchKernel"))
-    kernels = sum(e.count for e in devk)
-    top = sorted(devk, key=lambda e: -e.self_device_time_total)[:10]
-    check(busy > 0, "lm_train profile: no device time traced")
-    n = LM_TRAIN_PROFILE_STEPS
-    print(f"profile lm_train ({n} steps, bf16, remat dots): wall "
-          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
-          f"{1.0 - busy / wall:.4f}, launches {launches / n:.1f} a step "
-          f"(device ops {kernels / n:.1f} a step)", flush=True)
-    print("profile lm_train top device ops: " + "; ".join(
-        f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-        for e in top), flush=True)
+    box = {"state": state, "i": 0}
+
+    def one():
+        box["state"], _ = TS.train_step(
+            cfg, tc, box["state"],
+            batches[LM_TRAIN_STEPS + 1 + box["i"]], donate=True)
+        box["i"] += 1
+
+    pr = _profile(torch, one, LM_TRAIN_PROFILE_STEPS, "lm_train")
+    state = box.pop("state")
+    print(f"profile lm_train ({LM_TRAIN_PROFILE_STEPS} steps, bf16, remat "
+          f"dots): wall {pr['wall']:.3f} ms, device busy {pr['busy']:.3f} "
+          f"ms, idle share {pr['idle']:.4f}, launches {pr['launches']:.1f} a"
+          f" step (device ops {pr['ops']:.1f} a step); top: {pr['top']}",
+          flush=True)
 
     # where a step's time goes: the gradient pass, the optimizer, and the
     # float32 cross-entropy over the [B, S, V] logits alone (forward and
@@ -3546,6 +3556,686 @@ def phase_lm_train(torch, np):
           flush=True)
 
 
+# lm_moe_ssd: the MoE FFN and the SSD block served on the card (no CUDA
+# kernel of their own: plain PyTorch ops), bf16, B = 4 x 1024-token
+# prompts through Engine.generate. (arch, layers or None for all, the
+# parameters' dtype, new tokens): arctic-480b's one layer at full width
+# is 14.07 B parameters, whose float32 masters and bf16 copies (84.4 GB)
+# would not fit the card, so it is drawn in bf16 (28.1 GB).
+LMX_SERVE = (("olmoe_1b_7b", None, "float32", 64),
+             ("mamba2_780m", None, "float32", 64),
+             ("arctic_480b", 1, "bfloat16", 16))
+LMX_CUT, LMX_CPU_S = 2, 256     # the card-against-CPU depth and prompt
+LMX_TOL_BF16 = 3e-2
+# lm_moe_ssd_train: (arch, layers or None); olmoe-1b-7b's float32
+# parameters and AdamW moments are 83.0 GB at full depth, 22.6 GB at 4
+# of its 16 layers.
+LMX_TRAIN = (("mamba2_780m", None), ("olmoe_1b_7b", 4))
+LMX_TRAIN_STEPS, LMX_TRAIN_PROFILE_STEPS = 8, 2
+# the train step against the CPU: olmoe at one layer (its float64 CPU step
+# is most of this phase's time; routing and the expert gradients are at
+# full width all the same), mamba2 at LMX_CUT
+LMX_TRAIN_CPU = (("olmoe_1b_7b", 1), ("mamba2_780m", LMX_CUT))
+
+
+def _profile(torch, fn, n: int, what: str) -> dict:
+    """torch.profiler over ``n`` calls of ``fn``: wall ms, device busy ms,
+    idle share, launches and device ops a call, the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ka = prof.key_averages()
+    devk = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in devk) / 1e3
+    launches = sum(e.count for e in ka
+                   if e.key.startswith("cudaLaunchKernel")
+                   or e.key.startswith("cuLaunchKernel"))
+    check(busy > 0, f"{what} profile: no device time traced")
+    top = sorted(devk, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall": wall, "busy": busy, "idle": 1.0 - busy / wall,
+            "launches": launches / n,
+            "ops": sum(e.count for e in devk) / n,
+            "top": "; ".join(f"{e.key[:50]} x{e.count} "
+                             f"{e.self_device_time_total / 1e3:.3f} ms"
+                             for e in top)}
+
+
+class _Routes:
+    """Records every ``moe.route`` call's routing (on the host) while
+    active: the slots dropped by capacity, and the integers themselves."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        route = self.route = self.moe.route
+
+        def recorded(cfg, p, xt):
+            r = route(cfg, p, xt)
+            self.calls.append((xt.detach(), p["router"],
+                               [x.cpu() for x in r[:3]]))
+            return r
+
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def dropped(self) -> tuple[int, int]:
+        return (sum(int((~k).sum()) for _, _, (_, _, k) in self.calls),
+                sum(k.numel() for _, _, (_, _, k) in self.calls))
+
+
+def _events_ms(torch, fn, reps: int = 5) -> float:
+    """Median ms of ``reps`` calls of ``fn`` between CUDA events (after a
+    warm call): launches and gaps included, as the eager path runs."""
+    fn()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return sorted(out)[len(out) // 2]
+
+
+def _lmx_split(torch, cfg, compute, T_tokens: int) -> dict:
+    """One layer of the MoE FFN or the SSD block timed by its parts at
+    ``T_tokens`` tokens (B = LM_B rows), on the model's layer-0 compute
+    weights: the whole block, and for MoE the router (``route``), the
+    expert products over the capacity buffers (the three einsums and
+    the activation) and, by difference, the dispatch scatter and the
+    combine gather (less arctic's dense MLP, timed alone); for SSD the
+    in/out projections and, by difference, the conv and the chunked scan
+    (``ssd_forward``) or the recurrent step (``ssd_decode_step``)."""
+    from repro_torch import tree as T
+    from repro_torch.models import layers, moe, ssm
+
+    dev = torch.device("cuda")
+    cd = layers.compute_dtype(cfg)
+    S = T_tokens // LM_B
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((LM_B, S, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.float32).to(cd)
+    out = {}
+    with torch.inference_mode():
+        if cfg.moe is not None:
+            p = T.map(lambda t: t[0], compute["blocks"]["pos0"]["ffn"])
+            m = cfg.moe
+            C = moe.capacity(cfg, T_tokens)
+            xt = x.reshape(1, T_tokens, cfg.d_model)
+            buf = torch.randn((1, m.n_experts, C, cfg.d_model), generator=g,
+                              device=dev, dtype=torch.float32).to(cd)
+
+            def experts():
+                a = torch.einsum("gecd,edf->gecf", buf, p["w_gate"])
+                u = torch.einsum("gecd,edf->gecf", buf, p["w_up"])
+                return torch.einsum("gecf,efd->gecd", layers.silu(a) * u,
+                                    p["w_down"])
+
+            out["block"] = _events_ms(torch, lambda: moe.moe_ffn(cfg, p, x))
+            out["route"] = _events_ms(torch, lambda: moe.route(cfg, p, xt))
+            out["experts"] = _events_ms(torch, experts)
+            out["dense"] = (_events_ms(torch, lambda: layers.mlp(
+                cfg, p["dense"], xt)) if m.dense_residual else 0.0)
+            out["dispatch+combine"] = (out["block"] - out["route"]
+                                       - out["experts"] - out["dense"])
+        else:
+            p = T.map(lambda t: t[0], compute["blocks"]["pos0"]["mamba"])
+            di = cfg.ssm.expand * cfg.d_model
+            y = torch.randn((LM_B, S, di), generator=g, device=dev,
+                            dtype=torch.float32).to(cd)
+            out["proj"] = _events_ms(torch, lambda: (
+                x @ p["in_proj"], y @ p["out_proj"]))
+            if S == 1:
+                st = ssm.init_state(cfg, LM_B, device=dev)
+                st = st._replace(conv=st.conv.to(cd))
+                out["block"] = _events_ms(
+                    torch, lambda: ssm.ssd_decode_step(cfg, p, x, st))
+            else:
+                out["block"] = _events_ms(
+                    torch, lambda: ssm.ssd_forward(cfg, p, x))
+            out["conv+scan"] = out["block"] - out["proj"]
+    return out
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _lm_serve(torch, np, label, cfg, tree, new, smi) -> None:
+    """``cfg`` served at bf16 on the card through ``Engine.generate`` of
+    LM_B x LM_PROMPT-token prompts and ``new`` tokens (twice: the first
+    call pays cuBLAS's set-up): the tokens checked (shape, vocabulary,
+    repeatable, equal to a prefill's and the decode steps' greedy
+    tokens), prefill ms (median of 3), decode ms a step (CUDA events,
+    median), tokens/s, peak memory, a torch.profiler window of
+    LM_PROFILE_STEPS decode steps; for MoE the slots dropped by capacity
+    at prefill and at one decode step, and for MoE and SSD one layer's
+    time split into its parts (``_lmx_split``)."""
+    from repro_torch import tree as T
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    dev = torch.device("cuda")
+    check(cfg.compute_dtype == "bfloat16", f"{cfg.arch_id} computes in bf16")
+    max_seq = LM_PROMPT + new
+    before = torch.cuda.memory_allocated()
+    eng = Engine(cfg, tree, EngineConfig(max_seq=max_seq, batch_slots=LM_B),
+                 device=dev)
+    print(f"{label} {cfg.arch_id} compute-dtype copies: "
+          f"{torch.cuda.memory_allocated() - before:,} bytes", flush=True)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (LM_B, LM_PROMPT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    walls, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(eng.generate(prompts, new))
+        walls.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    out = outs[1]
+    what = f"{label} {cfg.arch_id}"
+    check(out.shape == (LM_B, new) and out.dtype == np.int32,
+          f"{what} generate: shape {out.shape} {out.dtype}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{what} generate: a token outside the vocabulary")
+    check(np.array_equal(outs[0], outs[1]), f"{what} generate repeats")
+
+    m = eng.model
+    toks = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    pre_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = m.prefill({"tokens": toks}, max_seq)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t) * 1e3)
+    check(bool(torch.isfinite(logits).all()), f"{what} prefill: non-finite")
+    tok = torch.argmax(logits, dim=-1)
+    check(np.array_equal(tok.cpu().numpy(), out[:, 0]),
+          f"{what} prefill's greedy token differs from generate's")
+    step_ms = []
+    for i in range(1, new):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = m.decode_step({"token": tok[:, None],
+                                       "pos": LM_PROMPT + i - 1}, cache)
+        tok = torch.argmax(logits, dim=-1)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    check(np.array_equal(tok.cpu().numpy(), out[:, -1]),
+          f"{what} decode steps' last token differs from generate's")
+    pre, step = sorted(pre_ms)[1], sorted(step_ms)[len(step_ms) // 2]
+    wbytes = sum(x.numel() * x.element_size() for x in T.leaves(m.compute))
+
+    # the slots the capacity dropped, then the profile window
+    with _Routes(moe) as rt:
+        logits, cache = m.prefill({"tokens": toks}, max_seq)
+    pre_drop = rt.dropped()
+    tok = torch.argmax(logits, dim=-1)
+    with _Routes(moe) as rt:
+        logits, cache = m.decode_step({"token": tok[:, None],
+                                       "pos": LM_PROMPT}, cache)
+    dec_drop = rt.dropped()
+    state = {"tok": torch.argmax(logits, dim=-1), "pos": LM_PROMPT + 1,
+             "cache": cache}
+
+    def one():
+        lg, state["cache"] = m.decode_step(
+            {"token": state["tok"][:, None], "pos": state["pos"]},
+            state["cache"])
+        state["tok"] = torch.argmax(lg, dim=-1)
+        state["pos"] += 1
+
+    one()                        # warm
+    n = min(LM_PROFILE_STEPS, max_seq - state["pos"])
+    pr = _profile(torch, one, n, f"{what} decode")
+    cut = ("" if cfg.n_layers == _full_layers(cfg) else
+           f" (reduced: n_layers {_full_layers(cfg)} -> {cfg.n_layers})")
+    drops = ("" if cfg.moe is None else
+             f"; slots dropped by capacity: prefill {pre_drop[0]:,} of "
+             f"{pre_drop[1]:,} (C = {moe.capacity(cfg, LM_B * LM_PROMPT)}"
+             f" a layer), one decode step {dec_drop[0]:,} of "
+             f"{dec_drop[1]:,} (C = {moe.capacity(cfg, LM_B)})")
+    print(f"{label} serve {cfg.arch_id}{cut} [{smi}] generate {LM_B} x "
+          f"{LM_PROMPT} + {new} tokens (bf16, greedy): "
+          f"{walls[1] * 1e3:.3f} ms ({LM_B * new / walls[1]:.1f} tokens/s;"
+          f" first call {walls[0] * 1e3:.3f} ms); prefill {pre:.3f} ms "
+          f"(median of 3: {', '.join(f'{x:.3f}' for x in pre_ms)}); decode "
+          f"{step:.3f} ms a step (median of {len(step_ms)}, min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory "
+          f"{peak:,} bytes; decode bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms (the {wbytes:,} bytes of compute weights read once){drops}",
+          flush=True)
+    if cfg.moe is not None or cfg.ssm is not None:
+        for k, t_ms, tokens in (("prefill", pre, LM_B * LM_PROMPT),
+                                ("decode", step, LM_B)):
+            parts = _lmx_split(torch, cfg, m.compute, tokens)
+            print(f"{label} split {cfg.arch_id} {k} (one layer, CUDA "
+                  "events, median of 5): " + ", ".join(
+                      f"{p} {v:.3f} ms" for p, v in parts.items())
+                  + f"; x {cfg.n_layers} layers = "
+                  f"{parts['block'] * cfg.n_layers:.3f} ms of the "
+                  f"{t_ms:.3f} ms {k}", flush=True)
+    print(f"profile {label} {cfg.arch_id} decode ({n} steps, bf16): wall "
+          f"{pr['wall']:.3f} ms, device busy {pr['busy']:.3f} ms, idle share"
+          f" {pr['idle']:.4f}, launches {pr['launches']:.1f} a step (device"
+          f" ops {pr['ops']:.1f} a step); top: {pr['top']}", flush=True)
+    del eng, m, cache, logits, state
+    torch.cuda.empty_cache()
+
+
+def _full_layers(cfg) -> int:
+    from repro_torch import configs
+
+    return configs.get_config(cfg.arch_id).n_layers
+
+
+def _lmx_outputs(torch, cfg, tree, toks, where, S):
+    """forward(S) logits, prefill(S) logits, its cache leaves and one
+    decode step's logits, as float64 on the CPU; with every router call's
+    routing (a ``_Routes``)."""
+    from repro_torch import tree as T
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Transformer
+
+    m = Transformer(cfg, tree, device=where)
+    with _Routes(moe) as rt:
+        fwd = m({"tokens": toks[:, :S].to(where)})[0]
+        pre, cache = m.prefill({"tokens": toks[:, :S].to(where)}, S + 8)
+        dec, _ = m.decode_step({"token": toks[:, S:S + 1].to(where),
+                                "pos": S}, cache)
+    out = [x.double().cpu() for x in (fwd, pre, dec, *T.leaves(cache))]
+    del m, cache
+    return out, rt
+
+
+def _lmx_card_vs_cpu(torch, np, arch) -> None:
+    """One arch at full width, depth cut, B = 1, S = LMX_CPU_S: forward,
+    prefill (logits and caches) and one decode step on the card and on the
+    CPU from the same parameters (each layer's fan-in). olmoe and mamba2
+    at LMX_CUT layers: float64 within LM_TOL, the MoE routing (expert_idx,
+    pos, keep) of every router call equal as integers, and float32 each
+    against float64 (the card's error at most max(LM_TOL, 4 x the
+    CPU's)); mamba2's prefill -> decode against a forward over S + chunk
+    tokens on the card. arctic at one layer with bf16 parameters and
+    compute (float32 copies of its 14.07 B parameters would not fit),
+    within LMX_TOL_BF16 where both devices route a token alike, and its
+    routing equal as integers at float64 on the recorded router
+    inputs."""
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.models import moe
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    full = configs.get_config(arch)
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(0, full.vocab_size,
+                                         (1, LMX_CPU_S + full.ssm.chunk
+                                          if full.ssm else LMX_CPU_S + 1)))
+    S = LMX_CPU_S
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    if arch == "arctic_480b":
+        cfg = dataclasses.replace(full, n_layers=1)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        tree = _per_layer_init(torch, cfg, P.materialize(
+            transformer.model_specs(cfg), gen, torch.bfloat16, device=dev))
+        card, rg = _lmx_outputs(torch, cfg, tree, toks, dev, S)
+        tree = T.map(lambda t: t.cpu(), tree)
+        torch.cuda.empty_cache()
+        host, rc = _lmx_outputs(torch, cfg, tree, toks, "cpu", S)
+        check(len(rg.calls) == len(rc.calls) == 3, "router calls")
+        # a token whose expert set or kept slots differ between the
+        # devices (a bf16 near-tie) moves that token's output (one layer)
+        # and, through the capacity, later tokens' in those experts: the
+        # outputs are compared where both devices route a token alike
+        alike = []
+        for (_, _, a), (_, _, b) in zip(rg.calls, rc.calls):
+            same = ((torch.sort(a[0], -1).values
+                     == torch.sort(b[0], -1).values).all(-1)
+                    & (a[2] == b[2]).all(-1))[0]
+            alike.append(same)
+        errs = {"forward": rel(card[0][0, alike[0]], host[0][0, alike[0]])}
+        if bool(alike[1][-1]):
+            errs["prefill"] = rel(card[1], host[1])
+        if bool(alike[2][-1]):
+            errs["decode"] = rel(card[2], host[2])
+        errs["caches"] = max(rel(g, c) for g, c in zip(card[3:], host[3:]))
+        check(max(errs.values()) <= LMX_TOL_BF16, f"lm_moe_ssd {arch} card "
+              f"vs cpu bf16: {errs}")
+        # the routing integers at float64 on the CPU run's router inputs
+        c64 = dataclasses.replace(cfg, compute_dtype="float64")
+        slots = 0
+        for xt, w, _ in rc.calls:
+            xt = xt.cpu().double()
+            a = moe.route(c64, {"router": w.to(dev)}, xt.to(dev))
+            b = moe.route(c64, {"router": w}, xt)
+            check(all(torch.equal(x.cpu(), y) for x, y in zip(a[:3], b[:3])),
+                  f"lm_moe_ssd {arch}: float64 routing differs card vs cpu")
+            slots += a.expert_idx.numel()
+        print(f"lm_moe_ssd {arch} card vs CPU (reduced: n_layers "
+              f"{full.n_layers} -> 1; bf16 parameters and compute; B 1 x S "
+              f"{S}): max|d|/max|cpu| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tokens routed alike in the forward, prefill, decode: "
+              + ", ".join(f"{int(x.sum())} of {x.numel()}" for x in alike)
+              + f"); float64 routing on the recorded router inputs: "
+              f"{slots:,} (token, k) slots equal", flush=True)
+        del tree
+        return
+
+    cfg = dataclasses.replace(full, n_layers=LMX_CUT,
+                              compute_dtype="float32")
+    tree = _per_layer_init(torch, cfg, _lm_model(torch, cfg, SEED + 5, dev))
+    tree_cpu = T.map(lambda t: t.cpu(), tree)
+    res = {}
+    for dtype in ("float64", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        res[dtype] = (_lmx_outputs(torch, c, tree, toks, dev, S),
+                      _lmx_outputs(torch, c, tree_cpu, toks, "cpu", S))
+    (g64, rg), (c64, rc) = res["float64"]
+    (g32, _), (c32, _) = res["float32"]
+    names = ["forward", "prefill", "decode"] + [
+        f"cache {i}" for i in range(len(g64) - 3)]
+    e64 = [rel(g, c) for g, c in zip(g64, c64)]
+    check(max(e64) <= LM_TOL, f"lm_moe_ssd {arch} card vs cpu float64: "
+          f"{max(e64):.3e}")
+    check(len(rg.calls) == len(rc.calls), "router calls differ")
+    for (_, _, a), (_, _, b) in zip(rg.calls, rc.calls):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"lm_moe_ssd {arch}: routing differs card vs cpu (float64)")
+    card = [rel(g, t) for g, t in zip(g32, c64)]
+    host = [rel(c, t) for c, t in zip(c32, c64)]
+    for n, a, b in zip(names, card, host):
+        check(a <= max(LM_TOL, 4 * b), f"lm_moe_ssd {arch} card vs cpu "
+              f"float32 {n}: {a:.3e} > max(LM_TOL, 4 x cpu {b:.3e})")
+    extra = ""
+    if cfg.ssm is not None:
+        # prefill(S) -> decode(S) against forward(S + chunk)[S], on the card
+        errs = []
+        for dtype in ("float64", "float32"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            m = transformer.Transformer(c, tree, device=dev)
+            want = m({"tokens": toks.to(dev)})[0][:, S]
+            _, cache = m.prefill({"tokens": toks[:, :S].to(dev)}, S + 8)
+            got, _ = m.decode_step({"token": toks[:, S:S + 1].to(dev),
+                                    "pos": S}, cache)
+            errs.append(rel(got.double(), want.double()))
+            del m, cache
+        check(max(errs) <= LM_TOL, f"lm_moe_ssd {arch} prefill -> decode vs "
+              f"forward: {errs}")
+        extra = (f"; on the card prefill({S}) -> decode vs forward("
+                 f"{S + cfg.ssm.chunk})[{S}] float64 {errs[0]:.3e}, float32 "
+                 f"{errs[1]:.3e}")
+    slots = sum(k.numel() for _, _, (_, _, k) in rg.calls)
+    print(f"lm_moe_ssd {arch} card vs CPU (reduced: n_layers "
+          f"{full.n_layers} -> {LMX_CUT}, each layer's fan-in; B 1 x S {S})"
+          f": float64 max|d|/max|cpu| {max(e64):.3e}"
+          + (f", routing equal at {slots:,} (token, k) slots"
+             if cfg.moe else "")
+          + "; float32 against float64, card / CPU: "
+          + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, a, b in
+                      zip(names[:3], card[:3], host[:3]))
+          + f", caches {max(card[3:]):.3e} / {max(host[3:]):.3e}" + extra,
+          flush=True)
+
+
+def phase_lm_moe_ssd(torch, np):
+    """The MoE FFN and the Mamba-2 SSD block served on the card (plain
+    PyTorch ops, no CUDA kernel of their own):
+
+    1. ``launch.serve --full`` as a user runs it, olmoe-1b-7b and
+       mamba2-780m (64-token prompts, 8 new tokens);
+    2. bf16 serving through ``Engine.generate``, B = 4 x 1024-token
+       prompts: olmoe-1b-7b and mamba2-780m at full width and depth (64
+       new tokens), arctic-480b at full width, one layer, bf16 parameters
+       (16 new tokens); prefill ms, decode ms a step, tokens/s, peak
+       memory, 8 profiled decode steps, and the MoE slots dropped by
+       capacity and one layer split into its parts (``_lm_serve``);
+    3. the card against the CPU (``_lmx_card_vs_cpu``)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    smi = _smi()
+    for arch in ("olmoe-1b-7b", "mamba2-780m"):
+        t = time.perf_counter()
+        out = launch_serve.main(["--arch", arch, "--full", "--prompt-len",
+                                 "64", "--max-new", "8", "--seed",
+                                 str(SEED)])
+        check(out.shape == (4, 8), f"launch.serve {arch}: {out.shape}")
+        print(f"lm_moe_ssd launch.serve {arch} --full: {out.shape} in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        torch.cuda.empty_cache()
+    for arch, layers, pdtype, new in LMX_SERVE:
+        full = configs.get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        tree = P.materialize(transformer.model_specs(cfg), gen,
+                             getattr(torch, pdtype), device=dev)
+        torch.cuda.synchronize()
+        print(f"lm_moe_ssd {arch}: {cfg.n_layers} of {full.n_layers} "
+              f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+              f"{P.count_params(transformer.model_specs(cfg)):,} parameters"
+              f" drawn on the card in {time.perf_counter() - t:.2f} s "
+              f"({torch.cuda.memory_allocated() - base:,} bytes, {pdtype})",
+              flush=True)
+        _lm_serve(torch, np, "lm_moe_ssd", cfg, tree, new, smi)
+        del tree
+    for arch in ("olmoe_1b_7b", "mamba2_780m", "arctic_480b"):
+        t = time.perf_counter()
+        _lmx_card_vs_cpu(torch, np, arch)
+        torch.cuda.empty_cache()
+        print(f"lm_moe_ssd card vs CPU {arch}: "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+
+
+def _lmx_train(torch, np, arch, layers, smi) -> None:
+    """One arch trained at bf16 on the card: the config's remat, AdamW
+    (float32 moments), B = 4 x S = 1024 from ``data.synthetic``,
+    LMX_TRAIN_STEPS donated steps (step ms: median of steps 3-8, CUDA
+    events), tokens/s, peak memory, a torch.profiler window; the losses
+    and gradient norms finite."""
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic
+    from repro_torch.train import train_step as TS
+
+    dev = torch.device("cuda")
+    full = configs.get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    check(cfg.compute_dtype == "bfloat16", f"{arch} trains in bf16")
+    tc = TS.TrainConfig()
+    torch.cuda.empty_cache()
+    state = TS.init_state(tc, _lm_model(torch, cfg, SEED, dev))
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      T.leaves(state.params) + T.leaves(state.opt.mu)
+                      + T.leaves(state.opt.nu))
+    shape = ShapeConfig("lmx_train", LM_TRAIN_S, LM_TRAIN_B, "train")
+    data = synthetic.token_batches(cfg, shape, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, norms = [], [], []
+    for i in range(LMX_TRAIN_STEPS):
+        batch = next(data)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = TS.train_step(cfg, tc, state, batch, donate=True)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"lm_moe_ssd_train {arch}: non-finite losses {losses} or grad "
+          f"norms {norms}")
+    check(int(state.opt.step) == LMX_TRAIN_STEPS, f"{arch}: step counter")
+    timed = sorted(step_ms[2:])
+    med = (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = TS.train_step(cfg, tc, box["state"], next(data),
+                                        donate=True)
+
+    pr = _profile(torch, one, LMX_TRAIN_PROFILE_STEPS, f"{arch} train")
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    cut = ("" if layers is None else
+           f" (reduced: n_layers {full.n_layers} -> {layers})")
+    print(f"lm_moe_ssd_train {arch}{cut} [{smi}] (bf16, remat {cfg.remat}, "
+          f"AdamW float32 moments, B {LM_TRAIN_B} x S {LM_TRAIN_S}): step "
+          f"{med:.3f} ms (median of steps 3-{LMX_TRAIN_STEPS}: "
+          + ", ".join(f"{x:.3f}" for x in step_ms[2:])
+          + f"; step 1 {step_ms[0]:.3f}, step 2 {step_ms[1]:.3f}), "
+          f"{tokens / med * 1e3:.1f} tokens/s; peak memory {peak:,} bytes "
+          f"({state_bytes:,} of them the parameters and moments); losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{x:.6f}" for x in norms), flush=True)
+    print(f"profile lm_moe_ssd_train {arch} ({LMX_TRAIN_PROFILE_STEPS} "
+          f"steps): wall {pr['wall']:.3f} ms, device busy {pr['busy']:.3f}"
+          f" ms, idle share {pr['idle']:.4f}, launches {pr['launches']:.1f}"
+          f" a step (device ops {pr['ops']:.1f} a step); top: {pr['top']}",
+          flush=True)
+    del state, box
+    torch.cuda.empty_cache()
+
+
+def _lmx_train_card_vs_cpu(torch, np, arch, layers) -> None:
+    """One AdamW ``train_step`` (two MoE dispatch groups) at full width cut
+    to ``layers`` layers, B = 1, S = LMX_CPU_S, on the card and on the CPU
+    from the same state (each layer's fan-in): the loss, gradient norm,
+    parameters and moments within LM_TOL at float64, and the card's
+    float32 step against the CPU's float64 one within LM_TOL, or else
+    within 4 x the CPU's own float32 error."""
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.train import train_step as TS
+
+    dev = torch.device("cuda")
+    full = configs.get_config(arch)
+    c2 = dataclasses.replace(full, n_layers=layers, compute_dtype="float32")
+    tree = _per_layer_init(torch, c2, _lm_model(torch, c2, SEED + 6, dev))
+    tree_cpu = T.map(lambda t: t.cpu(), tree)
+    tok = np.random.default_rng(SEED + 7).integers(
+        0, c2.vocab_size, (1, LMX_CPU_S)).astype(np.int32)
+    tc = TS.TrainConfig(moe_num_groups=2)
+
+    def step(dtype, params):
+        c = dataclasses.replace(c2, compute_dtype=dtype)
+        st, m = TS.train_step(c, tc, TS.init_state(tc, params),
+                              {"tokens": tok})
+        return {"loss": {"x": m["loss"]}, "aux": {"x": m["aux"]},
+                "grad_norm": {"x": m["grad_norm"]}, "params": st.params,
+                "mu": st.opt.mu, "nu": st.opt.nu}
+
+    out64 = (step("float64", tree), step("float64", tree_cpu))
+    e64 = {k: _rel_tree(torch, out64[0][k], out64[1][k]) for k in out64[0]
+           if k != "aux" or c2.moe is not None}
+    check(max(e64.values()) <= LM_TOL, f"lm_moe_ssd_train {arch} card vs "
+          f"cpu, float64: {e64}")
+    truth = out64[1]
+    card32 = step("float32", tree)
+    card = {k: _rel_tree(torch, card32[k], truth[k]) for k in e64}
+    # the CPU's float32 step (a minute for olmoe's 1.04 B parameters) is
+    # needed only where the card's float32 error exceeds LM_TOL
+    host = ({k: _rel_tree(torch, v, truth[k]) for k, v in
+             step("float32", tree_cpu).items() if k in e64}
+            if max(card.values()) > LM_TOL else None)
+    for k in e64 if host is not None else ():
+        check(card[k] <= max(LM_TOL, 4 * host[k]),
+              f"lm_moe_ssd_train {arch} card vs cpu float32 {k}: card "
+              f"{card[k]:.3e} > max(LM_TOL, 4 x cpu {host[k]:.3e})")
+    print(f"lm_moe_ssd_train {arch} train step card vs CPU (reduced: "
+          f"n_layers {full.n_layers} -> {layers}, B 1 x S {LMX_CPU_S}, each"
+          f" layer's fan-in; AdamW, moe_num_groups 2): float64 "
+          "max|d|/max|cpu| " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in e64.items())
+          + "; float32 against float64, card / CPU: "
+          + ", ".join(f"{k} {card[k]:.3e} / "
+                      + ("-" if host is None else f"{host[k]:.3e}")
+                      for k in e64)
+          + (" (the card within LM_TOL: the CPU's float32 step not run)"
+             if host is None else ""), flush=True)
+    del out64, card32, tree, tree_cpu
+    torch.cuda.empty_cache()
+
+
+def phase_lm_moe_ssd_train(torch, np):
+    """The MoE FFN and the SSD block trained on the card (plain PyTorch
+    ops): ``launch.train --full`` for mamba2-780m (full depth) and
+    olmoe-1b-7b (``--layers 4``), two steps each; ``_lmx_train`` for each
+    of LMX_TRAIN; one train step against the CPU for olmoe and mamba2
+    (``_lmx_train_card_vs_cpu``). arctic-480b does not train here: one
+    layer's float32 parameters and moments are 168.8 GB (it waits for the
+    multi-GPU mesh, ROADMAP queue 1)."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    smi = _smi()
+    for arch, layers in (("mamba2-780m", None), ("olmoe-1b-7b", 4)):
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="lmx_ckpt_") as ck:
+            args = ["--arch", arch, "--full", "--steps", "2", "--batch",
+                    str(LM_TRAIN_B), "--seq", str(LM_TRAIN_S), "--ckpt-dir",
+                    ck, "--ckpt-every", "100", "--seed", str(SEED)]
+            if layers:
+                args += ["--layers", str(layers)]
+            state, rep = launch_train.main(args)
+            check(rep.steps_run == 2 and all(np.isfinite(rep.losses)),
+                  f"launch.train {arch}: {rep}")
+            del state
+        torch.cuda.empty_cache()
+        print(f"lm_moe_ssd_train launch.train {arch} --full"
+              + (f" --layers {layers}" if layers else "")
+              + f": 2 steps in {time.perf_counter() - t:.2f} s (losses "
+              + ", ".join(f"{x:.6f}" for x in rep.losses) + ")", flush=True)
+    for arch, layers in LMX_TRAIN:
+        _lmx_train(torch, np, arch, layers, smi)
+    for arch, layers in LMX_TRAIN_CPU:
+        t = time.perf_counter()
+        _lmx_train_card_vs_cpu(torch, np, arch, layers)
+        print(f"lm_moe_ssd_train card vs CPU {arch}: "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3627,6 +4317,8 @@ def main() -> int:
     timed("traffic", phase_traffic, torch, np, ce, fb)
     timed("lm", phase_lm, torch, np)
     timed("lm_train", phase_lm_train, torch, np)
+    timed("lm_moe_ssd", phase_lm_moe_ssd, torch, np)
+    timed("lm_moe_ssd_train", phase_lm_moe_ssd_train, torch, np)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)
     timed("profile_fleet", phase_profile_fleet, torch, np)

@@ -2,15 +2,18 @@
 
 Trains the smoke config, or the full config with ``--full``, from random
 weights (``--seed``) on ``data.synthetic`` batches, on the card unless
-``--device cpu``, through the fault-tolerant loop (``train.loop``:
-checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``, resume from
-the latest one there, the NaN / deadline watchdog, the straggler watch).
+``--device cpu`` (``--layers N`` cuts the depth to N layers: olmoe-1b-7b's
+float32 parameters and moments do not fit one card at full depth),
+through the fault-tolerant loop (``train.loop``: checkpoints every
+``--ckpt-every`` steps into ``--ckpt-dir``, resume from the latest one
+there, the NaN / deadline watchdog, the straggler watch).
 The step donates the state (updates it in place), as the reference's
 jitted step does.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
@@ -37,6 +40,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_train"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -48,6 +53,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (configs.get_config(args.arch) if args.full
            else configs.get_smoke_config(args.arch))
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     tc = ts_mod.TrainConfig(
         opt=opt_mod.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5)),
@@ -59,7 +66,8 @@ def main(argv=None):
     prm = P.materialize(specs, gen, torch.float32, device=dev)
     state = ts_mod.init_state(tc, prm)
     n_params = P.count_params(specs)
-    print(f"arch={cfg.arch_id} device={dev} params={n_params/1e6:.1f}M "
+    print(f"arch={cfg.arch_id} layers={cfg.n_layers} device={dev} "
+          f"params={n_params/1e6:.1f}M "
           f"steps={args.steps} batch={args.batch}x{args.seq}")
 
     shape = ShapeConfig("cli", args.seq, args.batch, "train")

@@ -23,7 +23,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     i32 = torch.int32
     cd = layers.compute_dtype(cfg)
     if cfg.family == "vlm":
-        raise transformer._not_ported("the vlm inputs (cross_embeds)")
+        raise transformer._not_ported("the vlm inputs (cross_embeds)",
+                                      "CROSS")
 
     if shape.kind == "train":
         if cfg.embeds_input:

@@ -1,5 +1,6 @@
-"""Pattern-based decoder stacks: the dense families (GLOBAL and LOCAL
-attention with a dense MLP).
+"""Pattern-based decoder stacks: GLOBAL and LOCAL attention with a dense
+or a mixture-of-experts FFN (``models/moe.py``), and the Mamba-2 SSD block
+(``models/ssm.py``).
 
 A model is `n_layers` of per-kind blocks described by `cfg.layer_pattern`.
 As in the reference, one repetition of the pattern (a super-block) is
@@ -13,13 +14,17 @@ place.
 Three temporal modes:
   forward     — full sequence (logits at every position; under autograd
                 it trains: :func:`loss_fn`, remat per super-block)
-  prefill     — forward + KV cache construction (serving)
+  prefill     — forward + cache construction (serving): K/V for the
+                attention layers, the recurrent state and conv tail for
+                SSD layers
   decode_step — one token against the cache
 
 Sliding-window layers keep **window-sized rotating caches** (slot = pos %
-window). The MoE, CROSS, RG-LRU and SSD kinds and the sharding hints are not
-ported yet (ROADMAP queue 1 item 7): building a model of such a family
-raises ``NotImplementedError``.
+window). The MoE FFN returns the router's aux loss, which ``forward`` sums
+over the layers and ``loss_fn`` adds; decode and prefill drop it. The
+CROSS and RG-LRU kinds and the sharding hints are not ported yet: building
+a model of such a family raises ``NotImplementedError`` naming its ROADMAP
+entry.
 """
 from __future__ import annotations
 
@@ -34,21 +39,22 @@ from repro_torch.configs.base import (
     CROSS, GLOBAL, LOCAL, RGLRU, SSD, ModelConfig,
 )
 from repro_torch.core.tm import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.params import PSpec, ShapeDtype, stack_specs
 
+# kind -> (what, its ROADMAP queue 1 entry)
 _UNPORTED = {
-    CROSS: "the CROSS layer kind (cross_attention, vlm)",
-    RGLRU: "the RG-LRU layer kind (models/rglru.py)",
-    SSD: "the SSD layer kind (models/ssm.py)",
+    CROSS: ("the CROSS layer kind (cross_attention, vlm)", "CROSS"),
+    RGLRU: ("the RG-LRU layer kind (models/rglru.py)", "RG-LRU"),
 }
 _NORMS = ("ln1", "ln2", "final_norm")
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, entry: str):
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item 7); "
-        "the port builds the dense GLOBAL/LOCAL stacks only")
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, entry "
+        f'"{entry}"); the port builds the GLOBAL, LOCAL (dense or MoE FFN) '
+        "and SSD stacks")
 
 
 # ---------------------------------------------------------------------------
@@ -58,16 +64,18 @@ def _not_ported(what: str):
 
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
     if kind in (GLOBAL, LOCAL):
-        if cfg.moe is not None:
-            raise _not_ported("the MoE FFN (models/moe.py)")
+        ffn = (moe.moe_specs(cfg) if cfg.moe is not None
+               else layers.mlp_specs(cfg))
         return {
             "ln1": layers.norm_specs(cfg),
             "attn": layers.attention_specs(cfg),
             "ln2": layers.norm_specs(cfg),
-            "ffn": layers.mlp_specs(cfg),
+            "ffn": ffn,
         }
+    if kind == SSD:
+        return {"ln1": layers.norm_specs(cfg), "mamba": ssm.ssd_specs(cfg)}
     if kind in _UNPORTED:
-        raise _not_ported(_UNPORTED[kind])
+        raise _not_ported(*_UNPORTED[kind])
     raise ValueError(kind)
 
 
@@ -101,20 +109,24 @@ def model_specs(cfg: ModelConfig) -> dict:
 def compute_params(cfg: ModelConfig, params: dict) -> dict:
     """The tree the forward passes read: every weight the reference casts to
     ``compute_dtype`` inside each call (``.astype(cd)``) cast once here, the
-    norms left in their own dtype (the reference reads them in float32).
-    A cast is deterministic, so the values are the reference's. At a
-    float32 compute dtype the tree holds the same tensors; at bfloat16 the
-    copies cost 2 bytes a parameter on the device."""
+    norms and the SSD leaves the reference reads as float32 (``a_log``,
+    ``dt_bias``, ``d_skip``, ``mamba.norm``: ``ssm.FLOAT_LEAVES``) left in
+    their own dtype. A cast is deterministic, so the values are the
+    reference's. At a float32 compute dtype the tree holds the same
+    tensors; at bfloat16 the copies cost 2 bytes a parameter on the
+    device."""
     cd = layers.compute_dtype(cfg)
 
-    def walk(node, key):
+    def walk(node, key, in_ssd):
         if key in _NORMS:
             return node
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, k, key == "mamba") for k, v in node.items()}
+        if in_ssd and key in ssm.FLOAT_LEAVES:
+            return node
         return node.to(cd)
 
-    return walk(params, None)
+    return walk(params, None, False)
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -144,12 +156,28 @@ def _layers(cfg: ModelConfig, tree: dict):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(cfg, kind, p, x):
-    """One GLOBAL or LOCAL layer over the full sequence."""
+def _ffn(cfg, p, h, num_groups):
+    """The layer's FFN: (out, router aux loss, or None for a dense MLP)."""
+    if cfg.moe is not None:
+        return moe.moe_ffn(cfg, p, h, num_groups=num_groups)
+    return layers.mlp(cfg, p, h), None
+
+
+def _apply_block(cfg, kind, p, x, num_groups=1):
+    """One layer over the full sequence. Returns (x, aux loss or None)."""
+    if kind == SSD:
+        return x + ssm.ssd_forward(cfg, p["mamba"],
+                                   layers.norm(cfg, p["ln1"], x)), None
     w = cfg.sliding_window if kind == LOCAL else None
     x = x + layers.self_attention(cfg, p["attn"],
                                   layers.norm(cfg, p["ln1"], x), window=w)
-    return x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
+    f, aux = _ffn(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x), num_groups)
+    return x + f, aux
+
+
+def _add_aux(total, aux):
+    return total if aux is None else (aux if total is None
+                                      else total + aux)
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -194,40 +222,53 @@ def _maybe_remat(cfg: ModelConfig, fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def _super_block(cfg: ModelConfig, x: torch.Tensor, blk: dict) -> torch.Tensor:
+def _super_block(cfg: ModelConfig, num_groups: int, x: torch.Tensor,
+                 blk: dict):
+    """One repetition of the pattern: (x, the layers' summed aux loss or
+    None). Under remat the aux leaves the checkpointed function as an
+    output."""
+    aux = None
     for i, kind in enumerate(cfg.layer_pattern):
-        x = _apply_block(cfg, kind, blk[f"pos{i}"], x)
-    return x
+        x, a = _apply_block(cfg, kind, blk[f"pos{i}"], x, num_groups)
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
-def forward(cfg: ModelConfig, params: dict,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ModelConfig, params: dict, batch: dict, *,
+            num_groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. batch: {tokens|embeds}. Runs under autograd
     (training, with ``cfg.remat`` per super-block) or without it.
+    ``num_groups`` splits each MoE layer's tokens into dispatch groups.
 
-    Returns (logits [B,S,V] f32, aux_loss scalar): the aux loss is the MoE
-    router's, 0 for the dense stacks, kept for the reference's contract.
+    Returns (logits [B,S,V] f32, aux_loss scalar): the MoE routers' aux
+    losses summed over the layers in float32, 0 for the other stacks.
     """
     x = embed_inputs(cfg, params, batch)
     n_super, n_rem = _pattern_split(cfg)
+    aux = None
     if n_super > 0:
-        body = _maybe_remat(cfg, functools.partial(_super_block, cfg))
+        body = _maybe_remat(cfg, functools.partial(_super_block, cfg,
+                                                   num_groups))
         for blk in _unstack(params["blocks"], n_super):
-            x = body(x, blk)
+            x, a = body(x, blk)
+            aux = _add_aux(aux, a)
     for i in range(n_rem):
-        x = _apply_block(cfg, cfg.layer_pattern[i], params["rem"][f"rem{i}"],
-                         x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = _apply_block(cfg, cfg.layer_pattern[i],
+                            params["rem"][f"rem{i}"], x, num_groups)
+        aux = _add_aux(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=layers.acc_dtype(x.dtype),
+                          device=x.device)
     return unembed(cfg, params, x), aux
 
 
-def loss_fn(cfg: ModelConfig, params: dict,
-            batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            num_groups: int = 1) -> tuple[torch.Tensor, dict]:
     """Next-token (or provided-labels) cross-entropy + router aux: the mean
     over positions of ``logsumexp(logits) - logits[label]`` in float32, as
     the reference computes it (no fused cross-entropy). Returns (loss,
     {"ce", "aux"})."""
-    logits, aux = forward(cfg, params, batch)
+    logits, aux = forward(cfg, params, batch, num_groups=num_groups)
     if "labels" in batch:
         labels = batch["labels"]
     else:
@@ -247,15 +288,21 @@ def loss_fn(cfg: ModelConfig, params: dict,
 
 def _layer_cache_struct(cfg: ModelConfig, kind: str, batch: int,
                         max_seq: int) -> dict:
-    """Cache shapes for one layer."""
+    """Cache shapes for one layer: K/V for attention, the float32 state
+    ``h`` and the compute-dtype conv tail for SSD."""
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     cd = layers.compute_dtype(cfg)
+    if kind == SSD:
+        di, nh, ds, dc = ssm._dims(cfg)
+        return {"h": ShapeDtype((batch, nh, cfg.ssm.head_dim, ds),
+                                layers.acc_dtype(cd)),
+                "conv": ShapeDtype((batch, dc - 1, di + 2 * ds), cd)}
     if kind == GLOBAL:
         n = max_seq
     elif kind == LOCAL:
         n = min(cfg.sliding_window, max_seq)
     elif kind in _UNPORTED:
-        raise _not_ported(_UNPORTED[kind])
+        raise _not_ported(*_UNPORTED[kind])
     else:
         raise ValueError(kind)
     return {"k": ShapeDtype((batch, n, hkv, dh), cd),
@@ -295,16 +342,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     }
 
 
+def _layer_cache(cache: dict, idx) -> dict:
+    """One layer's cache entries (views at layer ``idx`` when stacked)."""
+    return cache if idx is None else {k: v[idx] for k, v in cache.items()}
+
+
 def _decode_block(cfg, kind, p, x, cache, pos, idx=None):
-    """One layer, one token; the K/V land in ``cache`` (stacked: at layer
-    ``idx``) in place. Returns x."""
+    """One layer, one token; the K/V or the SSD state land in ``cache``
+    (stacked: at layer ``idx``) in place. Returns x."""
+    if kind == SSD:
+        c = _layer_cache(cache, idx)
+        out, st = ssm.ssd_decode_step(
+            cfg, p["mamba"], layers.norm(cfg, p["ln1"], x),
+            ssm.SSDState(h=c["h"], conv=c["conv"]))
+        c["h"].copy_(st.h)
+        c["conv"].copy_(st.conv)
+        return x + out
     h = layers.norm(cfg, p["ln1"], x)
     a, _, _ = layers.decode_attention_stacked(
         cfg, p["attn"], h, cache["k"], cache["v"], idx, pos,
         local=(kind == LOCAL),
     )
     x = x + a
-    return x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
+    f, _ = _ffn(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x), 1)
+    return x + f
 
 
 @torch.inference_mode()
@@ -332,7 +393,13 @@ def decode_step(
 
 
 def _prefill_block(cfg, kind, p, x):
-    """Layer forward that also returns its roped K and V [B, S, Hkv, D]."""
+    """Layer forward that also returns what its cache keeps: the roped K
+    and V [B, S, Hkv, D] of an attention layer, the final state of an SSD
+    layer (``ssm.SSDState``)."""
+    if kind == SSD:
+        h_in = layers.norm(cfg, p["ln1"], x)
+        x = x + ssm.ssd_forward(cfg, p["mamba"], h_in)
+        return x, ssm.final_state(cfg, p["mamba"], h_in)
     cd = layers.compute_dtype(cfg)
     w = cfg.sliding_window if kind == LOCAL else None
     h = layers.norm(cfg, p["ln1"], x)
@@ -343,8 +410,8 @@ def _prefill_block(cfg, kind, p, x):
     k = layers.rope(k, pos, cfg.rope_theta)
     a = layers.gqa_attention(cfg, q, k, v, window=w)
     x = x + layers._dot(a, p["attn"]["wo"].to(cd), 2)
-    x = x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
-    return x, k, v
+    f, _ = _ffn(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x), 1)
+    return x + f, (k, v)
 
 
 def _store_prompt(kind, ck, cv, k, v):
@@ -376,11 +443,13 @@ def prefill(
     x = embed_inputs(cfg, params, batch)
     cache = init_cache(cfg, x.shape[0], max_seq, device=x.device)
     for kind, p, idx, (top, name) in _layers(cfg, params):
-        x, k, v = _prefill_block(cfg, kind, p, x)
-        c = cache[top][name]
-        ck, cv = (c["k"], c["v"]) if idx is None else (c["k"][idx],
-                                                       c["v"][idx])
-        _store_prompt(kind, ck, cv, k, v)
+        x, kept = _prefill_block(cfg, kind, p, x)
+        c = _layer_cache(cache[top][name], idx)
+        if kind == SSD:
+            c["h"].copy_(kept.h)
+            c["conv"].copy_(kept.conv)
+        else:
+            _store_prompt(kind, c["k"], c["v"], *kept)
     # The reference unembeds all S positions and keeps the last; the norm
     # and the head act row by row, so unembedding the last row alone gives
     # the same values without the [B, S, V] logits.
@@ -393,7 +462,7 @@ def prefill(
 
 
 class Transformer(torch.nn.Module):
-    """A dense decoder stack on one device, its tensors registered under the
+    """A decoder stack on one device, its tensors registered under the
     reference's parameter paths (``blocks.pos0.attn.wq``, ``rem.rem0.ln1.
     scale``, ``embed``, ...), so ``state_dict()`` keys are those paths.
 
@@ -410,9 +479,11 @@ class Transformer(torch.nn.Module):
         self.params = _register(self, model_specs(cfg), params, self.device)
         self.compute = compute_params(cfg, self.params)
 
-    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, batch: dict, *,
+                num_groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
         with torch.inference_mode():
-            return forward(self.cfg, self.compute, batch)
+            return forward(self.cfg, self.compute, batch,
+                           num_groups=num_groups)
 
     def prefill(self, batch: dict, max_seq: int):
         return prefill(self.cfg, self.compute, batch, max_seq)

@@ -29,6 +29,7 @@ class TrainConfig:
         default_factory=opt_mod.OptConfig)
     microbatches: int = 1
     grad_compress: bool = False
+    moe_num_groups: int = 1
 
 
 class TrainState(NamedTuple):
@@ -79,8 +80,10 @@ def batch_on(batch: dict, device) -> dict:
                                ).to(device) for k, v in batch.items()}
 
 
-def _value_and_grad(cfg: ModelConfig, params_c, batch: dict):
-    loss, parts = transformer.loss_fn(cfg, params_c, batch)
+def _value_and_grad(cfg: ModelConfig, tc: TrainConfig, params_c,
+                    batch: dict):
+    loss, parts = transformer.loss_fn(cfg, params_c, batch,
+                                      num_groups=tc.moe_num_groups)
     leaves = T.leaves(params_c)
     grads = iter(torch.autograd.grad(loss, leaves))
     return (loss.detach(), {k: v.detach() for k, v in parts.items()},
@@ -96,13 +99,13 @@ def grad_fn(cfg: ModelConfig, tc: TrainConfig, params, batch: dict):
     params_c = cast_for_compute(cfg, params)
     batch = batch_on(batch, T.leaves(params)[0].device)
     if tc.microbatches == 1:
-        return _value_and_grad(cfg, params_c, batch)
+        return _value_and_grad(cfg, tc, params_c, batch)
 
     acc = T.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device), params)
     loss_sum, parts = 0.0, []
     for mb in _split_microbatches(batch, tc.microbatches):
-        loss, part, grads = _value_and_grad(cfg, params_c, mb)
+        loss, part, grads = _value_and_grad(cfg, tc, params_c, mb)
         T.map(lambda a, g: a.add_(g.to(torch.float32)), acc, grads)
         del grads
         loss_sum = loss_sum + loss

@@ -1143,3 +1143,75 @@ def test_grad_compression_on_card_equals_cpu_bitwise(cuda):
         for k in g:
             assert torch.equal(got[0][k].cpu(), want[0][k])
             assert torch.equal(got[1].residual[k].cpu(), want[1].residual[k])
+
+
+# The MoE FFN and the SSD block on the card against the CPU (plain PyTorch
+# ops; no CUDA kernel of their own), at the smoke widths.
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "arctic_480b",
+                                  "mamba2_780m"])
+def test_lm_moe_ssd_on_card_equals_cpu(cuda, arch):
+    """forward, prefill (logits and every cache leaf: K/V, the SSD state
+    and conv tail) and 4 decode steps at the config's capacity, float32
+    within LM_TOL; each MoE router's (expert_idx, pos, keep) equal as
+    integers on both devices."""
+    from repro_torch.models import moe
+
+    cfg, _, cpu, gpu = _lm_pair(cuda, arch)
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 16)))
+    routes = {"cpu": [], "cuda": []}
+    route = moe.route
+
+    def recorded(c, p, xt):
+        r = route(c, p, xt)
+        routes[xt.device.type].append([x.cpu() for x in r[:3]])
+        return r
+
+    moe.route = recorded
+    try:
+        _lm_close(gpu({"tokens": toks.to(cuda)})[0], cpu({"tokens": toks})[0])
+        lc, cc = cpu.prefill({"tokens": toks[:, :12]}, 24)
+        lg, cg = gpu.prefill({"tokens": toks[:, :12].to(cuda)}, 24)
+        _lm_close(lg, lc)
+        for top in cc:
+            for name in cc[top]:
+                for k in cc[top][name]:
+                    _lm_close(cg[top][name][k], cc[top][name][k])
+        for i in range(12, 16):
+            lc, cc = cpu.decode_step({"token": toks[:, i:i + 1], "pos": i},
+                                     cc)
+            lg, cg = gpu.decode_step({"token": toks[:, i:i + 1].to(cuda),
+                                      "pos": i}, cg)
+            _lm_close(lg, lc)
+    finally:
+        moe.route = route
+    assert len(routes["cpu"]) == len(routes["cuda"])
+    for a, b in zip(routes["cpu"], routes["cuda"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mamba2_780m"])
+def test_lm_moe_ssd_gradients_on_card_equal_cpu(cuda, arch):
+    """The loss (router aux included) and every gradient leaf of one
+    smoke batch, with two MoE dispatch groups, at float64 compute (the
+    card and the CPU evaluate the same function; no routing near-tie can
+    split them) within LM_TOL."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              compute_dtype="float64")
+    tc = TS.TrainConfig(moe_num_groups=2)
+    batch = {"tokens": np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 32))}
+    out = [TS.grad_fn(cfg, tc, _lm_train_tree(cfg, d), batch)
+           for d in ("cpu", cuda)]
+    _lm_close(out[1][0], out[0][0])
+    _lm_close(out[1][1]["aux"], out[0][1]["aux"])
+    for g, c in zip(T.leaves(out[1][2]), T.leaves(out[0][2])):
+        _lm_close(g, c)

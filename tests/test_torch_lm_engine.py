@@ -82,9 +82,14 @@ def _greedy_check(rc, prm, prompts, got, want):
 
 
 @pytest.mark.parametrize("arch,S0,new", [("granite_8b", 6, 7),
-                                         ("gemma3_1b", 6, 10)])
+                                         ("gemma3_1b", 6, 10),
+                                         ("olmoe_1b_7b", 6, 7),
+                                         ("arctic_480b", 6, 7),
+                                         ("mamba2_780m", 6, 10)])
 def test_greedy_generate_matches_reference_engine(arch, S0, new):
-    """gemma3: 6 + 10 tokens wrap its 8-slot local windows."""
+    """gemma3: 6 + 10 tokens wrap its 8-slot local windows. The MoE archs
+    decode at their real capacity (one slot an expert at B = 2) in both
+    engines; mamba2 decodes from the SSD state its prefill hands over."""
     rc, tc, prm, tree = _setup(arch)
     B = 2
     prompts = _prompts(rc, B, S0)
@@ -128,7 +133,9 @@ def _ref_keys(seed, n):
 
 
 @pytest.mark.parametrize("arch,T,seed", [("granite_8b", 0.8, 3),
-                                         ("gemma3_1b", 1.5, 11)])
+                                         ("gemma3_1b", 1.5, 11),
+                                         ("olmoe_1b_7b", 1.0, 5),
+                                         ("mamba2_780m", 1.2, 7)])
 def test_temperature_sampling_matches_reference_engine(arch, T, seed):
     rc, tc, prm, tree = _setup(arch)
     B, S0, new = 2, 5, 9
@@ -207,3 +214,18 @@ def test_categorical_logits_matches_jax(seed):
     assert_tokens_match(got[:, None], want[:, None].astype(got.dtype),
                         lambda i: g_ref + logits,
                         lambda i: np.max(np.abs(logits)))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b",
+                                  "mamba2-780m"])
+def test_launch_serve_moe_ssd_on_cpu(arch):
+    """``python -m repro_torch.launch.serve --device cpu`` for the MoE and
+    SSD families: tokens in the vocabulary; a seeded run repeats."""
+    from repro_torch.launch import serve
+
+    cfg = configs.get_smoke_config(arch)
+    base = ["--arch", arch, "--device", "cpu", "--batch", "2",
+            "--prompt-len", "6", "--max-new", "5"]
+    out = serve.main(base)
+    assert out.shape == (2, 5) and ((out >= 0) & (out < cfg.vocab_size)).all()
+    assert np.array_equal(serve.main(base), out)

@@ -53,6 +53,7 @@ LOSS_TOL = 1e-5
 TOL_BF16 = 3e-2
 DENSE = ["granite_8b", "gemma3_1b", "phi3_medium_14b", "qwen25_14b",
          "musicgen_medium"]
+MOE_SSD = ["olmoe_1b_7b", "arctic_480b", "mamba2_780m"]
 B, S = 2, 32
 
 
@@ -200,38 +201,59 @@ def test_flash_path_is_taken_and_differentiable():
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_value_and_grad(rc):
-    return jax.jit(jax.value_and_grad(lambda p, b: RT.loss_fn(rc, p, b),
-                                      has_aux=True))
+def _ref_value_and_grad(rc, num_groups=1):
+    return jax.jit(jax.value_and_grad(
+        lambda p, b: RT.loss_fn(rc, p, b, num_groups=num_groups),
+        has_aux=True))
 
 
-def _ref_loss_and_grads(rc, prm, batch):
-    (loss, parts), grads = _ref_value_and_grad(rc)(prm, batch)
+def _ref_loss_and_grads(rc, prm, batch, num_groups=1):
+    (loss, parts), grads = _ref_value_and_grad(rc, num_groups)(prm, batch)
     return float(loss), parts, grads
 
 
-def _port_grads(tc, tree, batch, dtype=None):
+def _port_grads(tc, tree, batch, dtype=None, num_groups=1):
     c = tc if dtype is None else dataclasses.replace(tc, compute_dtype=dtype)
-    return TS.grad_fn(c, TS.TrainConfig(), tree,
+    return TS.grad_fn(c, TS.TrainConfig(moe_num_groups=num_groups), tree,
                       T.map(torch.tensor, batch))
 
 
-@pytest.mark.parametrize("arch,chunk", [(a, 512) for a in DENSE]
+@pytest.mark.parametrize("arch,chunk", [(a, 512) for a in DENSE + MOE_SSD]
                          + [("gemma3_1b", 8)])
 def test_loss_and_grads_match_reference(arch, chunk):
-    """The five dense smoke configs (S = 32, the dense attention path), and
-    gemma3 with attn_chunk 8 (every layer on the streaming path)."""
+    """The five dense smoke configs (S = 32, the dense attention path),
+    gemma3 with attn_chunk 8 (every layer on the streaming path), the two
+    MoE configs (the router aux loss in the loss; the gradients through
+    the dispatch and the gates) and mamba2 (two 16-token SSD chunks)."""
+    _loss_and_grads(arch, chunk, 1)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "arctic_480b"])
+def test_moe_groups_loss_and_grads_match_reference(arch):
+    """The MoE configs with two dispatch groups
+    (``TrainConfig.moe_num_groups``), each with its own capacity."""
+    _loss_and_grads(arch, 512, 2)
+
+
+def _loss_and_grads(arch, chunk, groups):
     rc, tc = _cfgs(arch, attn_chunk=chunk)
     prm = np_params(rc, seed=11)
     batch = np_batch(rc, seed=12)
     loss, parts, want = _ref_loss_and_grads(
-        rc, jax.tree.map(jnp.asarray, prm), jax.tree.map(jnp.asarray, batch))
+        rc, jax.tree.map(jnp.asarray, prm), jax.tree.map(jnp.asarray, batch),
+        groups)
     tree = _port_tree(prm)
-    got_loss, got_parts, got = _port_grads(tc, tree, batch)
+    got_loss, got_parts, got = _port_grads(tc, tree, batch,
+                                           num_groups=groups)
     assert abs(got_loss.item() - loss) <= LOSS_TOL * abs(loss)
     assert abs(got_parts["ce"].item() - float(parts["ce"])) <= (
         LOSS_TOL * abs(loss))
-    assert got_parts["aux"].item() == float(parts["aux"]) == 0.0
+    if rc.moe is None:
+        assert got_parts["aux"].item() == float(parts["aux"]) == 0.0
+    else:
+        aux = float(parts["aux"])
+        assert aux > 0
+        assert abs(got_parts["aux"].item() - aux) <= LOSS_TOL * aux
     assert all(g.dtype == torch.float32 for g in T.leaves(got))
     worst = _close_trees(got, want, TOL, f"{arch} gradient")
     print(f"{arch} chunk {chunk}: loss {abs(got_loss.item() - loss) / loss:.2e}"
@@ -315,6 +337,7 @@ STEP_CASES = {
     "sgd": {"opt": {"name": "sgd"}},
     "microbatches": {"microbatches": 2},
     "grad_compress": {"grad_compress": True},
+    "moe_groups": {"moe_num_groups": 2},
 }
 
 
@@ -330,19 +353,74 @@ _PARTS = {"params": lambda s: s.params, "mu": lambda s: s.opt.mu,
           "residual": lambda s: s.compress.residual}
 
 
-@pytest.mark.parametrize("case", list(STEP_CASES))
+@pytest.mark.parametrize("case", [c for c in STEP_CASES
+                                  if c != "moe_groups"])
 def test_train_step_three_steps_match_reference(case):
     """gemma3 smoke, 3 steps on 3 batches: losses within 1e-5, the learning
     rate and step bitwise, the gradient norm within 1e-5, parameters and
     moments (and the compression residual) within 1e-4 of each leaf's
     range after every step."""
-    rc, tc = _cfgs("gemma3_1b")
+    _three_steps("gemma3_1b", case)
+
+
+@pytest.mark.parametrize("arch,case",
+                         [(a, c) for a in MOE_SSD
+                          for c in ("adamw", "microbatches")]
+                         + [("olmoe_1b_7b", "moe_groups"),
+                            ("arctic_480b", "moe_groups")])
+def test_moe_ssd_train_steps_match_reference(arch, case):
+    """The MoE and SSD smoke configs, 3 AdamW steps as the gemma3 test:
+    one batch a step, two microbatches a step, and (MoE) two dispatch
+    groups (``moe_num_groups``, whose per-group capacity drops other
+    slots). The embeddings of these configs carry gradients at noise
+    level, which AdamW moves by about lr whatever their size: such
+    elements are held to the gap the two runs' moments imply
+    (:func:`_adamw_gaps`, printed), the rest to TOL."""
+    _three_steps(arch, case, implied=True)
+
+
+def _adamw_gaps(host, ref, prev, lr: float, t: int, oc, amplified: dict):
+    """AdamW's parameter gap as the two runs' moments imply it. Each
+    element moves by lr * m_hat / (sqrt(v_hat) + eps), about lr whatever
+    the gradient's size, so a gradient at noise level (within TOL of its
+    leaf's range in both runs, yet a different number) moves the two
+    parameters apart by far more than TOL of their range, step after
+    step. Where the gap that the moments imply, (p_port - p_ref)_prev *
+    (1 - lr wd) - lr * (u_port - u_ref), exceeds TOL of the leaf's range
+    (and from then on), the gap is replaced by its distance from that
+    implied gap. Returns the port's parameters so adjusted
+    (the reference's stay as they are); ``amplified`` collects the flat
+    indices per leaf."""
+    b1, b2 = 1.0 - oc.b1 ** t, 1.0 - oc.b2 ** t
+    out = {}
+    leaves = zip(_flat(host.params), _flat(ref.params), _flat(prev[0]),
+                 _flat(prev[1]), _flat(host.opt.mu), _flat(ref.opt.mu),
+                 _flat(host.opt.nu), _flat(ref.opt.nu))
+    for (p, a), (_, b), (_, a0), (_, b0), (_, mh), (_, mr), (_, vh), \
+            (_, vr) in leaves:
+        du = ((mh / b1) / (np.sqrt(vh / b2) + oc.eps)
+              - (mr / b1) / (np.sqrt(vr / b2) + oc.eps))
+        pred = (a0 - b0) * (1.0 - lr * oc.weight_decay) - lr * du
+        amp = amplified.setdefault(p, set())
+        amp.update(np.nonzero(np.abs(pred).reshape(-1)
+                              > TOL * np.max(np.abs(b)))[0].tolist())
+        adj = a.reshape(-1).copy()
+        idx = sorted(amp)
+        adj[idx] = b.reshape(-1)[idx] + (a - b - pred).reshape(-1)[idx]
+        out[p] = adj.reshape(a.shape)
+    return out
+
+
+def _three_steps(arch, case, implied=False):
+    rc, tc = _cfgs(arch)
     rtc, ttc = _train_cfgs(case)
     prm = np_params(rc, seed=21)
     rstate = RTS.init_state(rtc, jax.tree.map(jnp.asarray, prm))
     tstate = TS.init_state(ttc, _port_tree(prm))
     step = jax.jit(lambda s, b: RTS.train_step(rc, rtc, s, b))
     flips: dict = {}
+    amplified: dict = {}
+    prev = (prm, prm)
     for i in range(3):
         batch = np_batch(rc, seed=30 + i, b=4)
         rstate, rm = step(rstate, jax.tree.map(jnp.asarray, batch))
@@ -361,12 +439,26 @@ def test_train_step_three_steps_match_reference(case):
         for part, get in _PARTS.items():
             if host.compress is None and part == "residual":
                 continue
+            got = get(host)
+            if implied and part == "params" and ttc.opt.name == "adamw":
+                got = _adamw_gaps(host, ref, prev, float(rm["lr"]), i + 1,
+                                  ttc.opt, amplified)
+                got = T.unflatten(get(ref), [got[p] for p, _ in
+                                             _flat(get(ref))])
             # the residual is the gradient less its int8 level: it carries
             # the gradient's absolute error, so it is held to the
             # gradient's range (127 quanta = 254 x its own max)
-            _close_trees(get(host), get(ref), TOL,
+            _close_trees(got, get(ref), TOL,
                          f"{case} step {i + 1} {part}", allow=flips,
                          range_of=254.0 if part == "residual" else 1.0)
+        # a copy: the next step may donate (write) the port's tensors
+        prev = (jax.tree.map(np.array, host.params), ref.params)
+    n_amp = sum(map(len, amplified.values()))
+    if n_amp:
+        print(f"{arch} {case}: {n_amp} parameters held to AdamW's step "
+              "difference implied by the two runs' moments: "
+              + "; ".join(f"{p}: {sorted(v)[:4]}" for p, v in
+                          amplified.items() if v))
     if flips:
         print(f"{case}: int8 levels that differ (leaf: flat indices): "
               + "; ".join(f"{p}: {sorted(v)[:4]}" for p, v in flips.items()
@@ -553,3 +645,21 @@ def test_launch_train_on_cpu_resumes(tmp_path):
     assert all(np.isfinite(report.losses))
     state, report = train.main(args + ["--steps", "6"])
     assert report.steps_run == 2 and int(state.opt.step) == 6
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m"])
+def test_launch_train_moe_ssd_on_cpu(arch, tmp_path):
+    """``python -m repro_torch.launch.train --device cpu`` for the MoE and
+    SSD families: 2 steps and a checkpoint, then ``--layers 1`` (the depth
+    cut) for 2 fresh steps; finite losses."""
+    from repro_torch.launch import train
+
+    args = ["--arch", arch, "--device", "cpu", "--seq", "32",
+            "--ckpt-every", "2", "--steps", "2"]
+    state, report = train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    assert report.steps_run == 2 and all(np.isfinite(report.losses))
+    state, report = train.main(args + ["--ckpt-dir", str(tmp_path / "b"),
+                                       "--layers", "1"])
+    assert report.steps_run == 2 and all(np.isfinite(report.losses))
+    assert set(state.params["blocks"]["pos0"]) >= {"ln1"}
+    assert T.leaves(state.params["blocks"])[0].shape[0] == 1
