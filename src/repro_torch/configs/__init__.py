@@ -4,9 +4,8 @@
 own ``TMConfig``. The LM registry mirrors the reference's: one module per
 assigned architecture (copies, plain data); ``get_config(arch_id)`` returns
 the full-size config and ``get_smoke_config(arch_id)`` the reduced
-same-family config the CPU tests use. Every config loads; the port builds
-models of the dense, MoE and SSD families (``models.transformer.
-model_specs`` raises ``NotImplementedError`` for RG-LRU and CROSS).
+same-family config the CPU tests use. Every config loads, and the port
+builds models of every family.
 """
 from __future__ import annotations
 

@@ -37,9 +37,9 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (configs.get_config(args.arch) if args.full
            else configs.get_smoke_config(args.arch))
-    if cfg.embeds_input:
-        raise SystemExit(f"{args.arch} takes stub embeddings, not tokens; "
-                         "drive it through models.transformer with "
+    if cfg.embeds_input or cfg.family == "vlm":
+        raise SystemExit(f"{args.arch} takes stub embeddings, not tokens "
+                         "alone; drive it through models.transformer with "
                          "models.stubs.synthetic_batch")
     specs = transformer.model_specs(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -2,12 +2,15 @@
 
 Plain functions over explicit parameter dicts (built from the PSpec trees
 of :mod:`repro_torch.models.params`), each the twin of the reference's
-function of the same name. Attention comes in two temporal modes here:
+function of the same name. Attention comes in three temporal modes here:
 
 * full-sequence (prefill and the full forward) with causal or
   sliding-window masks: a dense mask up to ``cfg.attn_chunk`` keys, and the
   streaming-softmax ("flash") forward as a loop over key chunks above it;
-* single-token decode against a KV cache, written in place.
+* single-token decode against a KV cache, written in place;
+* cross-attention over stub modality embeddings (vlm), flamingo-style
+  gated: :func:`cross_attention`, and :func:`cross_attend` for keys and
+  values already projected (a prefill's, or the decode cache's).
 
 Numerics follow the reference: parameters in their own dtype, products in
 ``cfg.compute_dtype``, softmax and norms in float32 (``acc_dtype``: float64
@@ -33,9 +36,6 @@ Where a straight translation would go wrong:
 * the streaming-softmax path differentiates through its own backward
   (``_Flash``, the reference's ``custom_vjp``), not through the forward's
   ops.
-
-The CROSS attention (``cross_attention``) waits for the CROSS slice
-(ROADMAP queue 1, entry "CROSS").
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ def norm_specs(cfg: ModelConfig) -> dict:
     return {"scale": PSpec((d,), ("embed",), "ones")}
 
 
-def attention_specs(cfg: ModelConfig) -> dict:
+def attention_specs(cfg: ModelConfig, *, gated: bool = False) -> dict:
     d, dh = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     sp = {
@@ -96,6 +96,8 @@ def attention_specs(cfg: ModelConfig) -> dict:
         sp["bq"] = PSpec((hq, dh), ("heads", "head_dim"), "zeros")
         sp["bk"] = PSpec((hkv, dh), ("kv_heads", "head_dim"), "zeros")
         sp["bv"] = PSpec((hkv, dh), ("kv_heads", "head_dim"), "zeros")
+    if gated:
+        sp["gate"] = PSpec((), (), "zeros")  # tanh-gated residual, init 0
     return sp
 
 
@@ -173,18 +175,28 @@ def _dot(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     return (x.reshape(*lead, w2.shape[0]) @ w2).reshape(*lead, *tail)
 
 
-def _project_qkv(cfg, p, x, xkv=None):
-    """q: [B,S,Hq,D]; k,v: [B,T,Hkv,D] (xkv defaults to x)."""
+def _project_q(cfg, p, x):
+    """q: [B,S,Hq,D]."""
     cd = compute_dtype(cfg)
-    xkv = x if xkv is None else xkv
     q = _dot(x.to(cd), p["wq"].to(cd), 1)
+    return q + p["bq"].to(cd) if "bq" in p else q
+
+
+def _project_kv(cfg, p, xkv):
+    """k,v: [B,T,Hkv,D]."""
+    cd = compute_dtype(cfg)
     k = _dot(xkv.to(cd), p["wk"].to(cd), 1)
     v = _dot(xkv.to(cd), p["wv"].to(cd), 1)
-    if "bq" in p:
-        q = q + p["bq"].to(cd)
+    if "bk" in p:
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    return q, k, v
+    return k, v
+
+
+def _project_qkv(cfg, p, x, xkv=None):
+    """q: [B,S,Hq,D]; k,v: [B,T,Hkv,D] (xkv defaults to x)."""
+    return (_project_q(cfg, p, x),
+            *_project_kv(cfg, p, x if xkv is None else xkv))
 
 
 def _gqa_scores_out(cfg, q, k, v, mask):
@@ -465,6 +477,29 @@ def decode_attention_stacked(
     else:
         ok = torch.arange(W, device=x.device) <= pos
     return _decode_out(cfg, p, q, ck, cv, ok), buf_k, buf_v
+
+
+def cross_attend(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The gated cross-attention of queries from ``x`` [B, S, D] over
+    projected keys and values [B, N, Hkv, D]: no rope, no mask (a zero
+    one), then ``wo`` and ``* tanh(gate)``."""
+    cd = compute_dtype(cfg)
+    mask = torch.zeros((1, 1, x.shape[1], k.shape[1]), dtype=_F32,
+                       device=x.device)
+    out = _gqa_scores_out(cfg, _project_q(cfg, p, x), k.to(cd), v.to(cd),
+                          mask)
+    return _dot(out, p["wo"].to(cd), 2) * torch.tanh(p["gate"].to(cd))
+
+
+def cross_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,         # [B, S, D] queries (text stream)
+    cross_kv: torch.Tensor,  # [B, N, D] stub modality embeddings
+) -> torch.Tensor:
+    """Gated cross-attention (flamingo-style: tanh(gate) starts at 0)."""
+    return cross_attend(cfg, p, x, *_project_kv(cfg, p, cross_kv))
 
 
 def _const(value: float, x: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,12 @@
 structure, the twins of the reference's ``models/stubs.py``.
 
 [audio] archs take precomputed frame embeddings (``embeds_input``) in place
-of a frontend. :func:`synthetic_batch` draws from a numpy generator in the
-order the reference's ``jax.tree.map`` visits the leaves (sorted keys), so
-the same seed gives the same values in both packages.
+of a frontend; [vlm] archs take the vision frontend's patch embeddings,
+projected to d_model, as ``cross_embeds`` (train and prefill batches).
+:func:`synthetic_batch` draws from a numpy generator in the order the
+reference's ``jax.tree.map`` visits the leaves (sorted keys:
+``cross_embeds`` before ``tokens``), so the same seed gives the same
+values in both packages.
 """
 from __future__ import annotations
 
@@ -22,20 +25,19 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
     cd = layers.compute_dtype(cfg)
-    if cfg.family == "vlm":
-        raise transformer._not_ported("the vlm inputs (cross_embeds)",
-                                      "CROSS")
 
-    if shape.kind == "train":
+    if shape.kind in ("train", "prefill"):
+        batch: dict = {}
         if cfg.embeds_input:
-            return {"embeds": ShapeDtype((B, S, cfg.d_model), cd),
-                    "labels": ShapeDtype((B, S), i32)}
-        return {"tokens": ShapeDtype((B, S), i32)}
-
-    if shape.kind == "prefill":
-        if cfg.embeds_input:
-            return {"embeds": ShapeDtype((B, S, cfg.d_model), cd)}
-        return {"tokens": ShapeDtype((B, S), i32)}
+            batch["embeds"] = ShapeDtype((B, S, cfg.d_model), cd)
+            if shape.kind == "train":
+                batch["labels"] = ShapeDtype((B, S), i32)
+        else:
+            batch["tokens"] = ShapeDtype((B, S), i32)
+        if cfg.family == "vlm":
+            batch["cross_embeds"] = ShapeDtype(
+                (B, cfg.n_cross_tokens, cfg.d_model), cd)
+        return batch
 
     if shape.kind == "decode":
         batch = {"pos": ShapeDtype((), i32)}

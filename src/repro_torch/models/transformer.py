@@ -1,6 +1,7 @@
-"""Pattern-based decoder stacks: GLOBAL and LOCAL attention with a dense
-or a mixture-of-experts FFN (``models/moe.py``), and the Mamba-2 SSD block
-(``models/ssm.py``).
+"""Pattern-based decoder stacks for every assigned architecture: GLOBAL and
+LOCAL attention with a dense or a mixture-of-experts FFN (``models/moe.py``),
+gated cross-attention (CROSS, vlm), the RG-LRU recurrent block
+(``models/rglru.py``) and the Mamba-2 SSD block (``models/ssm.py``).
 
 A model is `n_layers` of per-kind blocks described by `cfg.layer_pattern`.
 As in the reference, one repetition of the pattern (a super-block) is
@@ -15,16 +16,19 @@ Three temporal modes:
   forward     — full sequence (logits at every position; under autograd
                 it trains: :func:`loss_fn`, remat per super-block)
   prefill     — forward + cache construction (serving): K/V for the
-                attention layers, the recurrent state and conv tail for
+                attention layers, the modality embeddings' K/V for CROSS
+                layers, the recurrent state and conv tail for RG-LRU and
                 SSD layers
-  decode_step — one token against the cache
+  decode_step — one token against the cache (a CROSS layer reads its
+                cache and leaves it as it is)
 
 Sliding-window layers keep **window-sized rotating caches** (slot = pos %
 window). The MoE FFN returns the router's aux loss, which ``forward`` sums
-over the layers and ``loss_fn`` adds; decode and prefill drop it. The
-CROSS and RG-LRU kinds and the sharding hints are not ported yet: building
-a model of such a family raises ``NotImplementedError`` naming its ROADMAP
-entry.
+over the layers and ``loss_fn`` adds; decode and prefill drop it. A vlm
+batch carries ``cross_embeds`` [B, N, D] (the stub vision frontend's
+embeddings) for the forward and the prefill; decode reads them from the
+CROSS layers' caches. The sharding hints are no-ops without a mesh and
+are left out.
 """
 from __future__ import annotations
 
@@ -39,22 +43,12 @@ from repro_torch.configs.base import (
     CROSS, GLOBAL, LOCAL, RGLRU, SSD, ModelConfig,
 )
 from repro_torch.core.tm import resolve_device
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.params import PSpec, ShapeDtype, stack_specs
 
-# kind -> (what, its ROADMAP queue 1 entry)
-_UNPORTED = {
-    CROSS: ("the CROSS layer kind (cross_attention, vlm)", "CROSS"),
-    RGLRU: ("the RG-LRU layer kind (models/rglru.py)", "RG-LRU"),
-}
 _NORMS = ("ln1", "ln2", "final_norm")
-
-
-def _not_ported(what: str, entry: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, entry "
-        f'"{entry}"); the port builds the GLOBAL, LOCAL (dense or MoE FFN) '
-        "and SSD stacks")
+# the sub-trees whose listed leaves the reference reads in float32
+_FLOAT_LEAVES = {"mamba": ssm.FLOAT_LEAVES, "rec": rglru.FLOAT_LEAVES}
 
 
 # ---------------------------------------------------------------------------
@@ -72,10 +66,24 @@ def block_specs(cfg: ModelConfig, kind: str) -> dict:
             "ln2": layers.norm_specs(cfg),
             "ffn": ffn,
         }
+    if kind == CROSS:
+        # Gated cross-attention layer (llama-3.2-vision style insertion).
+        return {
+            "ln1": layers.norm_specs(cfg),
+            "xattn": layers.attention_specs(cfg, gated=True),
+            "ln2": layers.norm_specs(cfg),
+            "ffn": layers.mlp_specs(cfg),
+            "ffn_gate": PSpec((), (), "zeros"),
+        }
+    if kind == RGLRU:
+        return {
+            "ln1": layers.norm_specs(cfg),
+            "rec": rglru.rglru_specs(cfg),
+            "ln2": layers.norm_specs(cfg),
+            "ffn": layers.mlp_specs(cfg),
+        }
     if kind == SSD:
         return {"ln1": layers.norm_specs(cfg), "mamba": ssm.ssd_specs(cfg)}
-    if kind in _UNPORTED:
-        raise _not_ported(*_UNPORTED[kind])
     raise ValueError(kind)
 
 
@@ -109,24 +117,24 @@ def model_specs(cfg: ModelConfig) -> dict:
 def compute_params(cfg: ModelConfig, params: dict) -> dict:
     """The tree the forward passes read: every weight the reference casts to
     ``compute_dtype`` inside each call (``.astype(cd)``) cast once here, the
-    norms and the SSD leaves the reference reads as float32 (``a_log``,
-    ``dt_bias``, ``d_skip``, ``mamba.norm``: ``ssm.FLOAT_LEAVES``) left in
-    their own dtype. A cast is deterministic, so the values are the
-    reference's. At a float32 compute dtype the tree holds the same
-    tensors; at bfloat16 the copies cost 2 bytes a parameter on the
-    device."""
+    norms and the leaves the reference reads as float32 left in their own
+    dtype: the SSD's ``a_log``, ``dt_bias``, ``d_skip``, ``mamba.norm``
+    (``ssm.FLOAT_LEAVES``) and the RG-LRU gates' ``w_a``, ``b_a``, ``w_x``,
+    ``b_x``, ``lambda_p`` (``rglru.FLOAT_LEAVES``). A cast is
+    deterministic, so the values are the reference's. At a float32
+    compute dtype the tree holds the same tensors; at bfloat16 the copies
+    cost 2 bytes a parameter on the device."""
     cd = layers.compute_dtype(cfg)
 
-    def walk(node, key, in_ssd):
+    def walk(node, key, keep):
         if key in _NORMS:
             return node
         if isinstance(node, dict):
-            return {k: walk(v, k, key == "mamba") for k, v in node.items()}
-        if in_ssd and key in ssm.FLOAT_LEAVES:
-            return node
-        return node.to(cd)
+            return {k: walk(v, k, _FLOAT_LEAVES.get(key, ()))
+                    for k, v in node.items()}
+        return node if key in keep else node.to(cd)
 
-    return walk(params, None, False)
+    return walk(params, None, ())
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -163,11 +171,33 @@ def _ffn(cfg, p, h, num_groups):
     return layers.mlp(cfg, p, h), None
 
 
-def _apply_block(cfg, kind, p, x, num_groups=1):
+def _gated_ffn(cfg, p, x):
+    """A CROSS layer's MLP, ``* tanh(ffn_gate)``."""
+    return layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x)) \
+        * torch.tanh(p["ffn_gate"].to(x.dtype))
+
+
+def _need_cross(cross_embeds):
+    if cross_embeds is None:
+        raise ValueError("CROSS layer requires cross_embeds")
+    return cross_embeds
+
+
+def _apply_block(cfg, kind, p, x, cross_embeds=None, num_groups=1):
     """One layer over the full sequence. Returns (x, aux loss or None)."""
     if kind == SSD:
         return x + ssm.ssd_forward(cfg, p["mamba"],
                                    layers.norm(cfg, p["ln1"], x)), None
+    if kind == RGLRU:
+        x = x + rglru.rglru_forward(cfg, p["rec"],
+                                    layers.norm(cfg, p["ln1"], x))
+        return x + layers.mlp(cfg, p["ffn"],
+                              layers.norm(cfg, p["ln2"], x)), None
+    if kind == CROSS:
+        x = x + layers.cross_attention(cfg, p["xattn"],
+                                       layers.norm(cfg, p["ln1"], x),
+                                       _need_cross(cross_embeds))
+        return x + _gated_ffn(cfg, p, x), None
     w = cfg.sliding_window if kind == LOCAL else None
     x = x + layers.self_attention(cfg, p["attn"],
                                   layers.norm(cfg, p["ln1"], x), window=w)
@@ -223,38 +253,47 @@ def _maybe_remat(cfg: ModelConfig, fn):
 
 
 def _super_block(cfg: ModelConfig, num_groups: int, x: torch.Tensor,
-                 blk: dict):
+                 cross, blk: dict):
     """One repetition of the pattern: (x, the layers' summed aux loss or
     None). Under remat the aux leaves the checkpointed function as an
-    output."""
+    output; ``cross`` (the compute-dtype ``cross_embeds`` or None) enters
+    it as an argument."""
     aux = None
     for i, kind in enumerate(cfg.layer_pattern):
-        x, a = _apply_block(cfg, kind, blk[f"pos{i}"], x, num_groups)
+        x, a = _apply_block(cfg, kind, blk[f"pos{i}"], x, cross, num_groups)
         aux = _add_aux(aux, a)
     return x, aux
 
 
+def _cross_embeds(batch: dict, x: torch.Tensor):
+    """The batch's ``cross_embeds`` in x's (the compute) dtype, or None."""
+    cross = batch.get("cross_embeds")
+    return None if cross is None else cross.to(x.dtype)
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             num_groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch: {tokens|embeds}. Runs under autograd
-    (training, with ``cfg.remat`` per super-block) or without it.
-    ``num_groups`` splits each MoE layer's tokens into dispatch groups.
+    """Full-sequence forward. batch: {tokens|embeds, cross_embeds?}. Runs
+    under autograd (training, with ``cfg.remat`` per super-block) or
+    without it. ``num_groups`` splits each MoE layer's tokens into
+    dispatch groups.
 
     Returns (logits [B,S,V] f32, aux_loss scalar): the MoE routers' aux
     losses summed over the layers in float32, 0 for the other stacks.
     """
     x = embed_inputs(cfg, params, batch)
+    cross = _cross_embeds(batch, x)
     n_super, n_rem = _pattern_split(cfg)
     aux = None
     if n_super > 0:
         body = _maybe_remat(cfg, functools.partial(_super_block, cfg,
                                                    num_groups))
         for blk in _unstack(params["blocks"], n_super):
-            x, a = body(x, blk)
+            x, a = body(x, cross, blk)
             aux = _add_aux(aux, a)
     for i in range(n_rem):
         x, a = _apply_block(cfg, cfg.layer_pattern[i],
-                            params["rem"][f"rem{i}"], x, num_groups)
+                            params["rem"][f"rem{i}"], x, cross, num_groups)
         aux = _add_aux(aux, a)
     if aux is None:
         aux = torch.zeros((), dtype=layers.acc_dtype(x.dtype),
@@ -288,8 +327,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
 
 def _layer_cache_struct(cfg: ModelConfig, kind: str, batch: int,
                         max_seq: int) -> dict:
-    """Cache shapes for one layer: K/V for attention, the float32 state
-    ``h`` and the compute-dtype conv tail for SSD."""
+    """Cache shapes for one layer: K/V for attention (for CROSS, of the
+    ``n_cross_tokens`` modality embeddings), the float32 state ``h`` and
+    the compute-dtype conv tail for RG-LRU and SSD."""
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     cd = layers.compute_dtype(cfg)
     if kind == SSD:
@@ -297,12 +337,18 @@ def _layer_cache_struct(cfg: ModelConfig, kind: str, batch: int,
         return {"h": ShapeDtype((batch, nh, cfg.ssm.head_dim, ds),
                                 layers.acc_dtype(cd)),
                 "conv": ShapeDtype((batch, dc - 1, di + 2 * ds), cd)}
+    if kind == RGLRU:
+        di, _, _, dc = rglru._dims(cfg)
+        return {"h": ShapeDtype((batch, di), layers.acc_dtype(cd)),
+                "conv": ShapeDtype((batch, dc - 1, di), cd)}
+    if kind == CROSS:
+        n = max(cfg.n_cross_tokens, 1)
+        return {"ck": ShapeDtype((batch, n, hkv, dh), cd),
+                "cv": ShapeDtype((batch, n, hkv, dh), cd)}
     if kind == GLOBAL:
         n = max_seq
     elif kind == LOCAL:
         n = min(cfg.sliding_window, max_seq)
-    elif kind in _UNPORTED:
-        raise _not_ported(*_UNPORTED[kind])
     else:
         raise ValueError(kind)
     return {"k": ShapeDtype((batch, n, hkv, dh), cd),
@@ -348,8 +394,9 @@ def _layer_cache(cache: dict, idx) -> dict:
 
 
 def _decode_block(cfg, kind, p, x, cache, pos, idx=None):
-    """One layer, one token; the K/V or the SSD state land in ``cache``
-    (stacked: at layer ``idx``) in place. Returns x."""
+    """One layer, one token; the K/V or the recurrent state land in
+    ``cache`` (stacked: at layer ``idx``) in place; a CROSS layer reads its
+    K/V and writes nothing. Returns x."""
     if kind == SSD:
         c = _layer_cache(cache, idx)
         out, st = ssm.ssd_decode_step(
@@ -358,6 +405,22 @@ def _decode_block(cfg, kind, p, x, cache, pos, idx=None):
         c["h"].copy_(st.h)
         c["conv"].copy_(st.conv)
         return x + out
+    if kind == RGLRU:
+        c = _layer_cache(cache, idx)
+        out, st = rglru.rglru_decode_step(
+            cfg, p["rec"], layers.norm(cfg, p["ln1"], x),
+            rglru.RGLRUState(h=c["h"], conv=c["conv"]))
+        c["h"].copy_(st.h)
+        c["conv"].copy_(st.conv)
+        x = x + out
+        return x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
+    if kind == CROSS:
+        # cross K/V were projected at prefill; attend directly (read-only)
+        c = _layer_cache(cache, idx)
+        x = x + layers.cross_attend(cfg, p["xattn"],
+                                    layers.norm(cfg, p["ln1"], x),
+                                    c["ck"], c["cv"])
+        return x + _gated_ffn(cfg, p, x)
     h = layers.norm(cfg, p["ln1"], x)
     a, _, _ = layers.decode_attention_stacked(
         cfg, p["attn"], h, cache["k"], cache["v"], idx, pos,
@@ -392,14 +455,26 @@ def decode_step(
 # ---------------------------------------------------------------------------
 
 
-def _prefill_block(cfg, kind, p, x):
+def _prefill_block(cfg, kind, p, x, cross):
     """Layer forward that also returns what its cache keeps: the roped K
-    and V [B, S, Hkv, D] of an attention layer, the final state of an SSD
-    layer (``ssm.SSDState``)."""
+    and V [B, S, Hkv, D] of an attention layer, the K and V [B, N, Hkv, D]
+    of ``cross`` for a CROSS layer, the final state of an RG-LRU or SSD
+    layer (``rglru.RGLRUState``, ``ssm.SSDState``)."""
     if kind == SSD:
         h_in = layers.norm(cfg, p["ln1"], x)
         x = x + ssm.ssd_forward(cfg, p["mamba"], h_in)
         return x, ssm.final_state(cfg, p["mamba"], h_in)
+    if kind == RGLRU:
+        out, st = rglru.rglru_prefill(cfg, p["rec"],
+                                      layers.norm(cfg, p["ln1"], x))
+        x = x + out
+        x = x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
+        return x, st
+    if kind == CROSS:
+        k, v = layers._project_kv(cfg, p["xattn"], _need_cross(cross))
+        x = x + layers.cross_attend(cfg, p["xattn"],
+                                    layers.norm(cfg, p["ln1"], x), k, v)
+        return x + _gated_ffn(cfg, p, x), (k, v)
     cd = layers.compute_dtype(cfg)
     w = cfg.sliding_window if kind == LOCAL else None
     h = layers.norm(cfg, p["ln1"], x)
@@ -439,15 +514,24 @@ def prefill(
     batch: dict,
     max_seq: int,
 ) -> tuple[torch.Tensor, dict]:
-    """Consume the prompt; return (last-position logits [B,V], decode cache)."""
+    """Consume the prompt (batch: {tokens|embeds, cross_embeds?}); return
+    (last-position logits [B,V], decode cache)."""
     x = embed_inputs(cfg, params, batch)
+    cross = _cross_embeds(batch, x)
     cache = init_cache(cfg, x.shape[0], max_seq, device=x.device)
     for kind, p, idx, (top, name) in _layers(cfg, params):
-        x, kept = _prefill_block(cfg, kind, p, x)
+        x, kept = _prefill_block(cfg, kind, p, x, cross)
         c = _layer_cache(cache[top][name], idx)
-        if kind == SSD:
+        if kind in (SSD, RGLRU):
             c["h"].copy_(kept.h)
             c["conv"].copy_(kept.conv)
+        elif kind == CROSS:
+            if kept[0].shape != c["ck"].shape:
+                raise ValueError(
+                    f"cross_embeds of {kept[0].shape[1]} tokens for a cache "
+                    f"of n_cross_tokens = {c['ck'].shape[1]}")
+            c["ck"].copy_(kept[0])
+            c["cv"].copy_(kept[1])
         else:
             _store_prompt(kind, c["k"], c["v"], *kept)
     # The reference unembeds all S positions and keeps the last; the norm

@@ -10,6 +10,12 @@ the end of ``generate``, so the host does not wait for the card each step.
 Temperature sampling keeps the reference's key discipline: the engine's
 key is split once a step and the second half draws
 ``categorical_logits(k, logits / T)``.
+
+A vlm (a stack with CROSS layers) needs ``cross_embeds`` at prefill, which
+a batch of prompts does not carry: the reference's ``generate`` fails
+inside its prefill (``cross_kv`` is None), and this one raises a
+``ValueError`` saying how such a model is served (``Transformer.prefill``
+with ``cross_embeds``, then ``decode_step``).
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import random
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import CROSS, ModelConfig
 from repro_torch.models.transformer import Transformer
 
 
@@ -60,6 +66,12 @@ class Engine:
         if S0 + max_new > self.ec.max_seq:
             raise ValueError(f"{S0} + {max_new} tokens exceed max_seq "
                              f"{self.ec.max_seq}")
+        if CROSS in self.cfg.layer_pattern:
+            raise ValueError(
+                f"{self.cfg.arch_id} has CROSS layers, whose prefill needs "
+                "cross_embeds, which generate's prompts do not carry: serve "
+                "it through Transformer.prefill({'tokens', 'cross_embeds'}, "
+                "max_seq), then decode_step")
         toks = torch.from_numpy(np.asarray(prompts, dtype=np.int64))
         logits, cache = self.model.prefill(
             {"tokens": toks.to(self.model.device)}, self.ec.max_seq)

@@ -1215,3 +1215,102 @@ def test_lm_moe_ssd_gradients_on_card_equal_cpu(cuda, arch):
     _lm_close(out[1][1]["aux"], out[0][1]["aux"])
     for g, c in zip(T.leaves(out[1][2]), T.leaves(out[0][2])):
         _lm_close(g, c)
+
+
+# The RG-LRU block and the gated cross-attention on the card against the
+# CPU (plain PyTorch ops; no CUDA kernel of their own), at the smoke widths,
+# each layer at its own fan-in and the leaves whose constant inits would
+# hide a fault (a CROSS layer's gates, zeros, make it an identity; the
+# RG-LRU's biases and Lambda) moved off them by U(-1, 1).
+
+
+def _lm_drawn_tree(cfg, device):
+    tree = _lm_train_tree(cfg, "cpu")
+    gen = torch.Generator().manual_seed(1)
+
+    def draw(path, node):
+        if isinstance(node, dict):
+            return {k: draw(path + (k,), v) for k, v in node.items()}
+        if path[-1] in ("gate", "ffn_gate") or (
+                "rec" in path and path[-1] in ("conv_b", "b_a", "b_x",
+                                               "lambda_p")):
+            node = node + (2 * torch.rand(node.shape, generator=gen) - 1)
+        return node.to(device)
+
+    return draw((), tree)
+
+
+def _lm_batch(cfg, B, S, seed, device):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S))).to(device)}
+    if cfg.family == "vlm":
+        out["cross_embeds"] = torch.from_numpy(0.5 * rng.standard_normal(
+            (B, cfg.n_cross_tokens, cfg.d_model))).float().to(device)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "llama32_vision_11b"])
+def test_lm_rglru_cross_on_card_equals_cpu(cuda, arch):
+    """forward, prefill (logits and every cache leaf: the RG-LRU state and
+    conv tail, the LOCAL window, the CROSS ``ck``/``cv``) and 4 decode
+    steps past recurrentgemma's 8-slot window, float32 within LM_TOL."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke_config(arch)
+    cpu = transformer.Transformer(cfg, _lm_drawn_tree(cfg, "cpu"),
+                                  device="cpu")
+    gpu = transformer.Transformer(cfg, _lm_drawn_tree(cfg, cuda),
+                                  device=cuda)
+    bc = _lm_batch(cfg, 2, 16, 4, "cpu")
+    bg = {k: v.to(cuda) for k, v in bc.items()}
+    _lm_close(gpu(bg)[0], cpu(bc)[0])
+
+    def cut(b, n):
+        return {k: v if k == "cross_embeds" else v[:, :n]
+                for k, v in b.items()}
+
+    lc, cc = cpu.prefill(cut(bc, 12), 24)
+    lg, cg = gpu.prefill(cut(bg, 12), 24)
+    _lm_close(lg, lc)
+    for top in cc:
+        for name in cc[top]:
+            for k in cc[top][name]:
+                _lm_close(cg[top][name][k], cc[top][name][k])
+    for i in range(12, 16):
+        lc, cc = cpu.decode_step({"token": bc["tokens"][:, i:i + 1],
+                                  "pos": i}, cc)
+        lg, cg = gpu.decode_step({"token": bg["tokens"][:, i:i + 1],
+                                  "pos": i}, cg)
+        _lm_close(lg, lc)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "llama32_vision_11b"])
+def test_lm_rglru_cross_train_step_on_card_equals_cpu(cuda, arch):
+    """One AdamW ``train_step`` of the smoke model at float64 compute (a
+    vlm batch with ``cross_embeds``), on the card and on the CPU from the
+    same state: the loss, gradient norm, parameters and both moments
+    within LM_TOL."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              compute_dtype="float64")
+    tc = TS.TrainConfig()
+    batch = {k: v.numpy() for k, v in _lm_batch(cfg, 2, 32, 5,
+                                                "cpu").items()}
+    out = []
+    for d in ("cpu", cuda):
+        st, m = TS.train_step(cfg, tc, TS.init_state(
+            tc, _lm_drawn_tree(cfg, d)), batch)
+        out.append((m, st))
+    (mc, sc), (mg, sg) = out
+    for k in ("loss", "grad_norm"):
+        _lm_close(mg[k], mc[k])
+    for g, c in zip(T.leaves((sg.params, sg.opt.mu, sg.opt.nu)),
+                    T.leaves((sc.params, sc.opt.mu, sc.opt.nu))):
+        _lm_close(g, c)

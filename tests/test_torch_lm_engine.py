@@ -4,7 +4,12 @@ package's ``Engine`` on the CPU, and ``random.categorical_logits`` against
 
 Both engines get the same parameters (the reference's ``materialize``,
 crossed through ``convert.lm_params_from_numpy``) and the same seeded
-prompts. Tolerances:
+prompts. recurrentgemma's RG-LRU constants (``conv_b``, ``b_a``, ``b_x``,
+``lambda_p``) are moved off their inits by U(-1, 1), and its stacked
+layers drawn at their own fan-in (at the stacked init the RG-LRU state is
+ill-conditioned in float32: tests/test_torch_lm_model.py). The vlm is not
+served by ``generate`` in either package (tests/test_torch_lm_cross.py).
+Tolerances:
 * tokens, greedy and sampled: equal. Where a token differs, the reference's
   decision values at that step (its logits, or its gumbel noise plus
   logits / T) must have a top-2 gap within the float32 logit tolerance,
@@ -33,11 +38,34 @@ from repro_torch.serve.engine import Engine, EngineConfig
 TOL = 1e-4
 
 
+def _rglru_draws(rc, prm, seed: int = 7):
+    """Each stacked layer at its own fan-in, and the RG-LRU constants off
+    their inits (U(-1, 1), sorted path order)."""
+    specs = RT.model_specs(rc)
+    rng = np.random.default_rng(seed)
+
+    def draw(path, x):
+        s = specs
+        for k in path:
+            s = s[k.key]
+        if s.init == "normal" and s.axes[0] == "layers":
+            x = x * (s.shape[0] / s.shape[1]) ** 0.5
+        keys = [k.key for k in path]
+        if "rec" in keys and keys[-1] in ("conv_b", "b_a", "b_x",
+                                          "lambda_p"):
+            x = x + jnp.asarray(rng.uniform(-1.0, 1.0, x.shape), jnp.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(draw, prm)
+
+
 def _setup(arch):
     rc = rconfigs.get_smoke_config(arch)
     tc = configs.get_smoke_config(arch)
     prm = RP.materialize(RT.model_specs(rc), jax.random.PRNGKey(0),
                          jnp.float32)
+    if rc.family == "hybrid":
+        prm = _rglru_draws(rc, prm)
     tree = convert.lm_params_from_numpy(jax.tree.map(np.asarray, prm), tc,
                                         "cpu")
     return rc, tc, prm, tree
@@ -85,11 +113,14 @@ def _greedy_check(rc, prm, prompts, got, want):
                                          ("gemma3_1b", 6, 10),
                                          ("olmoe_1b_7b", 6, 7),
                                          ("arctic_480b", 6, 7),
-                                         ("mamba2_780m", 6, 10)])
+                                         ("mamba2_780m", 6, 10),
+                                         ("recurrentgemma_9b", 2, 10)])
 def test_greedy_generate_matches_reference_engine(arch, S0, new):
     """gemma3: 6 + 10 tokens wrap its 8-slot local windows. The MoE archs
     decode at their real capacity (one slot an expert at B = 2) in both
-    engines; mamba2 decodes from the SSD state its prefill hands over."""
+    engines; mamba2 decodes from the SSD state its prefill hands over,
+    recurrentgemma from the RG-LRU state and a conv tail that holds the
+    zero pad (a 2-token prompt), its MQA window wrapping at 8."""
     rc, tc, prm, tree = _setup(arch)
     B = 2
     prompts = _prompts(rc, B, S0)
@@ -135,7 +166,8 @@ def _ref_keys(seed, n):
 @pytest.mark.parametrize("arch,T,seed", [("granite_8b", 0.8, 3),
                                          ("gemma3_1b", 1.5, 11),
                                          ("olmoe_1b_7b", 1.0, 5),
-                                         ("mamba2_780m", 1.2, 7)])
+                                         ("mamba2_780m", 1.2, 7),
+                                         ("recurrentgemma_9b", 1.1, 9)])
 def test_temperature_sampling_matches_reference_engine(arch, T, seed):
     rc, tc, prm, tree = _setup(arch)
     B, S0, new = 2, 5, 9
@@ -217,10 +249,11 @@ def test_categorical_logits_matches_jax(seed):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b",
-                                  "mamba2-780m"])
+                                  "mamba2-780m", "recurrentgemma-9b"])
 def test_launch_serve_moe_ssd_on_cpu(arch):
-    """``python -m repro_torch.launch.serve --device cpu`` for the MoE and
-    SSD families: tokens in the vocabulary; a seeded run repeats."""
+    """``python -m repro_torch.launch.serve --device cpu`` for the MoE,
+    SSD and RG-LRU families: tokens in the vocabulary; a seeded run
+    repeats."""
     from repro_torch.launch import serve
 
     cfg = configs.get_smoke_config(arch)

@@ -1,13 +1,18 @@
 """The port's LM stacks (``repro_torch.models.transformer``) against the
 JAX package's on the CPU, for the five dense smoke configs, the two MoE
-ones (olmoe-1b-7b, arctic-480b) and the SSD one (mamba2-780m).
+ones (olmoe-1b-7b, arctic-480b), the SSD one (mamba2-780m), the RG-LRU
+hybrid (recurrentgemma-9b) and the vlm (llama-3.2-vision-11b).
 
 Parameters come from the reference's ``params.materialize`` in this process
-and cross through ``convert.lm_params_from_numpy``; inputs are seeded numpy
-arrays. Tolerances:
+and cross through ``convert.lm_params_from_numpy``; the leaves that it
+initialises to constants that would hide a fault (a CROSS layer's ``gate``
+and ``ffn_gate``, zeros, make the layer an identity; the RG-LRU's
+``conv_b``, ``b_a``, ``b_x`` and ``lambda_p``) are moved off them by
+U(-1, 1) from a seed (``_draw_gates``). Inputs are seeded numpy arrays (a
+vlm batch carries ``cross_embeds``). Tolerances:
 * float32 logits and caches: max |port - ref| <= 1e-4 * max |ref|;
-* bfloat16 (gemma3, olmoe, arctic, mamba2): max |port - ref| <= 3e-2 *
-  max |ref|.
+* bfloat16 (gemma3, olmoe, arctic, mamba2, recurrentgemma, llama-vision):
+  max |port - ref| <= 3e-2 * max |ref|.
 """
 import dataclasses
 import os
@@ -27,6 +32,7 @@ from repro.models import params as RP
 from repro.models import stubs as RS
 from repro.models import transformer as RT
 from repro_torch import configs, convert
+from repro_torch import tree as T
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.models import params as P
 from repro_torch.models import moe, stubs, transformer
@@ -36,10 +42,13 @@ TOL_BF16 = 3e-2
 DENSE = ["granite_8b", "gemma3_1b", "phi3_medium_14b", "qwen25_14b",
          "musicgen_medium"]
 MOE_SSD = ["olmoe_1b_7b", "arctic_480b", "mamba2_780m"]
-ARCHS = DENSE + MOE_SSD
-# unported arch -> the ROADMAP queue 1 entry its error names
-UNPORTED = {"llama32_vision_11b": "CROSS", "recurrentgemma_9b": "RG-LRU"}
+RGLRU_CROSS = ["recurrentgemma_9b", "llama32_vision_11b"]
+ARCHS = DENSE + MOE_SSD + RGLRU_CROSS
 MAX_SEQ = 24
+# the leaves drawn off their constant inits: CROSS's gates, RG-LRU's
+# biases and Lambda (the SSD's ``conv_b`` keeps its init)
+GATES = ("gate", "ffn_gate")
+RGLRU_CONSTS = ("conv_b", "b_a", "b_x", "lambda_p")
 
 
 def assert_close(got, want, tol=TOL, what=""):
@@ -66,11 +75,55 @@ def _np(tree):
     return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
 
 
-def _setup(arch, **kw):
+def _draw_gates(prm, seed: int = 7):
+    """The reference's tree with the CROSS gates and the RG-LRU constants
+    moved off their inits by U(-1, 1), drawn in sorted path order."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, x):
+        keys = [k.key for k in path]
+        if keys[-1] in GATES or ("rec" in keys and keys[-1] in RGLRU_CONSTS):
+            return x + jnp.asarray(rng.uniform(-1.0, 1.0, x.shape),
+                                   jnp.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(draw, prm)
+
+
+def _per_layer(rc, prm):
+    """Each stacked fan-in-scaled leaf rescaled to one layer's fan-in, as
+    the remainder layers are drawn. At ``materialize``'s own init a stacked
+    leaf's fan-in is the super-block count (1 here: std-1 weights), and
+    there the RG-LRU state is ill-conditioned in float32: saturated gates
+    drive a_t to within a few ulp of 1, where sqrt(1 - a_t^2) turns each
+    last-bit difference upstream (XLA's and torch's exp, their fused
+    multiply-adds) into a relative one of percents
+    (``test_rglru_stacked_init_state_is_ill_conditioned``; ROADMAP queue
+    3)."""
+    specs = RT.model_specs(rc)
+
+    def scale(path, x):
+        s = specs
+        for k in path:
+            s = s[k.key]
+        if s.init == "normal" and s.axes[0] == "layers":
+            return x * (s.shape[0] / s.shape[1]) ** 0.5
+        return x
+
+    return jax.tree_util.tree_map_with_path(scale, prm)
+
+
+def _setup(arch, stacked_init=False, **kw):
+    """The smoke model, parameters from the reference's ``materialize``
+    with ``_draw_gates``; the RG-LRU and vlm archs each layer at its own
+    fan-in (``_per_layer``) unless ``stacked_init``."""
     rc = dataclasses.replace(rconfigs.get_smoke_config(arch), **kw)
     tc = dataclasses.replace(configs.get_smoke_config(arch), **kw)
     prm = RP.materialize(RT.model_specs(rc), jax.random.PRNGKey(0),
                          jnp.float32)
+    if arch in RGLRU_CROSS and not stacked_init:
+        prm = _per_layer(rc, prm)
+    prm = _draw_gates(prm)
     tree = convert.lm_params_from_numpy(jax.tree.map(np.asarray, prm), tc,
                                         "cpu")
     return rc, tc, prm, transformer.Transformer(tc, tree, device="cpu")
@@ -106,19 +159,29 @@ def _forward_len(cfg, n: int) -> int:
 
 def _inputs(cfg, B, S, seed):
     """(reference batch, port batch) over S positions: tokens, or stub
-    embeddings for embeds_input."""
+    embeddings for embeds_input; a vlm's also carry ``cross_embeds`` [B,
+    n_cross_tokens, D]."""
     rng = np.random.default_rng(seed)
     if cfg.embeds_input:
         e = (0.05 * rng.standard_normal((B, S, cfg.d_model))).astype(
             np.float32)
-        return {"embeds": jnp.asarray(e)}, {"embeds": torch.from_numpy(e)}
-    t = rng.integers(0, cfg.vocab_size, (B, S))
-    return ({"tokens": jnp.asarray(t, jnp.int32)},
-            {"tokens": torch.from_numpy(t)})
+        rb, tb = {"embeds": jnp.asarray(e)}, {"embeds": torch.from_numpy(e)}
+    else:
+        t = rng.integers(0, cfg.vocab_size, (B, S))
+        rb, tb = ({"tokens": jnp.asarray(t, jnp.int32)},
+                  {"tokens": torch.from_numpy(t)})
+    if cfg.family == "vlm":
+        c = (0.5 * rng.standard_normal((B, cfg.n_cross_tokens, cfg.d_model))
+             ).astype(np.float32)
+        rb["cross_embeds"], tb["cross_embeds"] = (jnp.asarray(c),
+                                                  torch.from_numpy(c))
+    return rb, tb
 
 
 def _cut(batch, a, b):
-    return {k: v[:, a:b] for k, v in batch.items()}
+    """Positions a..b of the sequence (``cross_embeds`` is not one)."""
+    return {k: v if k == "cross_embeds" else v[:, a:b]
+            for k, v in batch.items()}
 
 
 def _step(batch, i):
@@ -181,9 +244,11 @@ def test_decode_step_logits_and_cache_match_reference(arch):
 def test_prefill_then_decode_matches_forward_on_port(arch):
     """The reference's check (tests/test_models_smoke.py) on the port:
     decode(prefill(x[:S]), x[S]) == forward(x[:S+1])[S], here for 8
-    steps past S = 12, so gemma3's 8-slot windows wrap; held at TOL. The
-    MoE archs run drop-free, as the reference's check does; mamba2's
-    forward runs over 32 tokens (two 16-token chunks)."""
+    steps past S = 12, so gemma3's and recurrentgemma's 8-slot windows
+    wrap; held at TOL. The MoE archs run drop-free, as the reference's
+    check does; mamba2's forward runs over 32 tokens (two 16-token
+    chunks); the vlm's decode reads the image tokens' K/V from the
+    cache."""
     rc, tc, prm, m = model(arch, drop_free=True)
     S, n = 12, 8
     _, tb = _inputs(rc, 2, _forward_len(rc, S + n), seed=3)
@@ -197,7 +262,9 @@ def test_prefill_then_decode_matches_forward_on_port(arch):
 def test_param_counts_match_analytic():
     """The port's spec tree at full size counts ModelConfig.param_count()
     plus what that count leaves out, qkv biases (qwen) and layernorm
-    biases (musicgen), and an SSD layer's conv bias and skip D (mamba2),
+    biases (musicgen), an SSD layer's conv bias and skip D (mamba2), an
+    RG-LRU layer's conv bias and block-diagonal gate weights
+    (recurrentgemma) and a CROSS layer's two scalar gates (llama-vision),
     less the embedding table that an embeds_input model (musicgen) has
     no use for. It equals the reference's spec tree."""
     for arch in ARCHS:
@@ -211,16 +278,25 @@ def test_param_counts_match_analytic():
             extra += (2 * cfg.n_layers + 1) * cfg.d_model
         if cfg.embeds_input:
             extra -= cfg.vocab_size * cfg.d_model
-        if cfg.ssm is not None:
-            di = cfg.ssm.expand * cfg.d_model
-            extra += cfg.n_layers * (di + 2 * cfg.ssm.d_state
-                                     + di // cfg.ssm.head_dim)
+        for kind in cfg.layer_kinds:
+            if kind == "ssd":
+                di = cfg.ssm.expand * cfg.d_model
+                extra += di + 2 * cfg.ssm.d_state + di // cfg.ssm.head_dim
+            elif kind == "rglru":
+                di = cfg.ssm.expand * cfg.d_model
+                extra += di + 2 * di * (di // cfg.n_heads)
+            elif kind == "cross":
+                extra += 2
         assert got == cfg.param_count() + extra, arch
         assert got == RP.count_params(RT.model_specs(
             rconfigs.get_config(arch))), arch
     assert configs.get_config("gemma3-1b").param_count() == 999_812_736
     assert configs.get_config("olmoe-1b-7b").param_count() == 6_919_096_320
     assert configs.get_config("mamba2-780m").param_count() == 779_986_944
+    assert P.count_params(transformer.model_specs(configs.get_config(
+        "recurrentgemma-9b"))) == 8_578_519_040
+    assert P.count_params(transformer.model_specs(configs.get_config(
+        "llama-3.2-vision-11b"))) == 9_775_157_264
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -307,9 +383,15 @@ _BF16_REFERENCE = textwrap.dedent("""\
             node[keys[-1]] = jnp.asarray(z[name])
     toks = jnp.asarray(z["tokens"], jnp.int32)
     S = int(z["S"])
-    out["forward"], _ = transformer.forward(cfg, prm, {"tokens": toks})
+    # a vlm batch: the image tokens' embeddings, in the compute dtype as
+    # stubs.input_specs declares them (forward and prefill cast again)
+    extra = ({"cross_embeds": jnp.asarray(z["cross_embeds"],
+                                          jnp.dtype(cfg.compute_dtype))}
+             if "cross_embeds" in z.files else {})
+    out["forward"], _ = transformer.forward(cfg, prm,
+                                            {"tokens": toks, **extra})
     out["prefill"], cache = transformer.prefill(
-        cfg, prm, {"tokens": toks[:, :S]}, int(z["max_seq"]))
+        cfg, prm, {"tokens": toks[:, :S], **extra}, int(z["max_seq"]))
     for path, leaf in jax.tree_util.tree_flatten_with_path(cache)[0]:
         out["c/" + "/".join(k.key for k in path)] = leaf
     out["decode"], _ = transformer.decode_step(
@@ -352,6 +434,10 @@ def _bfloat16_case(arch, tmp_path):
     """``arch``'s smoke config at compute_dtype bfloat16: forward, prefill
     (logits and cache) of 12 tokens and one decode step, the reference
     run in a fresh process without excess precision; within TOL_BF16.
+    The parameters (gates drawn off their inits, ``_draw_gates``) and the
+    batch cross through a file: the tokens, and a vlm's ``cross_embeds``
+    (float32 there, cast to bfloat16 on both sides as
+    ``stubs.input_specs`` declares them).
 
     An MoE arch runs drop-free in both. Its router logits, which the
     attention feeds, differ between the packages by bf16 rounding, so at
@@ -370,6 +456,9 @@ def _bfloat16_case(arch, tmp_path):
     _, tb = _inputs(rc, 2, S + 1, seed=5)
     flat = {"p/" + "/".join(k.key for k in path): np.asarray(leaf)
             for path, leaf in jax.tree_util.tree_flatten_with_path(prm)[0]}
+    if "cross_embeds" in tb:
+        flat["cross_embeds"] = tb["cross_embeds"].numpy()
+        tb["cross_embeds"] = tb["cross_embeds"].to(torch.bfloat16)
     np.savez(tmp_path / "in.npz", tokens=tb["tokens"].numpy(), S=S,
              max_seq=MAX_SEQ, **flat)
     env = dict(os.environ)
@@ -444,6 +533,81 @@ def test_gemma3_bfloat16_matches_reference(tmp_path):
     _bfloat16_case("gemma3_1b", tmp_path)
 
 
+def _np_params(rc, seed: int, per_layer: bool) -> dict:
+    """numpy parameters with the reference's initialisers in sorted path
+    order (a stacked leaf's fan-in: one layer's if ``per_layer``, else
+    ``materialize``'s super-block count), then ``_draw_gates``."""
+    rng = np.random.default_rng(seed)
+    out: dict = {}
+    for path, s in jax.tree_util.tree_flatten_with_path(
+            RT.model_specs(rc), is_leaf=lambda s: isinstance(s, RP.PSpec))[0]:
+        if s.init in ("zeros", "ones"):
+            x = np.full(s.shape, 1.0 if s.init == "ones" else 0.0)
+        elif s.init == "normal":
+            shape = (s.shape[1:] if per_layer and s.axes[0] == "layers"
+                     else s.shape)
+            fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
+            x = s.scale / np.sqrt(fan_in) * rng.standard_normal(s.shape)
+        else:
+            x = s.scale * rng.standard_normal(s.shape)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k.key, {})
+        node[path[-1].key] = jnp.asarray(x, jnp.float32)
+    return _draw_gates(out)
+
+
+def test_rglru_stacked_init_state_is_ill_conditioned():
+    """Why the RG-LRU parity tests draw each layer at its own fan-in
+    (``_per_layer``): recurrentgemma smoke, six numpy seeds, the prefill
+    state ``h`` of the second stacked RG-LRU layer in float32, each
+    package's against the port's float64 evaluation. At ``materialize``'s
+    stacked fan-in (std-1 weights) both packages miss it by more than 10x
+    what they miss at each layer's own fan-in, where both stay within
+    1e-6 of its range. Prints the ranges."""
+    rc = rconfigs.get_smoke_config("recurrentgemma_9b")
+    tc = configs.get_smoke_config("recurrentgemma_9b")
+    t64 = dataclasses.replace(tc, compute_dtype="float64")
+    rb, tb = _inputs(rc, 2, 12, seed=2)
+    err: dict = {}
+    for per_layer in (False, True):
+        for seed in range(6):
+            prm = _np_params(rc, seed, per_layer)
+            host = jax.tree.map(np.asarray, prm)
+            _, wc = RT.prefill(rc, prm, rb, MAX_SEQ)
+            h = {}
+            for c in (tc, t64):
+                m = transformer.Transformer(
+                    c, convert.lm_params_from_numpy(host, c, "cpu"),
+                    device="cpu")
+                h[c.compute_dtype] = m.prefill(tb, MAX_SEQ)[1][
+                    "blocks"]["pos1"]["h"].numpy()
+            truth = h["float64"]
+            scale = np.max(np.abs(truth))
+            for who, got in (("port", h["float32"]),
+                             ("reference",
+                              np.asarray(wc["blocks"]["pos1"]["h"]))):
+                err.setdefault((per_layer, who), []).append(
+                    np.max(np.abs(got - truth)) / scale)
+    for (per_layer, who), e in sorted(err.items()):
+        print(f"{'per-layer' if per_layer else 'stacked'} init, {who}: h "
+              f"against float64 {min(e):.2e} to {max(e):.2e} of its range")
+    for who in ("port", "reference"):
+        assert max(err[(True, who)]) <= 1e-6, who
+        assert max(err[(False, who)]) > 10 * max(err[(True, who)]), who
+
+
+@pytest.mark.parametrize("arch", RGLRU_CROSS)
+def test_rglru_cross_bfloat16_matches_reference(arch, tmp_path):
+    """The RG-LRU and vlm smoke configs at bfloat16, as the gemma3 case:
+    recurrentgemma's gates, scan and state in float32 with their weights
+    read unrounded (``compute_params`` keeps ``rglru.FLOAT_LEAVES``), its
+    conv and gelu branch in bfloat16, its 8-slot LOCAL window wrapped by
+    the 12-token prompt; llama-vision's CROSS layer over bfloat16
+    ``cross_embeds``, its ``ck``/``cv`` cache in bfloat16."""
+    _bfloat16_case(arch, tmp_path)
+
+
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mamba2_780m"])
 def test_moe_ssd_bfloat16_matches_reference(arch, tmp_path):
     """The MoE and SSD smoke configs at bfloat16, as the gemma3 case: the
@@ -455,15 +619,31 @@ def test_moe_ssd_bfloat16_matches_reference(arch, tmp_path):
     _bfloat16_case(arch, tmp_path)
 
 
-@pytest.mark.parametrize("arch", list(UNPORTED))
+@pytest.mark.parametrize("arch", RGLRU_CROSS)
 def test_unported_families_raise(arch):
-    """Their configs load; building a model names the family's ROADMAP
-    entry by its title."""
+    """The two families that raised ``NotImplementedError`` until their
+    slice was ported (the RG-LRU hybrid and the vlm) now build: their
+    configs' analytic counts agree, and ``materialize`` of ``model_specs``
+    gives the reference's parameters leaf for leaf, in path, shape and
+    dtype (the 0-d gates included, stacked to [n_super])."""
     cfg = configs.get_smoke_config(arch)
-    assert cfg.param_count() == rconfigs.get_smoke_config(arch).param_count()
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP queue 1, entry "{UNPORTED[arch]}"'):
-        transformer.model_specs(cfg)
+    rcfg = rconfigs.get_smoke_config(arch)
+    assert cfg.param_count() == rcfg.param_count()
+    want = jax.tree_util.tree_flatten_with_path(RP.materialize(
+        RT.model_specs(rcfg), jax.random.PRNGKey(0), jnp.float32))[0]
+    got = P.materialize(transformer.model_specs(cfg),
+                        torch.Generator().manual_seed(0), device="cpu")
+    seen = 0
+    for path, w in want:
+        node = got
+        for k in path:
+            node = node[k.key]
+        assert (tuple(node.shape), str(node.dtype)) == (
+            w.shape, "torch." + str(w.dtype)), path
+        seen += 1
+    assert seen == len(T.leaves(got))
+    gates = [p for p, _ in want if p[-1].key in GATES]
+    assert len(gates) == (2 if cfg.family == "vlm" else 0)
 
 
 def test_registry_matches_reference():
@@ -522,10 +702,13 @@ def test_prompt_longer_than_a_global_cache_raises():
         m.prefill(tb, 8)
 
 
-@pytest.mark.parametrize("arch", MOE_SSD)
+@pytest.mark.parametrize("arch", MOE_SSD + RGLRU_CROSS)
 def test_moe_ssd_trees_cross_both_ways(arch):
-    """``convert`` carries the router and expert weights, the SSD leaves,
-    the SSD cache (float32 ``h``, the compute-dtype conv tail) and a train
+    """``convert`` carries the router and expert weights, the SSD and
+    RG-LRU leaves (``w_a``, ``w_x`` of [n_super, nb, bw, bw]), a CROSS
+    layer's 0-d ``gate`` and ``ffn_gate`` (stacked to [n_super]), the SSD
+    and RG-LRU caches (float32 ``h``, the
+    compute-dtype conv tail), the CROSS cache (``ck``/``cv``) and a train
     state (parameters and AdamW moments) of the reference's into the port
     and back, bit for bit."""
     from repro.train import train_step as RTS
@@ -549,12 +732,19 @@ def test_moe_ssd_trees_cross_both_ways(arch):
             node = node[k.key]
         assert np.array_equal(node, leaf.astype(np.float32)), path
 
-    prm = RP.materialize(RT.model_specs(rc), jax.random.PRNGKey(1),
-                         jnp.float32)
+    prm = _draw_gates(RP.materialize(RT.model_specs(rc),
+                                     jax.random.PRNGKey(1), jnp.float32))
     rstate = jax.tree.map(np.asarray, RTS.init_state(RTS.TrainConfig(), prm))
     state = convert.lm_train_state_from_numpy(rstate, tc, "cpu")
     leaf = state.params["blocks"]["pos0"]
-    assert set(leaf) >= ({"mamba"} if rc.ssm else {"ffn"})
+    kind = rc.layer_pattern[0]
+    assert set(leaf) >= {"ssd": {"mamba"}, "rglru": {"rec"}}.get(kind,
+                                                                  {"ffn"})
+    if rc.family == "vlm":
+        gate = state.params["blocks"]["pos4"]["xattn"]["gate"]
+        assert gate.shape == (1,) and float(gate[0]) != 0.0
+    if kind == "rglru":
+        assert leaf["rec"]["w_a"].shape == (1, 4, 16, 16)
     host = convert.lm_train_state_to_numpy(state)
     for (pa, a), (_, b) in zip(
             jax.tree_util.tree_flatten_with_path(rstate)[0],

@@ -4,7 +4,11 @@ over three steps (AdamW, SGD, microbatches, gradient compression), remat,
 bfloat16 training, the LM online-adapt FSM and the launcher.
 
 The state comes from a numpy seed with the reference's initialisers, each
-layer's from its own spec (``np_params``). Tolerances (float32 compute):
+layer's from its own spec (``np_params``), with the leaves whose constant
+inits would hide a fault moved off them (a CROSS layer's ``gate`` and
+``ffn_gate``, zeros, zero its branches' gradients; the RG-LRU's
+``conv_b``, ``b_a``, ``b_x``, ``lambda_p``). A vlm batch carries
+``cross_embeds``. Tolerances (float32 compute):
 * the loss: |port - ref| <= 1e-5 * |ref|;
 * the flash backward's dq, dk, dv, every gradient leaf, and the
   parameters and moments after each of 3 steps: max |port - ref| <= 1e-4
@@ -54,6 +58,7 @@ TOL_BF16 = 3e-2
 DENSE = ["granite_8b", "gemma3_1b", "phi3_medium_14b", "qwen25_14b",
          "musicgen_medium"]
 MOE_SSD = ["olmoe_1b_7b", "arctic_480b", "mamba2_780m"]
+RGLRU_CROSS = ["recurrentgemma_9b", "llama32_vision_11b"]
 B, S = 2, 32
 
 
@@ -61,8 +66,12 @@ def np_params(rc, seed: int, per_layer: bool = True) -> dict:
     """Parameters from a numpy seed with the reference's initialisers,
     drawn leaf by leaf in sorted path order. ``per_layer``: a stacked
     leaf's fan-in is that of one layer's spec (as for the unstacked
-    remainder layers), not ``materialize``'s leading super-block count."""
+    remainder layers), not ``materialize``'s leading super-block count.
+    The CROSS gates and the RG-LRU's constant-init leaves get U(-1, 1)
+    added, from a second generator (the other leaves' draws are as
+    before)."""
     rng = np.random.default_rng(seed)
+    off = np.random.default_rng([seed, 1])
     specs = RT.model_specs(rc)
     flat = jax.tree_util.tree_flatten_with_path(
         specs, is_leaf=lambda s: isinstance(s, RP.PSpec))[0]
@@ -79,6 +88,11 @@ def np_params(rc, seed: int, per_layer: bool = True) -> dict:
             x = s.scale / np.sqrt(fan_in) * rng.standard_normal(s.shape)
         else:
             x = s.scale * rng.standard_normal(s.shape)
+        keys = [k.key for k in path]
+        if keys[-1] in ("gate", "ffn_gate") or (
+                "rec" in keys and keys[-1] in ("conv_b", "b_a", "b_x",
+                                               "lambda_p")):
+            x = x + off.uniform(-1.0, 1.0, s.shape)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k.key, {})
@@ -89,10 +103,16 @@ def np_params(rc, seed: int, per_layer: bool = True) -> dict:
 def np_batch(rc, seed: int, b: int = B, s: int = S) -> dict:
     rng = np.random.default_rng(seed)
     if rc.embeds_input:
-        return {"embeds": (0.02 * rng.standard_normal(
+        out = {"embeds": (0.02 * rng.standard_normal(
             (b, s, rc.d_model))).astype(np.float32),
             "labels": rng.integers(0, rc.vocab_size, (b, s)).astype(np.int32)}
-    return {"tokens": rng.integers(0, rc.vocab_size, (b, s)).astype(np.int32)}
+    else:
+        out = {"tokens": rng.integers(0, rc.vocab_size, (b, s)).astype(
+            np.int32)}
+    if rc.family == "vlm":
+        out["cross_embeds"] = (0.5 * rng.standard_normal(
+            (b, rc.n_cross_tokens, rc.d_model))).astype(np.float32)
+    return out
 
 
 def _cfgs(arch, **kw):
@@ -218,13 +238,17 @@ def _port_grads(tc, tree, batch, dtype=None, num_groups=1):
                       T.map(torch.tensor, batch))
 
 
-@pytest.mark.parametrize("arch,chunk", [(a, 512) for a in DENSE + MOE_SSD]
-                         + [("gemma3_1b", 8)])
+@pytest.mark.parametrize("arch,chunk", [(a, 512) for a in DENSE + MOE_SSD
+                                        + RGLRU_CROSS]
+                         + [("gemma3_1b", 8), ("recurrentgemma_9b", 8)])
 def test_loss_and_grads_match_reference(arch, chunk):
     """The five dense smoke configs (S = 32, the dense attention path),
     gemma3 with attn_chunk 8 (every layer on the streaming path), the two
     MoE configs (the router aux loss in the loss; the gradients through
-    the dispatch and the gates) and mamba2 (two 16-token SSD chunks)."""
+    the dispatch and the gates), mamba2 (two 16-token SSD chunks),
+    recurrentgemma (the RG-LRU scan's backward; with attn_chunk 8 its
+    LOCAL layer streams) and llama-vision (the gradients of the CROSS
+    layer's weights and gates, and through ``cross_embeds``' projections)."""
     _loss_and_grads(arch, chunk, 1)
 
 
@@ -367,10 +391,13 @@ def test_train_step_three_steps_match_reference(case):
                          [(a, c) for a in MOE_SSD
                           for c in ("adamw", "microbatches")]
                          + [("olmoe_1b_7b", "moe_groups"),
-                            ("arctic_480b", "moe_groups")])
+                            ("arctic_480b", "moe_groups")]
+                         + [(a, c) for a in RGLRU_CROSS
+                            for c in ("adamw", "microbatches")])
 def test_moe_ssd_train_steps_match_reference(arch, case):
-    """The MoE and SSD smoke configs, 3 AdamW steps as the gemma3 test:
-    one batch a step, two microbatches a step, and (MoE) two dispatch
+    """The MoE, SSD, RG-LRU and vlm smoke configs, 3 AdamW steps as the
+    gemma3 test: one batch a step, two microbatches a step (a vlm's
+    ``cross_embeds`` split along B with its tokens), and (MoE) two dispatch
     groups (``moe_num_groups``, whose per-group capacity drops other
     slots). The embeddings of these configs carry gradients at noise
     level, which AdamW moves by about lr whatever their size: such
@@ -647,11 +674,17 @@ def test_launch_train_on_cpu_resumes(tmp_path):
     assert report.steps_run == 2 and int(state.opt.step) == 6
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m"])
-def test_launch_train_moe_ssd_on_cpu(arch, tmp_path):
-    """``python -m repro_torch.launch.train --device cpu`` for the MoE and
-    SSD families: 2 steps and a checkpoint, then ``--layers 1`` (the depth
-    cut) for 2 fresh steps; finite losses."""
+@pytest.mark.parametrize("arch,layers", [
+    pytest.param(a, n, id=a) for a, n in (("olmoe-1b-7b", 1),
+                                         ("mamba2-780m", 1),
+                                         ("recurrentgemma-9b", 3),
+                                         ("llama-3.2-vision-11b", 5))])
+def test_launch_train_moe_ssd_on_cpu(arch, layers, tmp_path):
+    """``python -m repro_torch.launch.train --device cpu`` for the MoE,
+    SSD, RG-LRU and vlm families (the vlm's ``data.synthetic`` batches
+    carry ``cross_embeds``): 2 steps and a checkpoint, then ``--layers``
+    cut to one super-block (the depth cut; one layer where the pattern is
+    one layer) for 2 fresh steps; finite losses."""
     from repro_torch.launch import train
 
     args = ["--arch", arch, "--device", "cpu", "--seq", "32",
@@ -659,7 +692,8 @@ def test_launch_train_moe_ssd_on_cpu(arch, tmp_path):
     state, report = train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
     assert report.steps_run == 2 and all(np.isfinite(report.losses))
     state, report = train.main(args + ["--ckpt-dir", str(tmp_path / "b"),
-                                       "--layers", "1"])
+                                       "--layers", str(layers)])
     assert report.steps_run == 2 and all(np.isfinite(report.losses))
     assert set(state.params["blocks"]["pos0"]) >= {"ln1"}
     assert T.leaves(state.params["blocks"])[0].shape[0] == 1
+    assert "rem" not in state.params
