@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-from DIR
+    python3 chip_smoke.py --tm-from DIR
 
 The second form imports the port from DIR (a tree's ``src``, this one's
 or a parent's unpacked beside it, to time both trees' kernels with one
@@ -10,7 +11,11 @@ script on one card) and runs only phases 1-3's K1-K4, K8 and K9 part, the
 launch floor, the times of the two K7 byte entries, of K5, K6 and the two
 K7 word entries (each held to its plain version first), and two serves
 (the packed K = 1 service and the packed K = 16 tunable fleet, 1024 rows,
-on random banks); it prints no ok line.
+on random banks); it prints no ok line. The third imports the port from
+DIR likewise and runs only the TM service's phases ``fleet``,
+``fleet_iris``, ``tunable``, ``residency`` and ``profile_fleet`` (their
+checks included), to hold two trees' service readings against each
+other on one card; it prints no ok line.
 
 Phases, each with its seconds:
 
@@ -115,7 +120,17 @@ Phases, each with its seconds:
    must launch as the code implies. Then ``traffic``: the iris
    service at the reference's traffic geometry (K = 4 producers) with an
    adapting tuner, steady and fault_injected threaded on the card, each
-   replayed from one thread to the same fingerprint. Then ``lm``: the
+   replayed from one thread to the same fingerprint. Then ``mesh``
+   (``phase_mesh``): the replica-axis mesh, 4 slabs on card 0 (and all
+   the cards where there are several), each sharded run bitwise against
+   the same run without a mesh: the packed K = 256 MNIST fleet at f = 784
+   (resident ticks, calibration, K7 serves on words; then
+   ``resident="auto"``: the trajectory and the residency map),
+   ``CrossValRun(mesh).sweep`` on iris at 120 orderings x 2 x 2 and at 4
+   orderings x 2 cells (one gathered stream row a replica), and an
+   unpacked K = 16 tunable fleet (K7 on bytes); it prints the sharded
+   runs' K3/K4/K6/K7/K9 launches (each > 0) and a tick's ms with and
+   without the slabs. Then ``lm``: the
    dense LM serving path (``phase_lm``; no CUDA kernel of its own):
    gemma3-1b at full width and depth, bf16, through ``Engine.generate``
    (4 x 1024-token prompts, 64 new tokens: the streaming-softmax prefill
@@ -2207,6 +2222,278 @@ def phase_tunable(torch, np, ce, fb):
           "the sum of its calls' counts")
     check(all(v > 0 for v in launched.values()),
           "a K7 entry never launched on the tunable path")
+    return launched
+
+
+# The replica-axis mesh (phase ``mesh``): four slabs of the replica axis on
+# one card (the port's counterpart of the reference's forced host devices),
+# and on every card where there are several.
+MESH_SLABS = 4
+MESH_K = 256                    # the packed MNIST fleet, f = 784
+MESH_TICKS = 2                  # resident ticks of MESH_CHUNK points
+MESH_CHUNK = 8
+MESH_AUTO_ACTIVE = (8, 8, 8, 24, 24)   # "auto": active replicas a round
+MESH_TUNE_K = 16                # the unpacked tunable fleet (K7 on bytes)
+MESH_ORDERINGS = 120            # the paper's sweep, a 2 x 2 grid
+MESH_EPOCHS = 3
+MESH_KERNELS = ("clause_counts_replicated", "clause_counts_batch_replicated",
+                "clause_counts_batch_replicated_packed",
+                "clause_counts_batch_pruned_replicated",
+                "clause_counts_batch_pruned_replicated_packed",
+                "feedback_plane_replicated")
+
+
+def _mesh_fleet(torch, np, cfg, bank, mesh, resident, data, dev, timer):
+    """The MNIST fleet's flow, sharded over ``mesh`` or not: every member's
+    own stream through ``submit_rows`` and ``MESH_TICKS`` resident ticks
+    (each timed by ``timer``), calibration, a shared 1024-row serve at the
+    live budget 1.0 with vote weights and early exit, and a budgeted serve
+    at 0.5 (both K7 on words) -- or, with ``resident="auto"``, the rounds
+    of ``MESH_AUTO_ACTIVE`` active members and a ``serve_replicas`` (K6).
+    Returns the service and its outputs."""
+    from repro_torch.serve import (AdaptPolicy, ServiceConfig, TMService,
+                                   TunableConfig)
+
+    xs, ys, ev_x, ev_y, serve_x = data
+    K = MESH_K
+    auto = resident == "auto"
+    ports = ({} if auto else dict(
+        s=[FLEET_S[r % 4] for r in range(K)],
+        T=[FLEET_T[(r // 4) % 4] for r in range(K)]))
+    svc = TMService(cfg, bank, ServiceConfig(
+        replicas=K, packed=True, buffer_capacity=64, chunk=MESH_CHUNK,
+        ingress_block=MESH_CHUNK, seed=SEED, mesh=mesh, resident=resident,
+        policy=AdaptPolicy(analyze_every=32),
+        tunable=None if auto else TunableConfig(weight_bits=4,
+                                                early_exit=True),
+        **({"s": 3.0, "T": 15} if auto else ports)),
+        eval_x=ev_x, eval_y=ev_y, device=dev)
+    out = {}
+    if auto:
+        rng = np.random.default_rng(SEED + 11)
+        traj = []
+        for r, n in enumerate(MESH_AUTO_ACTIVE):
+            mask = np.zeros(K, dtype=bool)
+            mask[rng.choice(K, n, replace=False)] = True
+            i = (r * 13) % len(xs)
+            svc.submit_rows(xs[i], int(ys[i]), mask)
+            svc.tick()
+            traj.append(svc.n_resident)
+        out["trajectory"] = traj
+        sub = np.arange(0, K, 9)
+        out["served"] = svc.serve_replicas(sub, serve_x[:256])
+        return svc, out
+    idx = (np.arange(len(xs))[None, :MESH_TICKS * MESH_CHUNK]
+           + 7 * np.arange(K)[:, None]) % len(xs)
+    ticks = []
+    for t in range(MESH_TICKS):
+        for i in range(t * MESH_CHUNK, (t + 1) * MESH_CHUNK):
+            svc.submit_rows(xs[idx[:, i]], ys[idx[:, i]])
+        with timer(ticks):
+            svc.tick()
+    out["tick_ms"] = ticks
+    out["scores"] = svc.calibrate()
+    out["served"] = svc.serve(serve_x)
+    preds, aux = svc.serve(serve_x[:256], budget=0.5, return_aux=True)
+    out.update(pruned=preds, evaluated=aux.evaluated)
+    return svc, out
+
+
+def _mesh_tunable_bytes(torch, np, cfg, bank, mesh, data, dev):
+    """An unpacked K = 16 tunable fleet on random banks: one drained tick,
+    calibrate, a budgeted, weighted, early-exit serve (K7 on bytes) and
+    a plain serve (K4)."""
+    from repro_torch.serve import ServiceConfig, TMService, TunableConfig
+
+    xs, ys, ev_x, ev_y, serve_x = data
+    K = MESH_TUNE_K
+    svc = TMService(cfg, bank, ServiceConfig(
+        replicas=K, buffer_capacity=16, chunk=8, seed=SEED + 1, mesh=mesh,
+        s=3.0, T=15,
+        tunable=TunableConfig(budget=0.5, weight_bits=4, early_exit=True)),
+        eval_x=ev_x, eval_y=ev_y, device=dev)
+    for i in range(8):
+        svc.submit_rows(xs[i:i + K], ys[i:i + K])
+    svc.tick(8)
+    scores = svc.calibrate()
+    preds, aux = svc.serve(serve_x[:256], budget=0.5, return_aux=True)
+    return svc, dict(scores=scores, pruned=preds, evaluated=aux.evaluated,
+                     plain=svc.serve(serve_x[:256]), acc=svc.analyze())
+
+
+def _mesh_sweeps(torch, np, cfg, mesh, dev):
+    """``CrossValRun.sweep`` on iris: the paper's 120 orderings over a
+    2 x 2 grid (R = 480, slabs of 120: each reads its streams as they
+    are) and 4 orderings over a 2-cell grid (R = 8, slabs of 2: one
+    gathered stream row a replica)."""
+    from repro_torch.data import blocks
+    from repro_torch.eval.crossval import CrossValRun
+
+    out = []
+    for O, s_vals, epochs in ((MESH_ORDERINGS, (1.375, 3.0), MESH_EPOCHS),
+                              (4, (1.375,), 2)):
+        osets, _ = blocks.iris_paper_sets(n_orderings=O)
+        res = CrossValRun(cfg, device=dev if mesh is None else None,
+                          mesh=mesh).sweep(
+            osets.offline_x, osets.offline_y, osets.validation_x,
+            osets.validation_y, s_vals, (5, 15), n_epochs=epochs, seed=SEED)
+        out.append(res)
+    return out
+
+
+def phase_mesh(torch, np, ce, fb, smi: str, dev: str = "cuda"):
+    """The replica-axis mesh on the card: each sharded run below held
+    bitwise (``torch.equal`` / ``np.array_equal``) to the same run without
+    a mesh on the card, over ``MESH_SLABS`` slabs laid on card 0 (and, with
+    more than one card, over a mesh of all of them):
+
+    * the full-width MNIST fleet (f = 784, packed, K = 256, random banks,
+      per-replica s and T): resident ticks, a shared serve, calibration
+      and a budgeted serve (K7 on words); banks, rings, step counters,
+      keys, history and predictions; then ``resident="auto"`` on sparse
+      rounds: the logical fleet, the ``n_resident`` trajectory, the
+      residency map and ``serve_replicas``;
+    * ``CrossValRun(mesh).sweep`` on iris at 120 orderings over 2 x 2 and
+      at 4 orderings over 2 cells (the gathered-stream path);
+    * an unpacked tunable fleet (K7 on bytes, K4).
+
+    Prints each replicated kernel's launches on the sharded runs alone
+    (each must be > 0) and a resident tick's ms without a mesh and with
+    the slabs on one card."""
+    import contextlib
+
+    from repro_torch.configs import tm_iris, tm_mnist
+    from repro_torch.core import TMState
+    from repro_torch.data import mnist
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def timer(into):
+        sync()
+        t = time.perf_counter()
+        yield
+        sync()
+        into.append((time.perf_counter() - t) * 1e3)
+
+    cfg = tm_mnist.CONFIG.tm
+    xs, ys = mnist.load(seed=SEED + 21, n_points=1024)
+    serve_x, _ = mnist.load(seed=SEED + 22, n_points=1024)
+    data = (xs[:768], ys[:768], xs[768:], ys[768:], serve_x)
+    rng = np.random.default_rng(SEED + 23)
+    bank = TMState(torch.from_numpy(rng.integers(
+        cfg.n_states - 2, cfg.n_states + 3,
+        (cfg.max_classes, cfg.max_clauses, cfg.n_literals)).astype(np.int8)
+    ).to(dev))
+    meshes = [("4 slabs on one card", Mesh([dev] * MESH_SLABS, ("data",)))]
+    if dev == "cuda" and torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards",
+                       make_host_mesh()))
+    launched = dict.fromkeys(MESH_KERNELS, 0)
+    seconds = collections.defaultdict(float)    # wall s of each part
+
+    def run(part, fn, *args, count=False):
+        before = counters(ce, fb)
+        sync()
+        t = time.perf_counter()
+        out = fn(*args)
+        sync()
+        seconds[("sharded " if count else "unsharded ") + part] += (
+            time.perf_counter() - t)
+        if count:
+            after = counters(ce, fb)
+            for k in MESH_KERNELS:
+                launched[k] += after[k] - before[k]
+        return out
+
+    def sharded(part, fn, *args):
+        return run(part, fn, *args, count=True)
+
+    def same(a, b) -> bool:
+        if torch.is_tensor(a):
+            return torch.equal(a.cpu(), b.cpu())
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        return a.shape == b.shape and np.array_equal(a, b)
+
+    def same_fleet(a, b) -> bool:
+        sa, sb = a.ss, b.ss
+        return (all(same(x, y) for x, y in zip(
+                    (sa.tm.ta_state, *sa.buf, sa.step),
+                    (sb.tm.ta_state, *sb.buf, sb.step)))
+                and same(a.rng_keys, b.rng_keys) and same(a.steps, b.steps)
+                and len(a.history) == len(b.history) and all(
+                    same(x[1], y[1]) for x, y in zip(a.history, b.history)))
+
+    t0 = time.perf_counter()
+    iris_cfg = tm_iris.CONFIG.tm
+    tbank = TMState(torch.from_numpy(rng.integers(
+        cfg.n_states - 2, cfg.n_states + 3,
+        (cfg.max_classes, cfg.max_clauses, cfg.n_literals)).astype(np.int8)
+    ).to(dev))
+    plain, p_out = run("fleet", _mesh_fleet, torch, np, cfg, bank, None,
+                       None, data, dev, timer)
+    plain_auto, pa_out = run("auto", _mesh_fleet, torch, np, cfg, bank,
+                             None, "auto", data, dev, timer)
+    p_sweeps = run("sweeps", _mesh_sweeps, torch, np, iris_cfg, None, dev)
+    p_tune, pt_out = run("tunable", _mesh_tunable_bytes, torch, np, cfg,
+                         tbank, None, data, dev)
+    for label, mesh in meshes:
+        slabs = len(mesh.devices.reshape(-1))
+        shd, s_out = sharded("fleet", _mesh_fleet, torch, np, cfg, bank,
+                             mesh, None, data, dev, timer)
+        check(len(shd._slabs) == slabs, f"mesh {label}: fleet not sharded")
+        check(same_fleet(plain, shd) and all(
+                  same(p_out[k], s_out[k]) for k in
+                  ("served", "scores", "pruned", "evaluated")),
+              f"mesh {label}: the sharded MNIST fleet differs from the "
+              "unsharded one")
+        shd_a, sa_out = sharded("auto", _mesh_fleet, torch, np, cfg, bank,
+                                mesh, "auto", data, dev, timer)
+        check(pa_out["trajectory"] == sa_out["trajectory"]
+              and same_fleet(plain_auto, shd_a)
+              and same(plain_auto.resident, shd_a.resident)
+              and same(plain_auto._res.slot_of, shd_a._res.slot_of)
+              and same(pa_out["served"], sa_out["served"])
+              and plain_auto.repartitions == shd_a.repartitions > 0,
+              f"mesh {label}: the sharded auto-residency fleet differs "
+              "from the unsharded one")
+        sweeps = sharded("sweeps", _mesh_sweeps, torch, np, iris_cfg, mesh,
+                         dev)
+        check(all(same(a.val_accuracy, b.val_accuracy)
+                  and same(a.mean_accuracy, b.mean_accuracy)
+                  for a, b in zip(p_sweeps, sweeps)),
+              f"mesh {label}: a sharded sweep differs from the unsharded "
+              "one")
+        tune, t_out = sharded("tunable", _mesh_tunable_bytes, torch, np,
+                              cfg, tbank, mesh, data, dev)
+        check(same_fleet(p_tune, tune) and all(
+                  same(pt_out[k], t_out[k]) for k in pt_out),
+              f"mesh {label}: the sharded tunable fleet differs from the "
+              "unsharded one")
+        print(f"mesh {label}: MNIST fleet K={MESH_K} f={cfg.n_features} "
+              f"packed ({MESH_TICKS} resident ticks, serve, calibrate, K7 "
+              f"serve), auto trajectory {sa_out['trajectory']}, sweeps R = "
+              f"{[s.replicas for s in sweeps]}, tunable K={MESH_TUNE_K}: "
+              "bitwise == unsharded: True", flush=True)
+        if label.startswith("4 slabs"):
+            tick_ms = (_median(p_out["tick_ms"]), _median(s_out["tick_ms"]))
+    check(all(launched[k] > 0 for k in MESH_KERNELS),
+          f"mesh: a replicated kernel never launched on the sharded path: "
+          f"{launched}")
+    print(f"mesh launches on the sharded runs: {json.dumps(launched)}",
+          flush=True)
+    print(f"mesh tick ms (K={MESH_K} f={cfg.n_features} packed, "
+          f"{MESH_CHUNK} points a replica, median of {MESH_TICKS}): "
+          f"unsharded {tick_ms[0]:.3f}, {MESH_SLABS} slabs on one card "
+          f"{tick_ms[1]:.3f}; {smi}", flush=True)
+    print(f"mesh phase body {time.perf_counter() - t0:.2f} s; by part: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()),
+          flush=True)
     return launched
 
 
@@ -4653,9 +4940,15 @@ def main() -> int:
                     "only the device, build, parity and parity_replicated "
                     "phases, the launch floor and the K7 byte timings, "
                     "and stop (no ok line)")
+    ap.add_argument("--tm-from", type=Path, metavar="DIR",
+                    help="import repro_torch from DIR (a tree's src/), run "
+                    "only the device, build, fleet, fleet_iris, tunable, "
+                    "residency and profile_fleet phases (the TM service's "
+                    "readings, to hold two trees against each other), and "
+                    "stop (no ok line)")
     args = ap.parse_args()
     started = time.perf_counter()
-    src = args.kernels_from or ROOT / "src"
+    src = args.kernels_from or args.tm_from or ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources ({src}/repro_torch) are "
               "not there", file=sys.stderr)
@@ -4694,6 +4987,13 @@ def main() -> int:
         print(f"phase {name}: {time.perf_counter() - t:.2f} s", flush=True)
         return out
 
+    if args.tm_from:
+        timed("fleet", phase_fleet, torch, np, ce, fb)
+        timed("fleet_iris", phase_fleet_iris, torch, np, ce, fb)
+        timed("tunable", phase_tunable, torch, np, ce, fb)
+        timed("residency", phase_residency, torch, np, ce, fb)
+        timed("profile_fleet", phase_profile_fleet, torch, np)
+        return 0
     recs = timed("parity", phase_parity, torch, np, ce, fb)
     recs += timed("parity_replicated", phase_parity_replicated, torch, np,
                   ce, fb)
@@ -4724,6 +5024,7 @@ def main() -> int:
     launches.update(timed("tunable", phase_tunable, torch, np, ce, fb))
     timed("residency", phase_residency, torch, np, ce, fb)
     timed("traffic", phase_traffic, torch, np, ce, fb)
+    timed("mesh", phase_mesh, torch, np, ce, fb, smi)
     timed("lm", phase_lm, torch, np)
     timed("lm_train", phase_lm_train, torch, np)
     timed("lm_moe_ssd", phase_lm_moe_ssd, torch, np)

@@ -3,7 +3,8 @@
 Every (ordering x s x T) replica is an independent TM.
 :func:`grid_search` is a thin caller of the replica-first engine
 (:class:`repro_torch.eval.crossval.CrossValRun`), which runs the whole
-sweep over one leading replica axis on one card. :func:`_one_cell` is the
+sweep over one leading replica axis on one card, or in slabs over a
+device mesh (``mesh=``). :func:`_one_cell` is the
 per-cell semantics the engine is held to.
 
 The reference also keeps ``grid_search_device``, its pre-engine program
@@ -46,12 +47,13 @@ def _one_cell(cfg: TMConfig, s, T, off_x, off_y, val_x, val_y,
 
 def grid_search(cfg: TMConfig, s_values, T_values, off_x, off_y, val_x,
                 val_y, *, n_epochs: int = 10, seed: int = 0,
-                device=None) -> GridResult:
+                mesh=None, device=None) -> GridResult:
     """The full (s x T x orderings) sweep on the replica-first engine;
-    bitwise looping :func:`_one_cell` over every cell."""
+    bitwise looping :func:`_one_cell` over every cell. ``mesh`` shards
+    the replica axis (:class:`~repro_torch.eval.crossval.CrossValRun`)."""
     from repro_torch.eval.crossval import CrossValRun
 
-    res = CrossValRun(cfg, device=device).sweep(
+    res = CrossValRun(cfg, device=device, mesh=mesh).sweep(
         off_x, off_y, val_x, val_y, s_values, T_values,
         n_epochs=n_epochs, seed=seed,
     )

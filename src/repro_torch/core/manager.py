@@ -203,14 +203,16 @@ def run_system(cfg: TMConfig, sys_cfg: SystemConfig, state: TMState,
 
 def run_orderings(cfg: TMConfig, sys_cfg: SystemConfig, states: TMState,
                   rt: TMRuntime, sets: Sets, schedule: Schedule,
-                  keys: torch.Tensor):
+                  keys: torch.Tensor, mesh=None):
     """All cross-validation orderings at once, through the replica-first
     engine: a thin caller of :meth:`CrossValRun.system`. ``states`` and
     every leaf of ``sets`` carry a leading ordering axis; ``keys`` is
     [O, 2]. Bitwise :func:`run_system` per ordering, activity within a
-    float reduction's rounding."""
+    float reduction's rounding. ``mesh`` shards the ordering axis; the
+    results are gathered on the states' device."""
     from repro_torch.eval.crossval import CrossValRun
 
-    res = CrossValRun(cfg, device=states.ta_state.device).system(
+    res = CrossValRun(cfg, device=states.ta_state.device,
+                      mesh=mesh).system(
         sys_cfg, states, rt, sets, schedule, keys)
     return res.state, res.accuracies, res.activity

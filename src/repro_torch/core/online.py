@@ -124,7 +124,7 @@ def gather_replicas_issue(tree, idx) -> PendingGather:
 
     host = T.map(to_pinned, rows)
     event = torch.cuda.Event()
-    event.record()
+    event.record(torch.cuda.current_stream(dev))
     return PendingGather(host, event)
 
 
@@ -182,6 +182,49 @@ def activate_replicas(plane, act_plane, mask):
                  act_plane, plane)
 
 
+# ---------------------------------------------------------------------------
+# Slabs of a sharded plane (a mesh: rows [lo, hi) of the replica axis on one
+# device each; see repro_torch.distributed.sharding)
+# ---------------------------------------------------------------------------
+
+
+def slab_runtime(rt: TMRuntime, lo: int, hi: int, device) -> TMRuntime:
+    """``rt`` for the plane rows [lo, hi) on ``device``: [R] s/T ports
+    sliced to the slab, 0-dim ports kept, the slices and the shared masks
+    on the slab's device (no copy where they are there already)."""
+    def port(p):
+        p = torch.as_tensor(p)
+        return p[lo:hi].to(device) if p.ndim == 1 else p
+
+    return rt._replace(
+        s=port(rt.s), T=port(rt.T),
+        clause_mask=rt.clause_mask.to(device),
+        class_mask=rt.class_mask.to(device),
+        ta_and_mask=rt.ta_and_mask.to(device),
+        ta_or_mask=rt.ta_or_mask.to(device))
+
+
+def read_sizes(bufs) -> np.ndarray:
+    """The ring sizes of several slabs' buffers as one host int64 array,
+    with one wait per device rather than one per slab: on a card each
+    slab's sizes copy into pinned memory without blocking, then one event
+    per device is recorded after its copies and awaited."""
+    sizes = [b.size for b in bufs]
+    host = []
+    for a in sizes:
+        h = torch.empty(a.shape, dtype=a.dtype, pin_memory=a.is_cuda)
+        h.copy_(a, non_blocking=True)
+        host.append(h)
+    events = []
+    for d in dict.fromkeys(a.device for a in sizes if a.is_cuda):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        events.append(ev)
+    for ev in events:
+        ev.synchronize()
+    return np.concatenate([h.numpy() for h in host]).astype(np.int64)
+
+
 def _feedback_rows(cfg: TMConfig, x: torch.Tensor) -> torch.Tensor:
     """Popped rows as bool features: packed rows unpack once here."""
     return packing.unpack_bits(x, cfg.n_features) if tm_mod.is_packed(x) \
@@ -235,7 +278,8 @@ def _consume_many(cfg: TMConfig, k: int, ss: SessionState, rt: TMRuntime,
 
 def _consume_many_replicated(cfg: TMConfig, k: int, ss: SessionState,
                              rt: TMRuntime, limit: np.ndarray,
-                             keys: torch.Tensor, *, monitor: bool = True
+                             keys: torch.Tensor, *, monitor: bool = True,
+                             size: Optional[np.ndarray] = None
                              ) -> tuple[SessionState, np.ndarray,
                                         Optional[ChunkAux]]:
     """Drain up to ``min(k, limit[r], buffered[r])`` rows from every
@@ -252,14 +296,18 @@ def _consume_many_replicated(cfg: TMConfig, k: int, ss: SessionState,
     The host reads the ring sizes once, so it knows every replica's row
     count n = min(k, limit, size) before the loop; the valid masks of all
     steps cross to the card in one copy, and the loop runs max(n) steps
-    (the reference's later steps are all masked). Replica r is bitwise
-    :func:`_consume_many` on (ss[r], limit[r], keys[r]). Returns (state,
-    n [R] host int64, aux [R, k] or None).
+    (the reference's later steps are all masked). A masked step leaves a
+    replica's bank, ring and step counter as they were, so a slab of a
+    sharded plane may loop to its own max(n); ``size`` passes ring sizes
+    the caller already read (:func:`read_sizes`, one wait for all slabs).
+    Replica r is bitwise :func:`_consume_many` on (ss[r], limit[r],
+    keys[r]). Returns (state, n [R] host int64, aux [R, k] or None).
     """
     R = ss.step.shape[0]
     dev = ss.step.device
     step_keys = rnd.split(keys, k).transpose(0, 1)            # [k, R, 2]
-    size = ss.buf.size.cpu().numpy().astype(np.int64)
+    if size is None:
+        size = ss.buf.size.cpu().numpy().astype(np.int64)
     n = np.minimum(np.minimum(k, np.asarray(limit, np.int64)),
                    np.maximum(size, 0))
     m = int(n.max(initial=0))

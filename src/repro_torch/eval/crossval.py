@@ -22,24 +22,36 @@ Results are bitwise the reference's ``repro.eval.crossval`` (and looping
 runs the paper's Fig-3 flow for all orderings at once:
 :meth:`CrossValRun.system`, which ``manager.run_orderings`` calls.
 
-The reference can shard the replica axis over a device mesh; the port runs
-on one card (``device``), and multi-GPU sharding is later work.
+``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) shards the replica axis
+as the reference does, through
+:func:`repro_torch.distributed.sharding.replica_shardings`: the full-R
+leaves go in contiguous slabs, one per mesh device. The per-plane code
+then runs once per slab, on that slab's device, and the results are
+gathered before any reduction across replicas, so every number keeps its
+bits. In the sweep only the per-replica ports (s, T) are slabbed; each
+slab takes the rows of the whole per-ordering streams that it reads
+(:func:`_slab_streams`): all of them where the ordering count divides the
+slab, else one row per replica, ``(r0 + j) % O``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import random as rnd
+from repro_torch import tree as T
 from repro_torch.core import accuracy as acc_mod
 from repro_torch.core import feedback as fb_mod
 from repro_torch.core import manager as mgr
 from repro_torch.core import tm as tm_mod
+from repro_torch.core.online import slab_runtime
 from repro_torch.core.tm import TMConfig, TMRuntime, TMState
+from repro_torch.distributed import sharding as shard_mod
+from repro_torch.launch.mesh import Mesh
 
 
 class SweepResult(NamedTuple):
@@ -89,9 +101,20 @@ def _on(x, dtype, dev) -> torch.Tensor:
     return x.to(dev, dtype)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _slab_streams(streams, lo: int, hi: int, D: int):
+    """The per-stream leaves (leading D) that slab rows [lo, hi) read.
+    Replica r reads stream r % D; where D divides both ``lo`` and the slab
+    length, local row j's j % D is that stream already. Otherwise one row
+    is gathered per replica, stream ``(lo + j) % D``, and the slab runs
+    with a local D of ``hi - lo``."""
+    if lo % D == 0 and (hi - lo) % D == 0:
+        return streams
+
+    def take(a):
+        idx = torch.arange(lo, hi, device=a.device) % D
+        return a.index_select(0, idx)
+
+    return T.map(take, streams)
 
 
 def _analyze_all_replicated(cfg, state, ctl: mgr.CycleCtl) -> torch.Tensor:
@@ -108,14 +131,31 @@ def _analyze_all_replicated(cfg, state, ctl: mgr.CycleCtl) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class CrossValRun:
     """The cross-validation engine on one card (``device``, default the
-    card; ``"cpu"`` runs the plain versions)."""
+    card; ``"cpu"`` runs the plain versions), or sharded over ``mesh``:
+    the replica axis in slabs over the mesh's ``data`` axis, each slab run
+    on its own device (``device`` then defaults to the first slab's, where
+    the results are gathered)."""
 
     cfg: TMConfig
     device: object = None
+    mesh: Optional[Mesh] = None
+
+    def __post_init__(self):
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch Mesh, got "
+                            f"{type(self.mesh).__name__}")
 
     @property
     def dev(self) -> torch.device:
+        if self.device is None and self.mesh is not None:
+            return shard_mod.slab_devices(self.mesh)[0]
         return tm_mod.resolve_device(self.device)
+
+    def _put(self, tree, n_replicas: int) -> list:
+        """``tree`` as slabs of the replica axis: the full-R leaves sharded
+        over the mesh and the per-stream leaves replicated (one slab on
+        the engine's device without a mesh)."""
+        return shard_mod.put_slabs(tree, self.mesh, n_replicas, self.dev)
 
     def sweep(self, off_x, off_y, val_x, val_y, s_values, T_values, *,
               n_epochs: int = 10, seed: int = 0,
@@ -139,15 +179,25 @@ class CrossValRun:
                else _on(offline_valid, torch.bool, dev))
         val = (_on(val_x, torch.bool, dev), _on(val_y, torch.int32, dev))
 
-        _sync(dev)
+        devices = self._devices()
+        shard_mod.sync(devices)
         t0 = time.perf_counter()
         keys = rnd.split(rnd.PRNGKey(seed, dev), O)
-        rt = tm_mod.init_runtime(cfg, device=dev)._replace(s=s_rep, T=T_rep)
-        state = replicate_state(cfg, R, dev)
-        state = fb_mod.train_epochs_replicated(
-            cfg, state, rt, off[0], off[1], keys, n_epochs, valid=off[2])
-        acc = acc_mod.analyze_replicated(cfg, state, rt, *val)
-        _sync(dev)
+        accs = []
+        for sl in self._put((s_rep, T_rep), n_replicas=R):
+            s_j, T_j = sl.tree
+            off_j, val_j, keys_j = T.map(
+                lambda a, _d=sl.device: a.to(_d),
+                _slab_streams((off, val, keys), sl.lo, sl.hi, O))
+            rt = tm_mod.init_runtime(cfg, device=sl.device)._replace(
+                s=s_j, T=T_j)
+            state = replicate_state(cfg, sl.hi - sl.lo, sl.device)
+            state = fb_mod.train_epochs_replicated(
+                cfg, state, rt, off_j[0], off_j[1], keys_j, n_epochs,
+                valid=off_j[2])
+            accs.append(acc_mod.analyze_replicated(cfg, state, rt, *val_j))
+        acc = torch.cat([a.to(dev) for a in accs])
+        shard_mod.sync(devices)
         wall = time.perf_counter() - t0
 
         val_accuracy = acc.reshape(S, G, O)
@@ -161,44 +211,68 @@ class CrossValRun:
             replicas_per_s=R / max(wall, 1e-9),
         )
 
+    def _devices(self) -> list:
+        return ([self.dev] if self.mesh is None
+                else [self.dev] + shard_mod.slab_devices(self.mesh))
+
     def system(self, sys_cfg: mgr.SystemConfig, states: TMState,
                rt: TMRuntime, sets: mgr.Sets, schedule: mgr.Schedule,
                keys: torch.Tensor) -> SystemResult:
         """All cross-validation orderings through the Fig-3 system flow:
-        states / sets leaves [O, ...] on the engine's device, rt shared
-        (scalar s/T, masks), keys [O, 2]. Bitwise ``manager.run_system``
-        per ordering (activity within a float reduction's rounding)."""
+        states / sets leaves [O, ...], rt shared (scalar s/T, masks), keys
+        [O, 2]. Bitwise ``manager.run_system`` per ordering (activity
+        within a float reduction's rounding). Under a mesh every leaf of
+        states, sets and keys is full-R (R = O), so each slab runs its
+        orderings' flow; the per-cycle accuracies and activities are
+        gathered before the mean over datapoints."""
         cfg, dev = self.cfg, self.dev
         O = keys.shape[0]
-        _sync(dev)
+        devices = self._devices()
+        shard_mod.sync(devices)
         t0 = time.perf_counter()
-        ks = rnd.split(keys)                               # [O, 2, 2]
-        k_off, k_onl = ks[:, 0], ks[:, 1]
+        slabs = self._put((states, sets, keys), n_replicas=O)
+        rts = [slab_runtime(rt, sl.lo, sl.hi, sl.device) for sl in slabs]
+        state, accs = [], []
 
         # --- offline training phase (cycle index -1) ---
-        ctl0 = schedule(-1, rt, sets)
-        state = fb_mod.train_epochs_replicated(
-            cfg, states, ctl0.rt, ctl0.sets.offline_x, ctl0.sets.offline_y,
-            k_off, sys_cfg.n_offline_epochs, valid=mgr.train_valid(ctl0.sets))
-        accs = [_analyze_all_replicated(cfg, state, ctl0)]
+        k_onl = []
+        for sl, rt_j in zip(slabs, rts):
+            st_j, sets_j, keys_j = sl.tree
+            ks = rnd.split(keys_j)                         # [O_j, 2, 2]
+            k_onl.append(ks[:, 1])
+            ctl0 = schedule(-1, rt_j, sets_j)
+            st_j = fb_mod.train_epochs_replicated(
+                cfg, st_j, ctl0.rt, ctl0.sets.offline_x,
+                ctl0.sets.offline_y, ks[:, 0], sys_cfg.n_offline_epochs,
+                valid=mgr.train_valid(ctl0.sets))
+            state.append(st_j)
+            accs.append([_analyze_all_replicated(cfg, st_j, ctl0)])
 
         # --- online cycles ---
         activity = []
         for cycle in range(sys_cfg.n_online_cycles):
-            ctl = schedule(cycle, rt, sets)
-            new_st, act = fb_mod.train_datapoints_replicated(
-                cfg, state, ctl.rt, ctl.sets.online_x, ctl.sets.online_y,
-                rnd.fold_in(k_onl, cycle), valid=ctl.sets.online_valid)
+            acts = []
+            for j, (sl, rt_j) in enumerate(zip(slabs, rts)):
+                ctl = schedule(cycle, rt_j, sl.tree[1])
+                new_st, act = fb_mod.train_datapoints_replicated(
+                    cfg, state[j], ctl.rt, ctl.sets.online_x,
+                    ctl.sets.online_y, rnd.fold_in(k_onl[j], cycle),
+                    valid=ctl.sets.online_valid)
+                enabled = torch.tensor(ctl.online_enabled, device=sl.device)
+                state[j] = TMState(torch.where(enabled, new_st.ta_state,
+                                               state[j].ta_state))
+                accs[j].append(_analyze_all_replicated(cfg, state[j], ctl))
+                acts.append(act.to(dev))
+            act = torch.cat(acts, dim=1)                   # [n, O]
             enabled = torch.tensor(ctl.online_enabled, device=dev)
-            state = TMState(torch.where(enabled, new_st.ta_state,
-                                        state.ta_state))
-            accs.append(_analyze_all_replicated(cfg, state, ctl))
             activity.append(torch.where(enabled, torch.mean(act, dim=0),
                                         0.0))
-        accuracies = torch.stack(accs, dim=1)              # [O, 1+cycles, 3]
+        accuracies = torch.cat([torch.stack(a, dim=1).to(dev)
+                                for a in accs])            # [O, 1+cycles, 3]
         act = (torch.stack(activity, dim=1) if activity
                else torch.zeros((O, 0), dtype=torch.float32, device=dev))
-        _sync(dev)
+        state = TMState(torch.cat([st.ta_state.to(dev) for st in state]))
+        shard_mod.sync(devices)
         return SystemResult(state=state, accuracies=accuracies,
                             activity=act, replicas=O,
                             wall_s=time.perf_counter() - t0)

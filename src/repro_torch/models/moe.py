@@ -10,8 +10,9 @@ renormalised gates. arctic-480b's ``dense_residual`` adds the
 architecture's parallel dense FFN.
 
 The reference's sharding hints (``hint``, ``setting`` from
-``distributed/autoshard.py``) are no-ops without a mesh, and the port has
-none, so they are left out.
+``distributed/autoshard.py``) are no-ops without a mesh, and the port's
+mesh shards the TM replica axis only (the LM half, ``autoshard`` with it,
+waits in ROADMAP queue 1), so they are left out.
 
 Where a straight translation would go wrong:
 * ``jax.lax.top_k`` puts the lower expert index first among equal

@@ -16,7 +16,7 @@ at once. Its bfloat16 products with ``preferred_element_type=float32``
 are computed here on float32 copies of the bfloat16 operands (the
 products of two bfloat16 numbers are exact in float32, and the sums are
 float32 in both). The sharding hints are no-ops without a mesh and are
-left out.
+left out (the LM half of the mesh waits in ROADMAP queue 1).
 
 Where the port departs from a straight translation:
 * the masked exponentials (the intra-chunk decay plane, the inter-chunk

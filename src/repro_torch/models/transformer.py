@@ -28,7 +28,8 @@ over the layers and ``loss_fn`` adds; decode and prefill drop it. A vlm
 batch carries ``cross_embeds`` [B, N, D] (the stub vision frontend's
 embeddings) for the forward and the prefill; decode reads them from the
 CROSS layers' caches. The sharding hints are no-ops without a mesh and
-are left out.
+are left out: the port's mesh shards the TM replica axis only, and the
+LM half (FSDP / TP over ``torch.distributed``) waits in ROADMAP queue 1.
 """
 from __future__ import annotations
 

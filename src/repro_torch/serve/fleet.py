@@ -5,8 +5,9 @@ map to the router-staged ``submit``/``submit_rows`` ingress, ``drain`` and
 ``infer`` to ``TMService.drain``/``serve``, ``save``/``restore`` to the
 service's. Replica r consumes exactly the
 RNG stream of ``OnlineSession(seed=seed[r])`` when ``seed`` is a sequence,
-so a fleet is bitwise K independent sessions. The port runs one card:
-there is no ``mesh``, and passing one raises.
+so a fleet is bitwise K independent sessions. ``mesh`` (a
+:class:`repro_torch.launch.mesh.Mesh`) shards the replica axis in slabs
+over its devices, bitwise the unsharded fleet.
 """
 from __future__ import annotations
 
@@ -31,17 +32,15 @@ class OnlineFleet:
 
     ``state`` is one machine's :class:`TMState` (copied to K banks) or a
     replicated ``[K, ...]`` one; ``seed`` an int (streams by ``fold_in``)
-    or a sequence of K ints. ``device`` defaults to the card.
+    or a sequence of K ints. ``device`` defaults to the card; ``mesh``
+    shards the replica axis (:class:`~repro_torch.serve.service.
+    ServiceConfig`).
     """
 
     def __init__(self, cfg: TMConfig, state: TMState, rt: TMRuntime, *,
                  n_replicas: Optional[int] = None, buffer_capacity: int = 64,
                  chunk: int = 16, seed: Union[int, Sequence[int]] = 0,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "OnlineFleet(mesh=...): the port runs the fleet on one "
-                "card; multi-GPU replica sharding is not ported")
         if n_replicas is None:
             if state.ta_state.ndim != 4:
                 raise ValueError(
@@ -49,7 +48,7 @@ class OnlineFleet:
             n_replicas = state.ta_state.shape[0]
         self._svc = TMService(cfg, state, ServiceConfig(
             replicas=n_replicas, buffer_capacity=buffer_capacity,
-            chunk=chunk, seed=seed,
+            chunk=chunk, seed=seed, mesh=mesh,
         ), rt=rt, device=device)
 
     @classmethod
@@ -65,6 +64,10 @@ class OnlineFleet:
     @property
     def cfg(self) -> TMConfig:
         return self._svc.cfg
+
+    @property
+    def mesh(self):
+        return self._svc.mesh
 
     @property
     def rt(self) -> TMRuntime:

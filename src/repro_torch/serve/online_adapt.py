@@ -138,14 +138,11 @@ class TMFleetAdaptManager(_Manager):
                  oc: Optional[TMOnlineAdaptConfig] = None,
                  seed: Union[int, Sequence[int]] = 0, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TMFleetAdaptManager(mesh=...): the port runs the fleet on "
-                "one card; multi-GPU replica sharding is not ported")
         self.oc = oc or TMOnlineAdaptConfig()
         self._svc = TMService(cfg, state, ServiceConfig(
             replicas=n_replicas, buffer_capacity=self.oc.buffer_capacity,
             chunk=self.oc.chunk, policy=self.oc.policy(), seed=seed,
+            mesh=mesh,
         ), rt=rt, eval_x=eval_x, eval_y=eval_y, device=device)
         self.fleet = OnlineFleet._from_service(self._svc)
 

@@ -45,8 +45,23 @@ serving or analysis reaches them. Snapshots leave the card through an
 index gather into pinned host memory, awaited by event only where the
 snapshot is read (``batched_moves=True``), or through blocking copies
 (``batched_moves=False``, the oracle); either way a replica's trajectory
-is bitwise its always-resident twin's. A mesh (multi-GPU sharding) is not
-ported and raises ``NotImplementedError``.
+is bitwise its always-resident twin's.
+
+A mesh (``ServiceConfig(mesh=...)``, a :class:`repro_torch.launch.mesh.
+Mesh`) shards the plane's replica axis as the reference does
+(:func:`repro_torch.distributed.sharding.replica_shardings`): contiguous
+slabs of rows, one per mesh device, each with its banks, rings, step
+counters and keys on its own device. Every per-plane body (enqueue,
+drain, serve, analysis, calibration, the policy's selects, the residency
+moves) runs once per slab on that slab's device; nothing crosses devices
+inside a step, and results are gathered on the host (or on the service's
+device) before anything reduces across replicas, so a sharded service is
+bitwise its unsharded twin. Under residency slot s lives on the device of
+slab ``s // (R / N)``, and ``"auto"`` plane widths round up to the mesh's
+device count. A plane whose length the mesh does not divide is one slab
+on the mesh's first device (the reference replicates it). Checkpoints are
+the full-K layout either way. The LM half of the mesh (FSDP / TP over
+``torch.distributed``) is not ported yet.
 
 Threading: ``submit``/``submit_rows`` are safe from any number of
 producer threads (they touch only the router's staging state and the
@@ -73,7 +88,9 @@ from repro_torch.core import tm as tm_mod
 from repro_torch.core.online import ChunkAux, SessionState
 from repro_torch.core.tm import TMConfig, TMRuntime, TMState, init_runtime
 from repro_torch.data import buffer as buf_mod
+from repro_torch.distributed import sharding as shard_mod
 from repro_torch.kernels import packing
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serve import residency as res_mod
 from repro_torch.serve import router as router_mod
 from repro_torch.serve import tunable as tun_mod
@@ -113,6 +130,20 @@ def _activate_enqueue_rows(ss: SessionState, keys: torch.Tensor, act_mask,
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+class _Slab:
+    """Plane rows [lo, hi) on one device: their state and RNG keys, and
+    what their kernels read there: the runtime (its rows of [K] s/T
+    ports) and the eval set."""
+
+    __slots__ = ("dev", "lo", "hi", "ss", "keys", "rt", "eval_x", "eval_y")
+
+    def __init__(self, dev: torch.device, lo: int, hi: int,
+                 ss: SessionState, keys: torch.Tensor):
+        self.dev, self.lo, self.hi = dev, lo, hi
+        self.ss, self.keys = ss, keys
+        self.rt = self.eval_x = self.eval_y = None
 
 
 def _select_replicas(mask: np.ndarray, new: TMState, old: TMState) -> TMState:
@@ -254,8 +285,9 @@ class ServiceConfig:
     residency) defers spills (an index gather into pinned host memory,
     awaited by event where the snapshot is read) and lands activations by
     a mask-select before the enqueue; False takes the synchronous
-    gather/scatter moves, bitwise the same. ``mesh`` keeps the reference's
-    name; multi-GPU sharding is not ported and raises.
+    gather/scatter moves, bitwise the same. ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`) shards the replica axis in
+    slabs over its ``data`` axis; anything else raises a ``TypeError``.
     """
 
     replicas: int = 1
@@ -290,13 +322,6 @@ class ServiceConfig:
         return rt
 
 
-def _not_yet(sc: ServiceConfig) -> Optional[str]:
-    """The first knob of ``sc`` that the port does not serve."""
-    if sc.mesh is not None:
-        return "mesh (multi-GPU replica sharding, not ported)"
-    return None
-
-
 class TMService:
     """K concurrent Fig-3 machines behind one control surface (K >= 1).
 
@@ -304,7 +329,8 @@ class TMService:
     identical banks) or one with a leading replica axis of K. ``rt``
     overrides the runtime built from ``sc.s``/``sc.T``. ``eval_x``/
     ``eval_y`` are the accuracy-analysis set; without them ``tick`` drains
-    but never analyzes. ``device`` defaults to the card.
+    but never analyzes. ``device`` defaults to the card (under a mesh,
+    to its first slab's device); host-facing reads gather there.
     """
 
     def __init__(self, cfg: TMConfig, state: TMState,
@@ -312,9 +338,9 @@ class TMService:
                  rt: Optional[TMRuntime] = None, eval_x=None, eval_y=None,
                  device=None):
         sc = sc or ServiceConfig()
-        why = _not_yet(sc)
-        if why is not None:
-            raise NotImplementedError(f"TMService: {why} is not ported yet")
+        if sc.mesh is not None and not isinstance(sc.mesh, Mesh):
+            raise TypeError(f"ServiceConfig.mesh must be a repro_torch Mesh, "
+                            f"got {type(sc.mesh).__name__}")
         if sc.history_limit is not None and sc.history_limit < 1:
             raise ValueError("history_limit must be >= 1 (or None)")
         K = sc.replicas
@@ -328,20 +354,30 @@ class TMService:
                              f"got {sc.resident!r}")
         if not auto and sc.resident is not None and sc.resident < 1:
             raise ValueError("resident must be >= 1 (or None, or 'auto')")
+        # auto plane widths round up to the mesh's device count, so the
+        # plane shards evenly
+        granule = 1 if sc.mesh is None else int(sc.mesh.devices.size)
         if auto:
             # a quarter of the fleet: small enough that sparse traffic
             # shrinks within one band, big enough that dense traffic grows
             # without thrashing first
             P, residency = max(1, -(-K // 4)), True
+            P = min(K, -(-P // granule) * granule)
         else:
             residency = sc.resident is not None and sc.resident < K
             # P: the device plane's length, R slots under residency, else K
             P = int(sc.resident) if residency else K
+        if device is None and sc.mesh is not None:
+            device = shard_mod.slab_devices(sc.mesh)[0]
         dev = tm_mod.resolve_device(device)
 
         self.cfg = cfg
         self.sc = sc
         self.device = dev
+        self.mesh = sc.mesh
+        self._granule = granule
+        self._slabs: list = []
+        self._eval: tuple = (None, None)
         self.rt = rt if rt is not None else sc.runtime(cfg, dev)
         self.n_replicas = K
         self.n_resident = P
@@ -358,8 +394,9 @@ class TMService:
         # rides the packed kernels.
         self.eval_x = None if eval_x is None else self._ingest(eval_x)
         self.eval_y = None if eval_y is None else self._labels(eval_y)
-        # K = 1 with scalar ports keeps the single-machine bodies.
-        self._k1 = K == 1 and scalar_ports
+        # K = 1 with scalar ports keeps the single-machine bodies; under a
+        # mesh the replicated body runs, as in the reference.
+        self._k1 = K == 1 and scalar_ports and self.mesh is None
 
         seed = sc.seed
         if isinstance(seed, (int, np.integer)):
@@ -373,12 +410,11 @@ class TMService:
         bank = ta[:P] if ta.ndim == 4 else ta.expand((P,) + ta.shape)
         buf1 = buf_mod.make(sc.buffer_capacity, cfg.n_features, dev,
                             packed=sc.packed)
-        self._ss = SessionState(
+        self._place_plane(SessionState(
             tm=TMState(ta_state=bank.contiguous()),
             buf=buf_mod.stack(buf1, P),
             step=torch.zeros((P,), dtype=torch.int32, device=dev),
-        )
-        self._keys = keys[:P]
+        ), keys[:P])
         # Residency: replicas 0..P-1 start in the slots; the rest are host
         # snapshots sharing the initial bank and empty ring (snapshots are
         # never written in place, so sharing is safe).
@@ -442,6 +478,127 @@ class TMService:
         return torch.as_tensor(np.asarray(ys), dtype=torch.int32).to(
             self.device)
 
+    # -- the plane's slabs ------------------------------------------------------
+
+    def _place_plane(self, ss: SessionState, keys: torch.Tensor) -> None:
+        """Lay a plane ([P, ...] leaves, on any device) out as slabs: the
+        mesh's (:func:`~repro_torch.distributed.sharding.
+        replica_shardings` over P), or one slab on the service's device."""
+        P = keys.shape[0]
+        self._slabs = [
+            _Slab(sl.device, sl.lo, sl.hi, *sl.tree)
+            for sl in shard_mod.put_slabs((ss, keys), self.mesh, P,
+                                          self.device)]
+        self._slab_rt()
+        self._slab_eval()
+
+    @property
+    def rt(self) -> TMRuntime:
+        """The runtime ([K] or scalar s/T ports); setting it re-derives
+        every slab's."""
+        return self._rt
+
+    @rt.setter
+    def rt(self, value: TMRuntime) -> None:
+        self._rt = value
+        self._slab_rt()
+
+    def _slab_rt(self) -> None:
+        for sl in self._slabs:
+            sl.rt = (self._rt if self.mesh is None else
+                     online_mod.slab_runtime(self._rt, sl.lo, sl.hi, sl.dev))
+
+    @property
+    def eval_x(self) -> Optional[torch.Tensor]:
+        """The analysis rows (words on a packed service); setting them or
+        ``eval_y`` puts a copy on every slab's device."""
+        return self._eval[0]
+
+    @eval_x.setter
+    def eval_x(self, value) -> None:
+        self._eval = (value, self._eval[1])
+        self._slab_eval()
+
+    @property
+    def eval_y(self) -> Optional[torch.Tensor]:
+        return self._eval[1]
+
+    @eval_y.setter
+    def eval_y(self, value) -> None:
+        self._eval = (self._eval[0], value)
+        self._slab_eval()
+
+    def _slab_eval(self) -> None:
+        for sl in self._slabs:
+            sl.eval_x, sl.eval_y = (None if t is None else t.to(sl.dev)
+                                    for t in self._eval)
+
+    def _split(self, value, field: str) -> None:
+        if len(self._slabs) == 1:
+            sl = self._slabs[0]
+            setattr(sl, field, T.map(lambda a: a.to(sl.dev), value))
+            return
+        for sl in self._slabs:
+            setattr(sl, field, T.map(
+                lambda a, _s=sl: a[_s.lo:_s.hi].to(_s.dev), value))
+
+    def _joined(self, field: str):
+        if len(self._slabs) == 1:
+            return getattr(self._slabs[0], field)
+        return T.map(lambda *xs: torch.cat([x.to(self.device) for x in xs]),
+                     *[getattr(sl, field) for sl in self._slabs])
+
+    @property
+    def _ss(self) -> SessionState:
+        """The whole plane's state: the slab's own tensors without a mesh,
+        a copy gathered on the service's device under one. Writing it
+        splits the value into the slabs."""
+        return self._joined("ss")
+
+    @_ss.setter
+    def _ss(self, value: SessionState) -> None:
+        self._split(value, "ss")
+
+    @property
+    def _keys(self) -> torch.Tensor:
+        """The whole plane's RNG keys [P, 2] (gathered under a mesh)."""
+        return self._joined("keys")
+
+    @_keys.setter
+    def _keys(self, value: torch.Tensor) -> None:
+        self._split(value, "keys")
+
+    def _plane_host(self):
+        """(state, keys) of the whole plane as host numpy, slab by slab."""
+        parts = [T.map(_host, (sl.ss, sl.keys)) for sl in self._slabs]
+        if len(parts) == 1:
+            return parts[0]
+        return T.map(lambda *xs: np.concatenate(xs), *parts)
+
+    def _slot_groups(self, slots) -> list:
+        """(slab, positions in ``slots``, rows local to the slab) for every
+        slab that holds some of the given plane rows, in slab order."""
+        slots = np.asarray(slots, dtype=np.int64).reshape(-1)
+        out = []
+        for sl in self._slabs:
+            pos = np.nonzero((slots >= sl.lo) & (slots < sl.hi))[0]
+            if len(pos):
+                out.append((sl, pos, slots[pos] - sl.lo))
+        return out
+
+    def _enqueue_plane(self, xs, ys, counts) -> np.ndarray:
+        """Push a plane-indexed [P, B] staging block into the rings, slab
+        by slab; [P] accepted rows on the host, read once every slab's
+        enqueue is queued."""
+        acc = []
+        for sl in self._slabs:
+            lo, hi = sl.lo, sl.hi
+            buf, a = router_mod._enqueue_rows(sl.ss.buf, xs[lo:hi],
+                                              ys[lo:hi], counts[lo:hi])
+            sl.ss = sl.ss._replace(buf=buf)
+            acc.append(a)
+        return np.concatenate([_host(a) for a in acc]).astype(np.int64)
+
     # -- device state ---------------------------------------------------------
 
     @property
@@ -449,7 +606,8 @@ class TMService:
         """Device state ([K, ...] leaves), staged ingress flushed first.
         Under residency, the assembled full-K logical fleet (slots in
         replica order, spilled snapshots filled in) on the device: a
-        read-only copy; save/restore or evict/activate move state."""
+        read-only copy; save/restore or evict/activate move state. Under a
+        mesh, the slabs gathered on the service's device (a copy)."""
         with self._device_lock:
             self.flush()
             if self._res is None:
@@ -484,7 +642,7 @@ class TMService:
         dtypes: slots gathered into replica order, spilled snapshots
         filled in."""
         self._settle_spills()
-        host = T.map(_host, (self._ss, self._keys))
+        host = self._plane_host()
         if self._res is None:
             return host
         K = self.n_replicas
@@ -546,11 +704,8 @@ class TMService:
                            else self._flush_block_residency(*block))
 
     def _flush_block(self, xs, ys, counts) -> np.ndarray:
-        """One taken [K, B] staging block -> one enqueue."""
-        buf, accepted = router_mod._enqueue_rows(self._ss.buf, xs, ys,
-                                                 counts)
-        self._ss = self._ss._replace(buf=buf)
-        acc = _host(accepted).astype(np.int64)
+        """One taken [K, B] staging block -> one enqueue a slab."""
+        acc = self._enqueue_plane(xs, ys, counts)
         with self.router.lock:
             self._dev_size -= counts - acc
             self.router.dropped += counts - acc
@@ -597,10 +752,8 @@ class TMService:
         """The synchronous cohort: blocking activation (gather, scatter),
         then a separate enqueue. The oracle the batched path is held to."""
         slots = self._ensure_resident(cohort)
-        buf, accepted = router_mod._enqueue_rows(
-            self._ss.buf, *self._slot_block(slots, xs_c, ys_c, cnt_c))
-        self._ss = self._ss._replace(buf=buf)
-        return _host(accepted).astype(np.int64)[slots]
+        return self._enqueue_plane(
+            *self._slot_block(slots, xs_c, ys_c, cnt_c))[slots]
 
     def _enqueue_cohort_batched(self, cohort, xs_c, ys_c,
                                 cnt_c) -> np.ndarray:
@@ -609,16 +762,22 @@ class TMService:
         plane), then the activation and the enqueue on one stream. The
         pending spills settle once both are queued."""
         slots, act = self._prepare_slots(cohort)
-        block = self._slot_block(slots, xs_c, ys_c, cnt_c)
+        xs_p, ys_p, cnt_p = self._slot_block(slots, xs_c, ys_c, cnt_c)
         if act is None:
-            buf, accepted = router_mod._enqueue_rows(self._ss.buf, *block)
-            self._ss = self._ss._replace(buf=buf)
+            accepted = self._enqueue_plane(xs_p, ys_p, cnt_p)
         else:
             act_mask, (act_ss, act_keys) = act
-            self._ss, self._keys, accepted = _activate_enqueue_rows(
-                self._ss, self._keys, act_mask, act_ss, act_keys, *block)
+            acc = []
+            for sl in self._slabs:
+                r = slice(sl.lo, sl.hi)
+                sl.ss, sl.keys, a = _activate_enqueue_rows(
+                    sl.ss, sl.keys, act_mask[r], T.map(lambda x: x[r],
+                                                       act_ss),
+                    act_keys[r], xs_p[r], ys_p[r], cnt_p[r])
+                acc.append(a)
+            accepted = np.concatenate([_host(a) for a in acc])
         self._settle_spills()
-        return _host(accepted).astype(np.int64)[slots]
+        return accepted.astype(np.int64)[slots]
 
     # -- residency ----------------------------------------------------------
 
@@ -650,8 +809,12 @@ class TMService:
         slots, act = self._prepare_slots(rids)
         if act is not None:
             act_mask, act_plane = act
-            self._ss, self._keys = online_mod.activate_replicas(
-                (self._ss, self._keys), act_plane, act_mask)
+            for sl in self._slabs:
+                r = slice(sl.lo, sl.hi)
+                if act_mask[r].any():
+                    sl.ss, sl.keys = online_mod.activate_replicas(
+                        (sl.ss, sl.keys), T.map(lambda x: x[r], act_plane),
+                        act_mask[r])
         return slots
 
     def _ensure_resident_sync(self, rids) -> np.ndarray:
@@ -727,14 +890,12 @@ class TMService:
         slots without awaiting it: the gathered rows are new device
         tensors copying into pinned host memory, settled at the next
         settle point."""
-        slots = np.asarray(slots, dtype=np.int64)
-        if len(slots) == 0:
-            return
-        pending = online_mod.gather_replicas_issue((self._ss, self._keys),
-                                                   slots)
-        rids = self._res.release(slots)
-        self._pending_spills.append((pending, rids))
-        self._pending_rids.update(int(r) for r in rids)
+        for sl, pos, local in self._slot_groups(slots):
+            pending = online_mod.gather_replicas_issue((sl.ss, sl.keys),
+                                                       local)
+            rids = self._res.release(np.asarray(slots)[pos])
+            self._pending_spills.append((pending, rids))
+            self._pending_rids.update(int(r) for r in rids)
 
     def _settle_spills(self) -> None:
         """Await every pending spill (its event) and write the snapshots
@@ -757,22 +918,21 @@ class TMService:
     def _spill(self, slots) -> None:
         """Evict the replicas in the given slots: a blocking gather, whole
         per-machine snapshots into the store."""
-        slots = np.asarray(slots, dtype=np.int64)
-        if len(slots) == 0:
-            return
-        vals = online_mod.gather_replicas((self._ss, self._keys), slots)
-        rids = self._res.release(slots)
-        for j, rid in enumerate(rids):
-            self._res.store[int(rid)] = T.map(
-                lambda a, _j=j: a[_j].copy(), vals)
+        for sl, pos, local in self._slot_groups(slots):
+            vals = online_mod.gather_replicas((sl.ss, sl.keys), local)
+            rids = self._res.release(np.asarray(slots)[pos])
+            for j, rid in enumerate(rids):
+                self._res.store[int(rid)] = T.map(
+                    lambda a, _j=j: a[_j].copy(), vals)
 
     def _activate(self, rids, slots) -> None:
         """Load the named (evicted) replicas' snapshots into free slots:
         one host -> device scatter a cohort."""
         snaps = [self._res.store.pop(int(r)) for r in rids]
         vals = T.map(lambda *xs: np.stack(xs), *snaps)
-        self._ss, self._keys = online_mod.scatter_replicas(
-            (self._ss, self._keys), slots, vals)
+        for sl, pos, local in self._slot_groups(slots):
+            sl.ss, sl.keys = online_mod.scatter_replicas(
+                (sl.ss, sl.keys), local, T.map(lambda a: a[pos], vals))
         self._res.assign(np.asarray(rids, dtype=np.int64), slots)
 
     def evict(self, replicas) -> None:
@@ -873,6 +1033,10 @@ class TMService:
             return trained
 
     def _drain_replicated(self, budget: np.ndarray, on_chunk) -> np.ndarray:
+        """Chunk by chunk, every slab of the plane per chunk: the ring
+        sizes of all slabs are read with one wait, then each slab's chunk
+        is queued on its device (a slab loops to its own largest count;
+        the masked steps past a replica's count leave it untouched)."""
         P = len(budget)   # the plane's length (slots, not the fleet's K)
         trained = np.zeros(P, dtype=np.int64)
         active = trained < budget
@@ -880,10 +1044,19 @@ class TMService:
         while active.any():
             want = np.where(active, np.minimum(self.chunk, budget - trained),
                             0)
-            self._keys, chunk_keys = _advance_keys(self._keys, active)
-            self._ss, n, aux = online_mod._consume_many_replicated(
-                self.cfg, self.chunk, self._ss, self.rt, want, chunk_keys,
-                monitor=monitor)
+            size = (None if len(self._slabs) == 1 else
+                    online_mod.read_sizes([sl.ss.buf for sl in self._slabs]))
+            n, auxes = np.zeros(P, dtype=np.int64), []
+            for sl in self._slabs:
+                r = slice(sl.lo, sl.hi)
+                with shard_mod.on(sl.dev):
+                    sl.keys, chunk_keys = _advance_keys(sl.keys, active[r])
+                    sl.ss, n[r], aux = online_mod._consume_many_replicated(
+                        self.cfg, self.chunk, sl.ss, sl.rt, want[r],
+                        chunk_keys, monitor=monitor,
+                        size=None if size is None else size[r])
+                auxes.append(aux)
+            aux = self._join_aux(auxes) if monitor else None
             trained += n
             # commit the mirror before the callback, so a callback that
             # raises cannot desync it from the device
@@ -893,6 +1066,14 @@ class TMService:
                 on_chunk(aux)
             active &= (n == want) & (trained < budget)
         return trained
+
+    def _join_aux(self, auxes: list) -> ChunkAux:
+        """The slabs' chunk aux as one [P, k] plane (on the service's
+        device under a mesh)."""
+        if len(auxes) == 1:
+            return auxes[0]
+        return ChunkAux(*(torch.cat([a.to(self.device) for a in leaves])
+                          for leaves in zip(*auxes)))
 
     def _debit_mirror(self, n_plane: np.ndarray) -> None:
         """Rows consumed per plane row off the [K] mirror (slots map to
@@ -960,18 +1141,28 @@ class TMService:
                     raise ValueError(
                         "return_aux reports the budgeted path's compute: "
                         "pass a budget (or configure an active tunable)")
-                tm = self._ss.tm
                 if xs.ndim == 2 and self._k1:
                     preds = tm_mod.predict_batch(
-                        self.cfg, TMState(tm.ta_state[0]), self.rt, xs)
+                        self.cfg, TMState(self._ss.tm.ta_state[0]), self.rt,
+                        xs)
                     return preds.cpu().numpy()[None]
                 if xs.ndim == 2:
                     xs = xs[None]
-                return tm_mod.predict_batch_replicated(
-                    self.cfg, tm, self.rt, xs).cpu().numpy()
+                outs = []
+                for sl in self._slabs:
+                    x = xs if xs.shape[0] == 1 else xs[sl.lo:sl.hi]
+                    with shard_mod.on(sl.dev):
+                        outs.append(tm_mod.predict_batch_replicated(
+                            self.cfg, sl.ss.tm, sl.rt, x.to(sl.dev)))
+                return np.concatenate([_host(o) for o in outs])
             tuner = self._require_tuner()
-            preds, aux = self._serve_tunable(
-                self._ss.tm, xs, tuner.order, tuner.weights, budget)
+            w = tuner.weights
+            preds, aux = self._serve_tunable([
+                (sl, sl.ss.tm,
+                 xs if xs.ndim == 2 else xs[sl.lo:sl.hi],
+                 tuner.order[sl.lo:sl.hi],
+                 None if w is None else w[sl.lo:sl.hi])
+                for sl in self._slabs], budget)
             return (preds, aux) if return_aux else preds
 
     def _tunable(self, budget) -> bool:
@@ -990,27 +1181,36 @@ class TMService:
                 "(after training) before serving with a budget")
         return self.tuner
 
-    def _serve_tunable(self, tm_plane: TMState, xs: torch.Tensor,
-                       order: np.ndarray, weights: Optional[np.ndarray],
-                       budget) -> tuple[np.ndarray, tun_mod.ServeAux]:
-        """The budgeted serve body on a device plane whose rows align with
-        ``order``/``weights``."""
+    def _serve_tunable(self, parts: list, budget
+                       ) -> tuple[np.ndarray, tun_mod.ServeAux]:
+        """The budgeted serve body, once per part: ``parts`` holds (slab,
+        bank plane on the slab's device, xs, order, weights) with the
+        plane's rows aligned with ``order``/``weights``. Returns the
+        parts' predictions and aux concatenated in order."""
         tc = self.sc.tunable
         b = self.tuner.budget if budget is None else float(budget)
         m = tun_mod.m_for_budget(b, self.cfg.max_clauses)
-        if xs.ndim == 2:
-            xs = xs[None]     # D = 1: one shared stream
-        preds, evaluated = tun_mod.predict_pruned_replicated_host(
-            self.cfg, tm_plane, self.rt, xs, order, weights, m,
-            group=tc.group if tc.early_exit else None)
-        aux = tun_mod.ServeAux(budget=b, m=m, sel=order[:, :, :m].copy(),
-                               evaluated=evaluated)
-        return preds, aux
+        preds, evaluated, sel = [], [], []
+        for sl, tm_plane, xs, order, weights in parts:
+            if xs.ndim == 2:
+                xs = xs[None]     # D = 1: one shared stream
+            with shard_mod.on(sl.dev):
+                p, e = tun_mod.predict_pruned_replicated_host(
+                    self.cfg, tm_plane, sl.rt, xs.to(sl.dev), order,
+                    weights, m, group=tc.group if tc.early_exit else None)
+            preds.append(p)
+            evaluated.append(e)
+            sel.append(order[:, :, :m])
+        aux = tun_mod.ServeAux(budget=b, m=m, sel=np.concatenate(sel),
+                               evaluated=np.concatenate(evaluated))
+        return np.concatenate(preds), aux
 
-    def _plane_rows(self, slots) -> TMState:
-        """The banks in the given plane rows, gathered into one plane."""
-        idx = torch.from_numpy(np.asarray(slots, dtype=np.int64))
-        return TMState(self._ss.tm.ta_state[idx.to(self.device)])
+    @staticmethod
+    def _rows(sl: _Slab, local) -> TMState:
+        """The banks in the given rows of one slab, gathered into one
+        plane on its device."""
+        idx = torch.from_numpy(np.asarray(local, dtype=np.int64))
+        return TMState(sl.ss.tm.ta_state[idx.to(sl.dev)])
 
     def serve_replicas(self, replicas, xs, *, budget=None,
                        return_aux: bool = False):
@@ -1042,17 +1242,33 @@ class TMService:
                 cohort = rids[i:i + cap]
                 slots = (cohort if self._res is None
                          else self._ensure_resident(cohort))
-                tm_c = self._plane_rows(slots)
+                groups = self._slot_groups(slots)
                 xs_c = xs[None] if shared else xs[i:i + cap]
+                # the cohort's rows in slab order; put back in cohort order
+                back = np.argsort(np.concatenate([g[1] for g in groups]))
                 if not tunable:
-                    outs.append(tm_mod.predict_batch_replicated(
-                        self.cfg, tm_c, self.rt, xs_c).cpu().numpy())
+                    preds = []
+                    for sl, pos, local in groups:
+                        x = (xs_c if shared or len(groups) == 1
+                             else xs_c[torch.from_numpy(pos)])
+                        with shard_mod.on(sl.dev):
+                            preds.append(tm_mod.predict_batch_replicated(
+                                self.cfg, self._rows(sl, local),
+                                sl.rt, x.to(sl.dev)))
+                    outs.append(np.concatenate(
+                        [_host(p) for p in preds])[back])
                     continue
-                w_c = None if tuner.weights is None else tuner.weights[cohort]
-                preds, aux = self._serve_tunable(
-                    tm_c, xs_c, tuner.order[cohort], w_c, budget)
-                outs.append(preds)
-                auxes.append(aux)
+                w = tuner.weights
+                preds, aux = self._serve_tunable([
+                    (sl, self._rows(sl, local),
+                     (xs_c if shared or len(groups) == 1
+                      else xs_c[torch.from_numpy(pos)]),
+                     tuner.order[cohort[pos]],
+                     None if w is None else w[cohort[pos]])
+                    for sl, pos, local in groups], budget)
+                outs.append(preds[back])
+                auxes.append(aux._replace(sel=aux.sel[back],
+                                          evaluated=aux.evaluated[back]))
         preds = np.concatenate(outs, axis=0)
         if not return_aux:
             return preds
@@ -1080,23 +1296,30 @@ class TMService:
                 "calibrate needs a labelled set: pass (xs, ys) or build the "
                 "service with eval_x/eval_y")
         K = self.n_replicas
+
+        def plane_scores(sl, tm):
+            with shard_mod.on(sl.dev):
+                return tun_mod.clause_scores_replicated(
+                    self.cfg, tm, sl.rt, xs[None].to(sl.dev),
+                    ys[None].to(sl.dev))
+
         with self._device_lock:
-            tm = self._ss.tm
             if self._res is not None:
                 scores = np.zeros((K, self.cfg.max_classes,
                                    self.cfg.max_clauses), dtype=np.int32)
                 for i in range(0, K, self.n_resident):
                     cohort = np.arange(i, min(i + self.n_resident, K))
                     slots = self._ensure_resident(cohort)
-                    scores[cohort] = _host(tun_mod.clause_scores_replicated(
-                        self.cfg, self._plane_rows(slots), self.rt, xs[None],
-                        ys[None]))
+                    for sl, pos, local in self._slot_groups(slots):
+                        scores[cohort[pos]] = _host(
+                            plane_scores(sl, self._rows(sl, local)))
             elif self._k1:
                 scores = _host(tun_mod.clause_scores(
-                    self.cfg, TMState(tm.ta_state[0]), self.rt, xs, ys)[None])
+                    self.cfg, TMState(self._ss.tm.ta_state[0]), self.rt, xs,
+                    ys)[None])
             else:
-                scores = _host(tun_mod.clause_scores_replicated(
-                    self.cfg, tm, self.rt, xs[None], ys[None]))
+                parts = [plane_scores(sl, sl.ss.tm) for sl in self._slabs]
+                scores = np.concatenate([_host(p) for p in parts])
             self.tuner.set_ranking(
                 tun_mod.rank_from_scores(
                     scores, tm_mod.clause_polarity(self.cfg).numpy()),
@@ -1127,13 +1350,18 @@ class TMService:
     def _measure(self) -> np.ndarray:
         """One eval contraction over the device plane; [K] f32 (nan for
         evicted replicas). No history side effects."""
-        tm = self._ss.tm
         if self._k1:
             return np.asarray([float(acc_mod.analyze(
-                self.cfg, TMState(tm.ta_state[0]), self.rt, self.eval_x,
-                self.eval_y))], dtype=np.float32)
-        acc_p = _host(acc_mod.analyze_replicated(
-            self.cfg, tm, self.rt, self.eval_x[None], self.eval_y[None]))
+                self.cfg, TMState(self._ss.tm.ta_state[0]), self.rt,
+                self.eval_x, self.eval_y))], dtype=np.float32)
+        parts = []
+        for sl in self._slabs:
+            with shard_mod.on(sl.dev):
+                parts.append(acc_mod.analyze_replicated(
+                    self.cfg, sl.ss.tm, sl.rt,
+                    sl.eval_x[None],
+                    sl.eval_y[None]))
+        acc_p = np.concatenate([_host(a) for a in parts])
         if self._res is None:
             return acc_p
         acc = np.full(self.n_replicas, np.nan, dtype=np.float32)
@@ -1158,20 +1386,29 @@ class TMService:
                     "train a full-resident service (or a single machine) "
                     "first, then construct the residency service from its "
                     "state")
-            tm = self._ss.tm
             if self._k1:
                 st = fb_mod.train_epochs(
-                    self.cfg, TMState(tm.ta_state[0]), self.rt, xs, ys, key,
-                    n_epochs)
-                st = TMState(st.ta_state[None])
+                    self.cfg, TMState(self._ss.tm.ta_state[0]), self.rt, xs,
+                    ys, key, n_epochs)
+                self._ss = self._ss._replace(tm=TMState(st.ta_state[None]))
             else:
-                st = fb_mod.train_epochs_replicated(
-                    self.cfg, tm, self.rt, xs[None], ys[None], key[None],
-                    n_epochs)
-            self._ss = self._ss._replace(tm=st)
+                for sl in self._slabs:
+                    with shard_mod.on(sl.dev):
+                        st = fb_mod.train_epochs_replicated(
+                            self.cfg, sl.ss.tm, sl.rt,
+                            xs[None].to(sl.dev), ys[None].to(sl.dev),
+                            key[None].to(sl.dev), n_epochs)
+                    sl.ss = sl.ss._replace(tm=st)
             acc = self.analyze()
-            self.policy.snapshot(self._ps, acc, st)
+            self.policy.snapshot(self._ps, acc, self._plane_tm())
             return acc
+
+    def _plane_tm(self):
+        """The plane's banks as the policy holds them: one TMState, or one
+        per slab under a mesh."""
+        if len(self._slabs) == 1:
+            return self._slabs[0].ss.tm
+        return [sl.ss.tm for sl in self._slabs]
 
     def _maybe_analyze(self) -> Optional[tuple[np.ndarray, np.ndarray]]:
         """Analysis + the §5.3.2 policy when a member is due. Returns
@@ -1184,9 +1421,32 @@ class TMService:
         if self._res is not None:
             return self._analyze_residency(due)
         acc = self.analyze()
-        tm, rolled = self.policy.apply(self._ps, due, acc, self._ss.tm)
-        self._ss = self._ss._replace(tm=tm)
+        if len(self._slabs) > 1:
+            return acc, self._policy_apply_slabs(due, acc)
+        sl = self._slabs[0]
+        tm, rolled = self.policy.apply(self._ps, due, acc, sl.ss.tm)
+        sl.ss = sl.ss._replace(tm=tm)
         return acc, rolled
+
+    def _policy_apply_slabs(self, due, acc) -> np.ndarray:
+        """:meth:`AdaptPolicy.apply` on a sharded plane: the transition on
+        the [K] arrays, then each slab's selects on its own device, with
+        the known-good banks held per slab."""
+        collapse, improve = self.policy.transition(self._ps, due, acc)
+        best = self._ps.best_state
+        if improve.any() and best is None:
+            best = [None] * len(self._slabs)
+        for j, sl in enumerate(self._slabs):
+            r = slice(sl.lo, sl.hi)
+            tm = sl.ss.tm
+            if collapse[r].any():
+                tm = _select_replicas(collapse[r], best[j], tm)
+            if improve.any():
+                best[j] = (tm if best[j] is None
+                           else _select_replicas(improve[r], tm, best[j]))
+            sl.ss = sl.ss._replace(tm=tm)
+        self._ps.best_state = best
+        return collapse
 
     def _analyze_residency(self, due) -> tuple[np.ndarray, np.ndarray]:
         """The §5.3.2 transition under residency: measure the due members
@@ -1212,7 +1472,7 @@ class TMService:
             self._write_bank(int(rid), self._best_host[rid])
         if improve.any():
             if self._best_host is None:
-                ta = self._ss.tm.ta_state
+                ta = self._slabs[0].ss.tm.ta_state
                 self._best_host = np.zeros(
                     (self.n_replicas,) + tuple(ta.shape[1:]),
                     dtype=torch.empty(0, dtype=ta.dtype).numpy().dtype)
@@ -1224,19 +1484,20 @@ class TMService:
         self._settle_spills()
         slot = int(self._res.slot_of[rid])
         if slot >= 0:
-            return _host(self._ss.tm.ta_state[slot])
+            (sl, _, local), = self._slot_groups([slot])
+            return _host(sl.ss.tm.ta_state[int(local[0])])
         return np.asarray(self._res.store[rid][0].tm.ta_state)
 
     def _write_bank(self, rid: int, bank) -> None:
         self._settle_spills()
         slot = int(self._res.slot_of[rid])
         if slot >= 0:
-            ta = self._ss.tm.ta_state
-            idx = torch.tensor([slot], device=ta.device)
+            (sl, _, local), = self._slot_groups([slot])
+            ta = sl.ss.tm.ta_state
+            idx = torch.tensor([int(local[0])], device=ta.device)
             src = torch.from_numpy(np.array(bank)[None]).to(ta.device,
                                                             ta.dtype)
-            self._ss = self._ss._replace(tm=TMState(ta.index_copy(0, idx,
-                                                                  src)))
+            sl.ss = sl.ss._replace(tm=TMState(ta.index_copy(0, idx, src)))
         else:
             ss_s, key_s = self._res.store[rid]
             self._res.store[rid] = (ss_s._replace(tm=TMState(np.array(bank))),
@@ -1255,7 +1516,7 @@ class TMService:
             trained = self.drain(budget, on_chunk)
             self._ps.since += trained
             if self._auto:
-                target = self._res.autotune_target()
+                target = self._res.autotune_target(granule=self._granule)
                 if target != self.n_resident:
                     self._repartition(target)
             out = self._maybe_analyze()
@@ -1310,6 +1571,9 @@ class TMService:
             if self._res is not None:
                 best = (None if self._best_host is None
                         else TMState(self._best_host))
+            elif isinstance(ps.best_state, list):
+                best = TMState(np.concatenate(
+                    [_host(b.ta_state) for b in ps.best_state]))
             else:
                 best = convert.to_numpy(ps.best_state)
             if self.history:
@@ -1441,8 +1705,10 @@ class TMService:
                 if self._res is not None:
                     self._best_host = np.asarray(pol["best_state"].ta_state)
                 else:
-                    self._ps.best_state = convert.state_from_numpy(
-                        pol["best_state"], dev)
+                    bs = convert.state_from_numpy(pol["best_state"], dev)
+                    self._ps.best_state = (bs if len(self._slabs) == 1 else [
+                        TMState(bs.ta_state[sl.lo:sl.hi].to(sl.dev))
+                        for sl in self._slabs])
             hsteps, haccs = tree["history"]["steps"], tree["history"]["acc"]
             self.history = [(np.asarray(hsteps[i]), np.asarray(haccs[i]))
                             for i in range(len(hsteps))]
@@ -1477,8 +1743,8 @@ class TMService:
         lead with K in the checkpoint and with the plane's length here."""
         saved = ckpt_mod._flatten_with_paths({"ss": tree["ss"],
                                               "keys": tree["keys"]})
-        mine = ckpt_mod._flatten_with_paths({"ss": self._ss,
-                                             "keys": self._keys})
+        sl = self._slabs[0]
+        mine = ckpt_mod._flatten_with_paths({"ss": sl.ss, "keys": sl.keys})
         for k, v in saved.items():
             if tuple(v.shape[1:]) != tuple(mine[k].shape[1:]):
                 raise ValueError(
@@ -1492,9 +1758,9 @@ class TMService:
         trajectory can see."""
         R = self.n_resident
         host = (ss_K, keys_K)
-        self._ss, self._keys = T.map(
-            lambda a: torch.from_numpy(np.ascontiguousarray(a[:R])).to(
-                self.device, copy=True), host)
+        self._place_plane(*T.map(
+            lambda a: torch.from_numpy(np.array(a[:R])).to(self.device),
+            host))
         if self._res is None:
             return
         res = self._res
@@ -1535,7 +1801,14 @@ class TMService:
         npz. The eval set is a runtime resource and is passed fresh.
         ``resident`` defaults to the saved budget and may be overridden
         (to None, an int or "auto"): a checkpoint is residency-agnostic,
-        so this migrates a fleet across device budgets."""
+        so this migrates a fleet across device budgets. ``mesh`` shards the
+        restored plane (``device`` then defaults to its first slab's); a
+        checkpoint holds the full-K layout with or without one."""
+        if device is None and mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch Mesh, got "
+                                f"{type(mesh).__name__}")
+            device = shard_mod.slab_devices(mesh)[0]
         man = ckpt_mod.read_manifest(directory, step=step)
         meta = man["extra"]["service"]
         cfgd = dict(meta["cfg"])
@@ -1567,12 +1840,13 @@ class TMService:
     @property
     def steps(self) -> np.ndarray:
         """Online datapoints consumed, [K] i32."""
+        plane = np.concatenate([_host(sl.ss.step) for sl in self._slabs])
         if self._res is None:
-            return _host(self._ss.step)
+            return plane
         self._settle_spills()
         out = np.zeros(self.n_replicas, dtype=np.int32)
         m = self._res.replica_of >= 0
-        out[self._res.replica_of[m]] = _host(self._ss.step)[m]
+        out[self._res.replica_of[m]] = plane[m]
         for rid, snap in self._res.store.items():
             out[rid] = snap[0].step
         return out
@@ -1581,7 +1855,8 @@ class TMService:
     def rng_keys(self) -> np.ndarray:
         """RNG keys as the reference's raw uint32 key data, [K, 2]."""
         if self._res is None:
-            return _host(self._keys).astype(np.uint32)
+            return np.concatenate([_host(sl.keys) for sl in self._slabs]
+                                  ).astype(np.uint32)
         return self._assemble_plane()[1].astype(np.uint32)
 
     @property

@@ -6,8 +6,19 @@ wrapper runs its plain version) get the same block orderings, s/T grid,
 seeds and epochs: O = 3 orderings, a 2 x 2 grid (R = 12, D = 3, so the
 replica-to-stream map r % D is exercised with H = 4), 2 epochs.
 Validation accuracies and trained TA banks must agree bit for bit.
+
+The mesh cases shard the replica axis over CPU slabs (``Mesh(["cpu"] * 4,
+("data",))``: R = 12 in slabs of 3) and hold the sweep and the system
+flow bitwise against the port without a mesh and against the JAX
+package's sharded runs on four forced host devices (one subprocess for
+the module, results through an ``.npz``).
 """
 import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +41,7 @@ from repro_torch.core import manager as t_mgr
 from repro_torch.core import tm as t_tm
 from repro_torch.data import blocks as t_blocks
 from repro_torch.eval import crossval as t_cv
+from repro_torch.launch.mesh import Mesh
 
 FIELDS = dict(n_features=16, max_classes=3, max_clauses=16, n_states=16)
 J_CFG = j_tm.TMConfig(**FIELDS, backend="ref")
@@ -320,3 +332,113 @@ def test_predict_batch_replicated_matches_reference(osets):
 
     words = packing.pack_bits(torch.from_numpy(xs))         # [O, 60, 1]
     assert torch.equal(t_tm.predict_batch_replicated(cfg, st, rt, words), got)
+
+
+# ---------------------------------------------------------------------------
+# The replica-axis mesh
+# ---------------------------------------------------------------------------
+
+JAX_MESH_SCRIPT = textwrap.dedent("""\
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, sys.argv[2])
+    import jax, jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh
+    assert len(jax.devices()) == 4, jax.devices()
+    import test_torch_crossval as tc
+    from repro.data import blocks
+    from repro.eval import crossval as cv
+
+    mesh = Mesh(np.array(jax.devices()), ("data",))
+    osets, _ = blocks.iris_paper_sets(n_orderings=tc.O)
+    eng = cv.CrossValRun(tc.J_CFG, mesh=mesh)
+    res = eng.sweep(osets.offline_x, osets.offline_y, osets.validation_x,
+                    osets.validation_y, tc.S_VALUES, tc.T_VALUES,
+                    n_epochs=tc.EPOCHS, seed=tc.SEED)
+    out = {"val": np.asarray(res.val_accuracy),
+           "mean": np.asarray(res.mean_accuracy)}
+    sys_cfg, states, rt, sets, sched, keys = tc._system_args_jax(osets)
+    res = eng.system(sys_cfg, states, rt, sets, sched, keys)
+    out.update(sys_acc=np.asarray(res.accuracies),
+               sys_ta=np.asarray(res.state.ta_state),
+               sys_act=np.asarray(res.activity))
+    np.savez(sys.argv[1], **out)
+    print("OK")
+""")
+
+
+def _system_args_jax(osets):
+    sets = _sets(osets)
+    keys = jax.random.split(jax.random.PRNGKey(9), O)
+    return (j_mgr.SystemConfig(2, 3),
+            jax.vmap(lambda _: j_tm.init_state(J_CFG))(jnp.arange(O)),
+            j_tm.init_runtime(J_CFG, s=1.375, T=15),
+            jax.tree.map(jnp.asarray, sets),
+            j_mgr.make_schedule(online_s=1.0), keys)
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory):
+    """The JAX package's sharded sweep and system flow on four forced host
+    devices (one subprocess for the module)."""
+    tests = pathlib.Path(__file__).resolve().parent
+    path = tmp_path_factory.mktemp("jax_mesh") / "crossval.npz"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(tests.parent / "src"), env.get("PYTHONPATH", "")])
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run(
+        [sys.executable, "-c", JAX_MESH_SCRIPT, str(path), str(tests)],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("cfg", T_CFGS, ids=lambda c: c.backend)
+def test_sweep_with_mesh_sharding(osets, jax_sharded, cfg):
+    """A sweep sharded over four CPU slabs (R = 12, slabs of 3 = O) is
+    bitwise the unsharded sweep and the JAX package's sharded one."""
+    args = (osets.offline_x, osets.offline_y, osets.validation_x,
+            osets.validation_y, S_VALUES, T_VALUES)
+    kw = dict(n_epochs=EPOCHS, seed=SEED)
+    base = t_cv.CrossValRun(cfg, device="cpu").sweep(*args, **kw)
+    eng = t_cv.CrossValRun(cfg, mesh=Mesh(["cpu"] * 4, ("data",)))
+    assert [s.hi - s.lo for s in eng._put(torch.zeros(12), 12)] == [3] * 4
+    res = eng.sweep(*args, **kw)
+    for got, name in ((res.val_accuracy, "val"),
+                      (res.mean_accuracy, "mean")):
+        assert np.array_equal(_bits(jax_sharded[name]), _bits(got.numpy()))
+    assert torch.equal(base.val_accuracy, res.val_accuracy)
+    assert torch.equal(base.mean_accuracy, res.mean_accuracy)
+
+
+@pytest.mark.parametrize("n_dev,n_slabs", [(4, 1), (3, 3)],
+                         ids=["not_dividing_one_slab", "three_slabs"])
+def test_system_with_mesh(osets, jax_sharded, n_dev, n_slabs):
+    """CrossValRun(mesh).system over the O = 3 orderings: on four devices
+    the ordering axis does not divide and runs as one slab (the
+    reference replicates it), on three it runs in three slabs of one;
+    both are bitwise the unsharded flow, and the accuracies and banks the
+    JAX package's sharded flow (activity within the XLA mean's
+    rounding)."""
+    cfg = T_CFGS[0]
+    mesh = Mesh(["cpu"] * n_dev, ("data",))
+    sets = convert.sets_from_numpy(_sets(osets), "cpu")
+    keys = rnd.split(rnd.PRNGKey(9, "cpu"), O)
+    args = (t_mgr.SystemConfig(2, 3), t_cv.replicate_state(cfg, O, "cpu"),
+            t_tm.init_runtime(cfg, s=1.375, T=15, device="cpu"), sets,
+            t_mgr.make_schedule(online_s=1.0), keys)
+    eng = t_cv.CrossValRun(cfg, mesh=mesh)
+    assert len(eng._put(torch.zeros(O), O)) == n_slabs
+    base = t_cv.CrossValRun(cfg, device="cpu").system(*args)
+    res = eng.system(*args)
+    assert torch.equal(base.accuracies, res.accuracies)
+    assert torch.equal(base.state.ta_state, res.state.ta_state)
+    assert torch.equal(base.activity, res.activity)
+    assert np.array_equal(_bits(jax_sharded["sys_acc"]),
+                          _bits(res.accuracies.numpy()))
+    assert np.array_equal(jax_sharded["sys_ta"], res.state.ta_state.numpy())
+    np.testing.assert_allclose(res.activity.numpy(), jax_sharded["sys_act"],
+                               rtol=2e-6, atol=0)

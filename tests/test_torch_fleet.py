@@ -11,7 +11,19 @@ reference's packed service and the port's unpacked one). The JAX side
 runs backend "ref", and "pallas" (interpret mode) where its Pallas kernels
 are reached; the port runs "cuda" (on CPU tensors: the kernels' plain
 versions) and "ref".
+
+The mesh cases shard the replica axis over four CPU slabs
+(``Mesh(["cpu"] * 4, ("data",))``) and hold the port bitwise against its
+unsharded run and against the JAX package's sharded run on four forced
+host devices (one subprocess for the module, results through an
+``.npz``): the per-replica-ports tick flow, packed and unpacked.
 """
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +50,7 @@ from repro_torch.core import init_state as t_init_state
 from repro_torch.core.online import OnlineSession as TSession
 from repro_torch.core.tm import TMState as TTMState
 from repro_torch.data import buffer as t_buf
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serve import AdaptPolicy as TPolicy
 from repro_torch.serve import ServiceConfig as TConfig
 from repro_torch.serve import TMFleetAdaptManager as TFleetManager
@@ -47,6 +60,7 @@ from repro_torch.serve import router as t_router
 from repro_torch.serve.fleet import OnlineFleet as TFleet
 
 IRIS = dict(n_features=16, max_classes=3, max_clauses=16, n_states=16)
+MESH = Mesh(["cpu"] * 4, ("data",))     # four slabs of the replica axis
 
 
 @pytest.fixture(autouse=True)
@@ -193,7 +207,7 @@ def test_fleet_uneven_streams_and_budgets_match_reference():
 
 
 def _tick_flow(pkg, cfg, K, s, T, seeds, packed=False, n_rows=40, rows=None,
-               eval_rows=None):
+               eval_rows=None, mesh=None):
     """Offline train, masked submits with per-replica budgets and ticks,
     a final drain, then fleet and per-member serves."""
     xs, ys = rows if rows is not None else iris.load()
@@ -201,7 +215,7 @@ def _tick_flow(pkg, cfg, K, s, T, seeds, packed=False, n_rows=40, rows=None,
     svc = pkg["Service"](cfg, pkg["init_state"](cfg, **pkg["dev"]),
                          pkg["Config"](replicas=K, buffer_capacity=16,
                                        chunk=4, ingress_block=4, s=s, T=T,
-                                       packed=packed, seed=seeds,
+                                       packed=packed, seed=seeds, mesh=mesh,
                                        policy=pkg["Policy"](analyze_every=8)),
                          eval_x=ex, eval_y=ey, **pkg["dev"])
     base = svc.offline_train(xs[:30], ys[:30], n_epochs=2)
@@ -413,10 +427,24 @@ def test_service_config_validates_port_lengths():
     with pytest.raises(ValueError, match="seeds"):
         TService(tc, t_init_state(tc, device="cpu"),
                  TConfig(replicas=2, seed=[1]), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh must be the port's Mesh; a real one shards the fleet, which
+    # then drains bitwise as the unsharded fleet
+    with pytest.raises(TypeError, match="Mesh"):
         TFleet(tc, t_init_state(tc, device="cpu"),
                t_init_runtime(tc, device="cpu"), n_replicas=2, mesh=object(),
                device="cpu")
+    xs, ys = _streams(4, 6)
+    fleets = [TFleet(tc, t_init_state(tc, device="cpu"),
+                     t_init_runtime(tc, s=3.0, T=15, device="cpu"),
+                     n_replicas=4, chunk=4, seed=9, mesh=m, device="cpu")
+              for m in (None, MESH)]
+    for f in fleets:
+        for i in range(6):
+            f.offer_rows(xs[:, i], ys[:, i])
+        assert list(f.drain(5)) == [5] * 4
+    assert fleets[1].mesh is MESH and len(fleets[1].service._slabs) == 4
+    _same_state(convert.session_state_to_numpy(fleets[0].ss), fleets[1].ss)
+    assert _eq(fleets[0].service.rng_keys, fleets[1].service.rng_keys)
 
 
 def _managers(jc, tc, K, oc_kw, seed):
@@ -511,3 +539,111 @@ def test_online_adapt_manager_matches_reference():
     assert jm.lost == tm.lost
     assert _eq(jm.serve(xs[:40]), tm.serve(xs[:40]))
     assert _eq(jm.session.ss.tm.ta_state, tm.session.ss.tm.ta_state.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The replica-axis mesh: four CPU slabs against the JAX package's sharded
+# run on four forced host devices
+# ---------------------------------------------------------------------------
+
+MESH_K = 8
+MESH_S = [1.375, 3.0, 5.0, 2.0, 3.9, 1.375, 2.5, 4.0]
+MESH_T = [5, 15, 10, 12, 20, 8, 15, 11]
+MESH_SEEDS = [41 + r for r in range(MESH_K)]
+
+JAX_MESH_SCRIPT = textwrap.dedent("""\
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, sys.argv[2])
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    assert len(jax.devices()) == 4, jax.devices()
+    import test_torch_fleet as tf
+
+    mesh = Mesh(np.array(jax.devices()), ("data",))
+    jc, _ = tf._cfgs()
+    out = {}
+    for packed in (False, True):
+        flow = tf._tick_flow(tf.JAX, jc, tf.MESH_K, tf.MESH_S, tf.MESH_T,
+                             tf.MESH_SEEDS, packed=packed, mesh=mesh)
+        for k, v in tf._flow_arrays(flow).items():
+            out[f"{int(packed)}_{k}"] = v
+    np.savez(sys.argv[1], **out)
+    print("OK")
+""")
+
+
+def _arr(x) -> np.ndarray:
+    """A result as numpy in comparable bits: float32 and uint32 words as
+    int32."""
+    x = x.cpu().numpy() if torch.is_tensor(x) else np.array(x)
+    return x.view(np.int32) if x.dtype in (np.float32, np.uint32) else x
+
+
+def _flow_arrays(flow) -> dict:
+    """Everything a :func:`_tick_flow` run produced, as numpy arrays."""
+    svc = flow["svc"]
+    ss = svc.ss
+    K = svc.n_replicas
+    out = {name: _arr(flow[name])
+           for name in ("base", "served", "served_k", "acc")}
+    out["accepted"] = _arr(np.stack(flow["accepted"]))
+    for name, leaf in zip(("ta", "data_x", "data_y", "head", "size", "step"),
+                          (ss.tm.ta_state, *ss.buf, ss.step)):
+        out[name] = _arr(leaf)
+    for name in ("rng_keys", "steps", "dropped", "buffered", "rollbacks",
+                 "lost", "since_analysis"):
+        out[name] = _arr(getattr(svc, name))
+    reps = flow["reports"]
+    out["trained"] = _arr(np.stack([r.trained for r in reps]))
+    out["rolled"] = _arr(np.stack([r.rolled_back for r in reps]))
+    out["report_acc"] = _arr(np.stack([
+        np.full(K, np.nan, np.float32) if r.accuracy is None
+        else np.asarray(r.accuracy, np.float32) for r in reps]))
+    out["hist_steps"] = _arr(np.stack([np.asarray(h[0])
+                                       for h in svc.history]))
+    out["hist_acc"] = _arr(np.stack([np.asarray(h[1])
+                                     for h in svc.history]))
+    for f in flow["chunks"][0]._fields:
+        out["chunk_" + f] = _arr(np.stack([_arr(getattr(c, f))
+                                           for c in flow["chunks"]]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory):
+    """The JAX package's mesh flows on four forced host devices (one
+    subprocess for the module)."""
+    tests = pathlib.Path(__file__).resolve().parent
+    path = tmp_path_factory.mktemp("jax_mesh") / "fleet.npz"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(tests.parent / "src"), env.get("PYTHONPATH", "")])
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run(
+        [sys.executable, "-c", JAX_MESH_SCRIPT, str(path), str(tests)],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])
+def test_fleet_mesh_per_replica_ports_match_jax_sharded(jax_sharded, packed):
+    """K = 8 with per-replica s/T (each slab reads its rows of the ports),
+    masked submits, backpressure, per-replica budgets, analysis and the
+    policy, monitored chunks, fleet and per-member serves: sharded over
+    four slabs, bitwise the unsharded port and the JAX package's sharded
+    run."""
+    _, tc = _cfgs()
+    runs = [_flow_arrays(_tick_flow(TORCH, tc, MESH_K, MESH_S, MESH_T,
+                                    MESH_SEEDS, packed=packed, mesh=m))
+            for m in (None, MESH)]
+    want = {k[2:]: v for k, v in jax_sharded.items()
+            if k.startswith(f"{int(packed)}_")}
+    assert set(want) == set(runs[1])
+    for name, v in want.items():
+        assert np.array_equal(runs[0][name], runs[1][name]), name
+        assert np.array_equal(v, runs[1][name]), name
+    assert len(runs[1]["hist_acc"]) > 0 and runs[1]["dropped"].sum() > 0

@@ -330,6 +330,60 @@ def test_packed_fleet_through_kernels_equals_plain(cuda):
     assert a[5] > 0 and r[5] == 0
 
 
+def test_sharded_fleet_on_card_equals_unsharded(cuda):
+    """A packed K = 8 fleet with per-replica ports sharded in four slabs on
+    the one card (``Mesh(["cuda:0"] * 4, ("data",))``) against the same
+    fleet without a mesh: banks, rings, keys, chunk aux, history and
+    serves bit for bit, and the replicated kernels launched per slab."""
+    from repro_torch.configs.tm_iris import CONFIG
+    from repro_torch.core import init_state
+    from repro_torch.data import iris
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.kernels import feedback as fb
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serve import AdaptPolicy, ServiceConfig, TMService
+
+    xs, ys = iris.load()
+    counters = (ce.clause_counts_replicated, fb.feedback_plane_replicated,
+                ce.clause_counts_batch_replicated_packed)
+    out = {}
+    for mesh in (None, Mesh([cuda] * 4, ("data",))):
+        svc = TMService(CONFIG.tm, init_state(CONFIG.tm, device=cuda),
+                        ServiceConfig(
+                            replicas=8, packed=True, chunk=4,
+                            buffer_capacity=16, mesh=mesh,
+                            s=[1.375, 3.0, 5.0, 2.0, 3.9, 1.375, 2.5, 4.0],
+                            T=[5, 15, 10, 12, 20, 8, 15, 11],
+                            seed=list(range(8)), policy=AdaptPolicy(8)),
+                        eval_x=xs[100:], eval_y=ys[100:], device=cuda)
+        before = [c.launches for c in counters]
+        svc.offline_train(xs[:30], ys[:30], n_epochs=2)
+        chunks = []
+        for i in range(30, 70):
+            svc.submit_rows(xs[i - 30:i - 22], ys[i - 30:i - 22])
+            if i % 4 == 3:
+                svc.tick(max_points=np.arange(8) % 5 + 1,
+                         on_chunk=chunks.append)
+        ss = svc.ss
+        out[mesh is None] = (
+            [ss.tm.ta_state.cpu(), *(a.cpu() for a in ss.buf),
+             ss.step.cpu()], svc.rng_keys, svc.serve(xs[:50]),
+            [a.cpu() for c in chunks for a in c],
+            [h[1].tolist() for h in svc.history],
+            [c.launches - b for c, b in zip(counters, before)])
+    a, b = out[True], out[False]
+    assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    assert np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+    assert all(torch.equal(x, y) for x, y in zip(a[3], b[3]))
+    assert a[4] == b[4]
+    # K6 (monitoring, analysis, serving): one launch a slab where the
+    # unsharded plane launches once; K3/K9 a step of each slab, which
+    # loops to its own largest budget
+    (k3, k9, k6), (s3, s9, s6) = a[5], b[5]
+    assert k3 > 0 and k9 > 0 and s6 == 4 * k6 > 0
+    assert k3 < s3 <= 4 * k3 and k9 < s9 <= 4 * k9
+
+
 # The pruned entries (K7): f, (R, D), selections of every kind.
 PRUNED_F = (16, 33, 784)
 PRUNED_RD = ((1, 1), (4, 2), (16, 1))

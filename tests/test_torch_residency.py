@@ -34,10 +34,20 @@ against its always-resident twin (driven with budgets masked by
   cross from the JAX package to the port and back with
   ``resident="saved"``, continuing bitwise.
 
-``test_sharded_residency_matches_unsharded_twin`` waits for the mesh, which
-the port does not have.
+* the mesh: ``test_sharded_residency_matches_unsharded_twin`` lays the
+  slots over four CPU slabs (``Mesh(["cpu"] * 4, ("data",))``; slot s on
+  slab ``s // (R / 4)``) and holds the port bitwise against its unsharded
+  always-resident twin and against the JAX package's sharded residency
+  service on four forced host devices (one subprocess for the module,
+  results through an ``.npz``): batched and synchronous moves, packed
+  rows, ``"auto"`` with its granule, and a save -> restore across meshes.
 """
+import os
+import pathlib
+import subprocess
+import sys
 import tempfile
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +72,7 @@ from repro_torch.core import online as t_online
 from repro_torch.core.online import SessionState as TSessionState
 from repro_torch.core.tm import TMState as TTMState
 from repro_torch.data.buffer import RingBuffer as TRing
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serve import AdaptPolicy as TPolicy
 from repro_torch.serve import ServiceConfig as TConfig
 from repro_torch.serve import TMService as TService
@@ -92,7 +103,7 @@ def _one_torch_thread():
 
 
 def _svc(mod, resident=None, *, backend=None, packed=False, seed=7,
-         with_eval=True, analyze_every=8, batched=True):
+         with_eval=True, analyze_every=8, batched=True, mesh=None):
     """The reference's test service (K = 6 on ``resident`` slots) in the
     JAX package (``mod="jax"``) or the port (``mod`` the port's backend,
     "cuda" or "ref")."""
@@ -103,7 +114,7 @@ def _svc(mod, resident=None, *, backend=None, packed=False, seed=7,
              backend="ref" if jax_side else mod)
     sc = Cfg(replicas=K, buffer_capacity=CAP, chunk=CHUNK,
              ingress_block=BLOCK, packed=packed, s=3.0, T=15, seed=seed,
-             resident=resident, batched_moves=batched,
+             resident=resident, batched_moves=batched, mesh=mesh,
              policy=Pol(analyze_every=analyze_every, rollback_threshold=0.1))
     ev = dict(eval_x=EVAL_X, eval_y=EVAL_Y) if with_eval else {}
     if jax_side:
@@ -833,3 +844,127 @@ def test_device_moves_match_reference(packed):
     _same_tree(j_online.activate_replicas(jtree, act_j, mask),
                t_online.activate_replicas(ttree, act_t, mask))
     _same_tree(jtree, ttree)                     # both out of place
+
+
+# ---------------------------------------------------------------------------
+# The mesh: slots in slabs over four CPU devices, against the JAX package's
+# sharded residency service on four forced host devices
+# ---------------------------------------------------------------------------
+
+MESH = Mesh(["cpu"] * 4, ("data",))
+MESH_CASES = {"batched": dict(resident=4), "sync": dict(resident=4,
+                                                         batched=False),
+              "packed": dict(resident=4, packed=True),
+              "auto": dict(resident="auto")}
+
+JAX_MESH_SCRIPT = textwrap.dedent("""\
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, sys.argv[2])
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    assert len(jax.devices()) == 4, jax.devices()
+    import test_torch_residency as tr
+
+    mesh = Mesh(np.array(jax.devices()), ("data",))
+    out = {}
+    for name, kw in tr.MESH_CASES.items():
+        svc = tr._svc("jax", mesh=mesh, **kw)
+        tr._mesh_drive([svc], [])
+        for k, v in tr._fingerprint(svc).items():
+            if v is not None:
+                out[name + "/" + k] = np.asarray(v)
+    np.savez(sys.argv[1], **out)
+    print("OK")
+""")
+
+
+def _mesh_drive(res, twins):
+    """The reference's sharded-residency flow: 32 random rows into every
+    replica, a flush and a tick every fourth, the twins ticked with
+    budgets masked by the first residency service's ``buffered > 0``."""
+    r = np.random.default_rng(3)
+    for i in range(32):
+        x, y = r.random(F) > 0.5, int(r.integers(0, 3))
+        for s in res + twins:
+            s.submit_rows(x, y)
+        if i % 4 == 3:
+            res[0].flush()
+            mask = res[0].buffered > 0
+            for s in res:
+                s.tick()
+            for t in twins:
+                t.tick(np.where(mask, t.chunk, 0))
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory):
+    """The JAX package's sharded residency flows (one subprocess for the
+    module)."""
+    tests = pathlib.Path(__file__).resolve().parent
+    path = tmp_path_factory.mktemp("jax_mesh") / "residency.npz"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(tests.parent / "src"), env.get("PYTHONPATH", "")])
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run(
+        [sys.executable, "-c", JAX_MESH_SCRIPT, str(path), str(tests)],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_sharded_residency_matches_unsharded_twin(jax_sharded, case):
+    """The resident plane sharded in slabs over four CPU devices runs the
+    evict/activate lifecycle bitwise equal to an unsharded always-resident
+    fleet, to the unsharded residency service (placement included) and to
+    the JAX package's sharded residency service."""
+    kw = MESH_CASES[case]
+    packed = kw.get("packed", False)
+    res = _svc("cuda", mesh=MESH, **kw)
+    plain = _svc("cuda", **kw)
+    twin = _svc("cuda", None, packed=packed)
+    _mesh_drive([res, plain], [twin])
+    assert res._res.evictions > 0
+    # an auto plane grown to the whole fleet (6) no longer divides the
+    # mesh: one slab, as the reference replicates it
+    assert len(res._slabs) == (4 if res.n_resident % 4 == 0 else 1)
+    assert case == "auto" or len(res._slabs) == 4
+    if case != "auto":     # the granule rounds the mesh's auto plane up
+        _assert_same(plain, res)
+    _assert_logical(res, twin)
+    want = {k.split("/", 1)[1]: v for k, v in jax_sharded.items()
+            if k.startswith(case + "/")}
+    got = {k: v for k, v in _fingerprint(res).items() if v is not None}
+    assert set(want) == set(got)
+    for k, v in want.items():
+        g = np.asarray(got[k])
+        assert np.array_equal(v, g, equal_nan=v.dtype.kind == "f"), k
+    xs = _RNG.random((5, F)) > 0.5
+    assert np.array_equal(res.serve_replicas([5, 0, 3], xs),
+                          twin.serve_replicas([5, 0, 3], xs))
+
+
+def test_sharded_residency_checkpoint_crosses_meshes(tmp_path):
+    """A sharded residency service saves the full-K layout: restored
+    without a mesh (and a service without one restored onto the mesh),
+    each continues bitwise as the service that never stopped."""
+    a = _svc("cuda", 4, mesh=MESH)
+    b = _svc("cuda", 4)
+    _drive([a, b], 24, seed=8)
+    a.save(str(tmp_path / "a"))
+    b.save(str(tmp_path / "b"))
+    ev = dict(eval_x=EVAL_X, eval_y=EVAL_Y)
+    a2 = TService.restore(str(tmp_path / "a"), device="cpu", **ev)
+    b2 = TService.restore(str(tmp_path / "b"), mesh=MESH, **ev)
+    assert len(a2._slabs) == 1 and len(b2._slabs) == 4
+    _drive([a, b, a2, b2], 24, seed=9)
+    # a restore partitions the fleet afresh (replicas 0..R-1 in the
+    # slots): the restored pair shares its placement, the logical fleet
+    # is the one that never stopped
+    _assert_same(a, b)
+    _assert_same(a2, b2)
+    _assert_same(a, a2, placement=False)

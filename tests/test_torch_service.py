@@ -5,7 +5,20 @@ tick -> serve) on iris, and the same flow with monitoring, backpressure
 and rollbacks on the MNIST-scale machine at 7 x 7, run on both packages
 from the same seeds and rows. TA banks, keys, tick reports, histories,
 drops, chunk monitoring and served predictions must agree exactly.
+
+The mesh cases shard a K = 8 packed, tunable service over four CPU slabs
+(``Mesh(["cpu"] * 4, ("data",))``): its run, its tunable serves and its
+checkpoints are held bitwise against the port without a mesh and against
+the JAX package's sharded service on four forced host devices (one
+subprocess for the module, which also writes a checkpoint the port
+restores with and without a mesh).
 """
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +39,7 @@ from repro_torch.configs.tm_iris import CONFIG as T_IRIS
 from repro_torch.core import init_runtime as t_init_runtime
 from repro_torch.core import init_state as t_init_state
 from repro_torch.core.online import OnlineSession as TSession
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serve import AdaptPolicy as TPolicy
 from repro_torch.serve import ServiceConfig as TConfig
 from repro_torch.serve import TMService as TService
@@ -33,6 +47,7 @@ from repro_torch.serve import TunableConfig as TTunable
 import dataclasses
 
 BACKENDS = ["cuda", "ref"]
+MESH = Mesh(["cpu"] * 4, ("data",))     # four slabs of the replica axis
 
 
 @pytest.fixture(autouse=True)
@@ -180,20 +195,21 @@ def test_online_session_shim_matches_reference():
     dict(mesh=object()),
 ])
 def test_later_slices_raise(sc):
-    """Fleets, packing, per-replica ports, tunable serving and residency
-    are served; only a mesh still raises, naming what is not ported. The
-    residency cases construct and drive the service beside the JAX one
-    (iris rows into a random subset of replicas, ticks with analysis
-    every 8 points, then ``serve_replicas``, calibrated and budgeted in the
-    tunable case) and must agree bit for bit."""
+    """Fleets, packing, per-replica ports, tunable serving, residency and
+    the mesh are all served now; a mesh that is not the port's ``Mesh``
+    is a ``TypeError``. Each case constructs and drives the service beside
+    the JAX one (iris rows into a random subset of replicas, ticks with
+    analysis every 8 points, then ``serve_replicas``, calibrated and
+    budgeted in the tunable case) and must agree bit for bit; the mesh
+    case runs a real four-slab mesh beside the JAX service without one."""
     cfg = T_IRIS.tm
     if "mesh" in sc:
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(TypeError, match="Mesh"):
             TService(cfg, t_init_state(cfg, device="cpu"), TConfig(**sc),
                      device="cpu")
-        return
+        sc = dict(replicas=4, mesh=MESH)
     xs, ys = iris.load()
-    jsc = dict(sc)
+    jsc = {k: v for k, v in sc.items() if k != "mesh"}
     if "tunable" in sc:
         jsc["tunable"] = JTunable(**dataclasses.asdict(sc["tunable"]))
     knobs = dict(s=3.0, T=15, chunk=4, buffer_capacity=16, ingress_block=4)
@@ -265,3 +281,163 @@ def test_durable_state_raises(tmp_path):
             assert _eq(other.buffered, ts.buffered)
     with pytest.raises(FileNotFoundError):
         svc.load(str(tmp_path / "missing"))
+
+
+# ---------------------------------------------------------------------------
+# The replica-axis mesh: a packed, tunable K = 8 service on four CPU slabs
+# against the JAX package's sharded service on four forced host devices
+# ---------------------------------------------------------------------------
+
+MESH_KNOBS = dict(replicas=8, buffer_capacity=16, chunk=4, ingress_block=4,
+                  s=3.0, T=15, seed=11, packed=True)
+
+JAX_MESH_SCRIPT = textwrap.dedent("""\
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    sys.path.insert(0, sys.argv[3])
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    assert len(jax.devices()) == 4, jax.devices()
+    import test_torch_service as ts
+
+    svc = ts._mesh_service("jax", Mesh(np.array(jax.devices()), ("data",)))
+    ts._mesh_drive(svc, 0)
+    svc.calibrate()
+    svc.save(sys.argv[2])
+    out = {"mid_" + k: v for k, v in ts._mesh_results(svc).items()}
+    ts._mesh_drive(svc, 1)
+    out.update({"end_" + k: v for k, v in ts._mesh_results(svc).items()})
+    np.savez(sys.argv[1], **out)
+    print("OK")
+""")
+
+
+def _mesh_service(pkg, mesh):
+    """The K = 8 packed tunable service of the mesh cases, in the JAX
+    package (``pkg="jax"``) or the port."""
+    xs, ys = iris.load()
+    ev = dict(eval_x=xs[100:], eval_y=ys[100:])
+    tun = dict(budget=0.5, weight_bits=2, early_exit=True, group=4)
+    if pkg == "jax":
+        return JService(J_IRIS.tm, j_init_state(J_IRIS.tm), JConfig(
+            policy=JPolicy(analyze_every=8), tunable=JTunable(**tun),
+            mesh=mesh, **MESH_KNOBS), **ev)
+    return TService(T_IRIS.tm, t_init_state(T_IRIS.tm, device="cpu"),
+                    TConfig(policy=TPolicy(analyze_every=8),
+                            tunable=TTunable(**tun), mesh=mesh,
+                            **MESH_KNOBS), device="cpu", **ev)
+
+
+def _mesh_drive(svc, seed, n=24):
+    """Rows into a random subset of the replicas, a tick every third."""
+    xs, ys = iris.load()
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        idx = rng.integers(0, 100, 8)
+        svc.submit_rows(xs[idx], ys[idx], rng.random(8) < 0.7)
+        if i % 3 == 2:
+            svc.tick()
+
+
+def _arr(x) -> np.ndarray:
+    x = x.cpu().numpy() if torch.is_tensor(x) else np.array(x)
+    return x.view(np.int32) if x.dtype in (np.float32, np.uint32) else x
+
+
+def _mesh_results(svc) -> dict:
+    """The logical fleet, the policy, the history and the tunable serves
+    (calibrated ranks; budgeted with weights and early exit; the live
+    budget) as numpy arrays."""
+    xs, _ = iris.load()
+    ss = svc.ss
+    out = {name: _arr(leaf) for name, leaf in zip(
+        ("ta", "data_x", "data_y", "head", "size", "step"),
+        (ss.tm.ta_state, *ss.buf, ss.step))}
+    for name in ("rng_keys", "steps", "buffered", "rollbacks",
+                 "since_analysis"):
+        out[name] = _arr(getattr(svc, name))
+    out["best"] = _arr(svc._ps.best)
+    out["hist_acc"] = _arr(np.stack([np.asarray(h[1])
+                                     for h in svc.history]))
+    out["scores"] = _arr(svc.calibrate())
+    preds, aux = svc.serve(xs[:30], budget=0.25, return_aux=True)
+    out["pruned"], out["evaluated"], out["sel"] = (
+        _arr(preds), _arr(aux.evaluated), _arr(aux.sel))
+    out["live"] = _arr(svc.serve(xs[:30]))
+    rids = np.arange(8)[::-1]
+    out["replicas"] = _arr(svc.serve_replicas(rids, xs[:30], budget=0.5))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory):
+    """The JAX package's sharded service on four forced host devices (one
+    subprocess for the module): its results and the checkpoint it wrote
+    between its two halves."""
+    tests = pathlib.Path(__file__).resolve().parent
+    tmp = tmp_path_factory.mktemp("jax_mesh")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(tests.parent / "src"), env.get("PYTHONPATH", "")])
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run(
+        [sys.executable, "-c", JAX_MESH_SCRIPT, str(tmp / "out.npz"),
+         str(tmp / "ckpt"), str(tests)],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return dict(np.load(tmp / "out.npz")), str(tmp / "ckpt")
+
+
+def _same(want: dict, prefix: str, got: dict):
+    want = {k[len(prefix):]: v for k, v in want.items()
+            if k.startswith(prefix)}
+    assert set(want) == set(got)
+    for name, v in want.items():
+        assert np.array_equal(v, got[name]), name
+
+
+def test_service_mesh_tunable_matches_jax_sharded(jax_sharded):
+    """The sharded service's run and tunable serves (K7 replicated on every
+    slab) are bitwise the unsharded port's and the JAX sharded run's."""
+    want, _ = jax_sharded
+    for mesh in (None, MESH):
+        svc = _mesh_service("torch", mesh)
+        assert len(svc._slabs) == (1 if mesh is None else 4)
+        _mesh_drive(svc, 0)
+        svc.calibrate()
+        _same(want, "mid_", _mesh_results(svc))
+        _mesh_drive(svc, 1)
+        _same(want, "end_", _mesh_results(svc))
+
+
+@pytest.mark.parametrize("writer,reader", [
+    ("jax_mesh", MESH), ("jax_mesh", None), ("port_mesh", None),
+    ("port_plain", MESH)],
+    ids=["jax_sharded_to_mesh", "jax_sharded_to_plain",
+         "mesh_to_plain", "plain_to_mesh"])
+def test_service_mesh_checkpoints_restore_across(jax_sharded, tmp_path,
+                                                 writer, reader):
+    """A checkpoint is the full-K layout with or without a mesh: one the
+    JAX sharded service wrote, or the port wrote with or without a mesh,
+    restores with or without one and continues bitwise as the JAX sharded
+    service continued."""
+    want, jax_ckpt = jax_sharded
+    if writer == "jax_mesh":
+        ckpt = jax_ckpt
+    else:
+        svc = _mesh_service("torch", MESH if writer == "port_mesh" else None)
+        _mesh_drive(svc, 0)
+        svc.calibrate()
+        ckpt = str(tmp_path)
+        svc.save(ckpt)
+    xs, ys = iris.load()
+    back = TService.restore(ckpt, mesh=reader, eval_x=xs[100:],
+                            eval_y=ys[100:],
+                            device=None if reader is not None else "cpu")
+    assert back.mesh is reader
+    assert len(back._slabs) == (1 if reader is None else 4)
+    _same(want, "mid_", _mesh_results(back))
+    _mesh_drive(back, 1)
+    _same(want, "end_", _mesh_results(back))
