@@ -147,11 +147,13 @@ Phases, each with its seconds:
    bit, step ms, tokens/s, peak memory with and without remat, a
    torch.profiler window of 2 steps, the step split into gradient pass,
    cross-entropy and optimizer, a float32 SGD descent step, and the
-   streaming-softmax backward and a 6-layer train step against the CPU.
+   streaming-softmax backward and a 6-layer train step against the CPU
+   (the launcher's save and resume at 6 layers since PR 24).
    Then ``lm_moe_ssd`` (``phase_lm_moe_ssd``; no CUDA kernel of its own):
    ``launch.serve --full`` for olmoe-1b-7b and mamba2-780m; bf16 serving
    through ``Engine.generate`` of 4 x 1024-token prompts, olmoe-1b-7b and
-   mamba2-780m at full width and depth (64 new tokens) and arctic-480b at
+   mamba2-780m at full width, 4 of 16 and 12 of 48 layers (64 new tokens;
+   cut in PR 24 for the script's time) and arctic-480b at
    full width, one layer, bf16 parameters (16 new tokens): prefill ms,
    decode ms a step, tokens/s, peak memory, the MoE slots dropped by
    capacity, one layer's time split into its parts, 8 profiled decode
@@ -160,14 +162,15 @@ Phases, each with its seconds:
    against a forward over S + chunk tokens. Then ``lm_moe_ssd_train``:
    ``launch.train --full`` for mamba2-780m and olmoe-1b-7b (``--layers
    4``), bf16 training (AdamW, 4 x 1024 tokens a step) of mamba2-780m at
-   full depth and olmoe-1b-7b at 4 layers with step ms, tokens/s, peak
+   12 of 48 layers and olmoe-1b-7b at 4 layers with step ms, tokens/s, peak
    memory and a 2-step profile, and one train step of each against the
    CPU (olmoe at 1 layer, mamba2 at 2). Then ``lm_rglru_cross``
    (``phase_lm_rglru_cross``; no CUDA kernel of its own): ``launch.serve
    --full`` for recurrentgemma-9b (the launcher and ``Engine.generate``
    refuse the vlm, whose prefill needs ``cross_embeds``); bf16 serving of
-   4 x 1024-token prompts and 64 new tokens at full width and depth,
-   recurrentgemma-9b through ``Engine.generate`` and llama-3.2-vision-11b
+   4 x 1024-token prompts and 64 new tokens at full width, 14 of 38 and
+   10 of 40 layers (PR 24's cut), recurrentgemma-9b through
+   ``Engine.generate`` and llama-3.2-vision-11b
    through ``Transformer.prefill`` with its 1601 stub image embeddings and
    ``decode_step``: prefill ms, decode ms a step, tokens/s, peak memory,
    one layer of each kind timed (the RG-LRU's scan, gates and MLP; CROSS
@@ -177,7 +180,18 @@ Phases, each with its seconds:
    8 bf16 AdamW steps of each at 5 layers (step ms, tokens/s, peak
    memory, a 2-step profile). The CROSS gates and the RG-LRU's
    constant-init biases and Lambda are drawn off their inits in every
-   check;
+   check. Then ``lm_mesh`` (``phase_lm_mesh``; no CUDA kernel of its
+   own): 4 ``torch.distributed`` ranks, on one card over the staged
+   backend (a card a rank with NCCL where there are 4), train gemma3-1b
+   at full width, 6 of 26 layers, B = 4 x 1024, laid out over a (2, 2)
+   (data, model) mesh by the reference's rules: 2 float32 steps against
+   the unsharded port on the same card (losses within 1e-5 relative), a
+   collective checkpoint resumed on (4, 1) (parameters and moments
+   within 1e-4 of each leaf's range of the unsharded state) and one
+   more step held the same way, a timed bf16 step beside the unsharded
+   one (each
+   rank's peak, the staged collectives' calls and bytes a step), and
+   olmoe-1b-7b's loss at full width, one layer;
 9. profile -- torch.profiler over one more 16-point drain chunk of the
    service, over one offline epoch of the f = 784, O = 8 engine, and over
    one drain chunk of the K = 16 fleet: wall time, device busy time, idle
@@ -3528,6 +3542,7 @@ LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 1024, 8
 LM_TRAIN_PROFILE_STEPS = 2
 LM_SGD_DECREASE = 1e-3          # the descent step's first-order decrease
 LM_CUT_LAYERS = 6               # the card-against-CPU train step
+LM_LAUNCH_LAYERS = 6            # the launcher's save and resume (PR 24)
 
 
 def _per_layer_init(torch, cfg, tree: dict) -> dict:
@@ -3564,7 +3579,8 @@ def _rel_tree(torch, got, want) -> float:
 
 def _lm_train_launcher(torch, np, cfg) -> None:
     """``python -m repro_torch.launch.train --full`` as a user runs it, at
-    full width and depth: 2 steps with a checkpoint of the whole state
+    full width, depth cut to LM_LAUNCH_LAYERS (``--layers``; PR 24, for
+    the script's time): 2 steps with a checkpoint of the whole state
     (parameters and moments, through the host) at step 2, then a restart
     with ``--steps 3`` that resumes from it (``restore_tensors``) and runs
     the third step."""
@@ -3576,7 +3592,8 @@ def _lm_train_launcher(torch, np, cfg) -> None:
     from repro_torch.train import checkpoint as ckpt_mod
 
     ck = tempfile.mkdtemp(prefix="lm_train_ckpt_")
-    args = ["--arch", cfg.arch_id, "--full", "--batch", str(LM_TRAIN_B),
+    args = ["--arch", cfg.arch_id, "--full", "--layers",
+            str(LM_LAUNCH_LAYERS), "--batch", str(LM_TRAIN_B),
             "--seq", str(LM_TRAIN_S), "--ckpt-every", "2", "--ckpt-dir", ck,
             "--seed", str(SEED)]
     try:
@@ -3601,7 +3618,9 @@ def _lm_train_launcher(torch, np, cfg) -> None:
     finally:
         shutil.rmtree(ck, ignore_errors=True)
     torch.cuda.empty_cache()
-    print(f"lm_train launcher {cfg.arch_id} --full (B {LM_TRAIN_B} x S "
+    print(f"lm_train launcher {cfg.arch_id} --full --layers "
+          f"{LM_LAUNCH_LAYERS} (reduced: n_layers {cfg.n_layers} -> "
+          f"{LM_LAUNCH_LAYERS}; B {LM_TRAIN_B} x S "
           f"{LM_TRAIN_S}): 2 steps and a {nbytes:,}-byte checkpoint in "
           f"{first:.2f} s (losses "
           + ", ".join(f"{x:.6f}" for x in rep.losses)
@@ -3888,15 +3907,17 @@ def phase_lm_train(torch, np):
 # parameters' dtype, new tokens): arctic-480b's one layer at full width
 # is 14.07 B parameters, whose float32 masters and bf16 copies (84.4 GB)
 # would not fit the card, so it is drawn in bf16 (28.1 GB).
-LMX_SERVE = (("olmoe_1b_7b", None, "float32", 64),
-             ("mamba2_780m", None, "float32", 64),
+# serving depth cut to hold the script's time (PR 24): olmoe 16 -> 4,
+# mamba2 48 -> 12 layers
+LMX_SERVE = (("olmoe_1b_7b", 4, "float32", 64),
+             ("mamba2_780m", 12, "float32", 64),
              ("arctic_480b", 1, "bfloat16", 16))
 LMX_CUT, LMX_CPU_S = 2, 256     # the card-against-CPU depth and prompt
 LMX_TOL_BF16 = 3e-2
 # lm_moe_ssd_train: (arch, layers or None); olmoe-1b-7b's float32
 # parameters and AdamW moments are 83.0 GB at full depth, 22.6 GB at 4
 # of its 16 layers.
-LMX_TRAIN = (("mamba2_780m", None), ("olmoe_1b_7b", 4))
+LMX_TRAIN = (("mamba2_780m", 12), ("olmoe_1b_7b", 4))   # mamba2 48 -> 12
 LMX_TRAIN_STEPS, LMX_TRAIN_PROFILE_STEPS = 8, 2
 # the train step against the CPU: olmoe at one layer (its float64 CPU step
 # is most of this phase's time; routing and the expert gradients are at
@@ -4378,8 +4399,9 @@ def phase_lm_moe_ssd(torch, np):
     1. ``launch.serve --full`` as a user runs it, olmoe-1b-7b and
        mamba2-780m (64-token prompts, 8 new tokens);
     2. bf16 serving through ``Engine.generate``, B = 4 x 1024-token
-       prompts: olmoe-1b-7b and mamba2-780m at full width and depth (64
-       new tokens), arctic-480b at full width, one layer, bf16 parameters
+       prompts: olmoe-1b-7b and mamba2-780m at full width, depth cut to
+       LMX_SERVE's (64 new tokens), arctic-480b at full width, one layer,
+       bf16 parameters
        (16 new tokens); prefill ms, decode ms a step, tokens/s, peak
        memory, 8 profiled decode steps, and the MoE slots dropped by
        capacity and one layer split into its parts (``_lm_serve``);
@@ -4615,6 +4637,9 @@ def phase_lm_moe_ssd_train(torch, np):
 # moments are 102.9 GB and 117.3 GB, which one card does not hold. No
 # kernel of their own: plain PyTorch ops.
 LMR_ARCHS = ("recurrentgemma_9b", "llama32_vision_11b")
+# serving depth (PR 24, for the script's time): 38 -> 14 (4 super-blocks
+# and the 2 remainder layers), 40 -> 10 (2 super-blocks)
+LMR_SERVE_LAYERS = {"recurrentgemma_9b": 14, "llama32_vision_11b": 10}
 LMR_TRAIN_LAYERS = 5
 LMR_CPU_S = 256                 # the card-against-CPU prompt (B = 1)
 LMR_TOL64 = 1e-10               # card against CPU at float64 compute
@@ -4832,7 +4857,8 @@ def phase_lm_rglru_cross(torch, np):
        (64-token prompts, 8 new tokens); for the vlm the launcher, and
        ``Engine.generate``, refuse (its prefill needs ``cross_embeds``);
     2. bf16 serving of B = 4 x 1024-token prompts and 64 new tokens at
-       full width and depth, float32 parameters drawn on the card with the
+       full width, depth cut to LMR_SERVE_LAYERS, float32 parameters
+       drawn on the card with the
        gates off their inits: recurrentgemma-9b through
        ``Engine.generate``, llama-3.2-vision-11b through
        ``Transformer.prefill`` with ``cross_embeds`` and ``decode_step``
@@ -4863,7 +4889,8 @@ def phase_lm_rglru_cross(torch, np):
         print(f"lm_rglru_cross launch.serve llama-3.2-vision-11b refuses: "
               f"{e}", flush=True)
     for arch in LMR_ARCHS:
-        cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=LMR_SERVE_LAYERS[arch])
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         t = time.perf_counter()
@@ -4931,6 +4958,356 @@ def phase_lm_rglru_cross_train(torch, np):
     for arch in LMR_ARCHS:
         _lmx_train(torch, np, arch, LMR_TRAIN_LAYERS, smi,
                    label="lm_rglru_cross_train")
+
+
+LMM_ARCH = "gemma3_1b"
+LMM_LAYERS = 6                  # one super-block of gemma3-1b's 26 layers
+LMM_B, LMM_S = 4, 1024
+LMM_MESH = (2, 2)               # (data, model)
+LMM_RESHARD = (4, 1)
+LMM_TIMED = 1                   # bf16 steps timed a side, after one
+LMM_MOE = "olmoe_1b_7b"         # one layer, the loss only
+LMM_LOSS_TOL = 1e-5
+LMM_TOL = 1e-4
+LMM_TIMEOUT_S = 120.0            # the phase's limit
+
+
+def _lmm_cfg(arch: str, layers: int, dtype: str):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch), n_layers=layers,
+                               compute_dtype=dtype)
+
+
+def _lmm_params(torch, cfg, dev) -> dict:
+    return _per_layer_init(torch, cfg, _lm_model(torch, cfg, SEED, dev))
+
+
+def _lmm_batches(cfg, n: int) -> list:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic
+
+    data = synthetic.token_batches(
+        cfg, ShapeConfig("lm_mesh", LMM_S, LMM_B, "train"), seed=SEED)
+    return [next(data) for _ in range(n)]
+
+
+def _lmm_host(torch, state) -> list:
+    """The leaves of a plain state on the card, as host copies."""
+    from repro_torch import tree as T
+
+    return [x.detach().to("cpu", copy=True) for x in T.leaves(state)]
+
+
+def _lmm_rel_host(torch, got, ref) -> float:
+    """max |got - ref| / max |ref| of one leaf (0 for an integer leaf),
+    on ``ref``'s device."""
+    if not ref.dtype.is_floating_point:
+        return 0.0
+    ref = ref.double()
+    scale = ref.abs().max().item() or 1.0
+    return (got.to(ref.device).double() - ref).abs().max().item() / scale
+
+
+def _lmm_rel(torch, sharded_state, ref_leaves, rank: int) -> float:
+    """max over leaves of max |sharded - ref| / max |ref|: every rank
+    gathers each leaf whole in turn (collective), rank 0 compares it on
+    the card with the unsharded run's host copy."""
+    from repro_torch import tree as T
+    from repro_torch.distributed import sharding as shd
+
+    worst = 0.0
+    for x, r in zip(T.leaves(sharded_state), ref_leaves or
+                    [None] * len(T.leaves(sharded_state))):
+        whole = shd.gather(x)
+        if rank == 0:
+            worst = max(worst, _lmm_rel_host(torch, whole,
+                                             r.to(whole.device)))
+        del whole
+    return worst
+
+
+def _lmm_steps(torch, cfg, tc, state, batches):
+    """``len(batches)`` steps (donating); returns (state, losses, ms a
+    step on the host's clock around a synchronised step)."""
+    from repro_torch.train import train_step as TS
+
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = TS.train_step(cfg, tc, state, b, donate=True)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(loss)
+    return state, losses, ms
+
+
+def _lm_mesh_rank(rank, world, ckpt_dir):
+    """One rank of phase ``lm_mesh`` (``repro_torch.launch.ranks.spawn``
+    starts 4; the docstring of :func:`phase_lm_mesh` says what it does).
+    Returns what this rank measured; rank 0 also what it checked."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import transformer
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f32 = _lmm_cfg(LMM_ARCH, LMM_LAYERS, "float32")
+    bf16 = _lmm_cfg(LMM_ARCH, LMM_LAYERS, "bfloat16")
+    moe = _lmm_cfg(LMM_MOE, 1, "float32")
+    tc = TS.TrainConfig(opt=opt_mod.OptConfig())
+    batches = _lmm_batches(f32, 3)
+    moe_batch = _lmm_batches(moe, 1)[0]
+    out = {"rank": rank, "device": str(dev),
+           "backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    start = t0
+
+    def note(what):
+        # rank 0's progress, so that a phase cut by its time limit shows
+        # how far it got
+        if rank == 0:
+            print(f"lm_mesh rank 0 at {time.perf_counter() - start:.1f} s: "
+                  f"{what}", file=sys.stderr, flush=True)
+
+    # 1. rank 0: the unsharded port on the same card (the others wait)
+    ref = {}
+    if rank == 0:
+        state = TS.init_state(tc, _lmm_params(torch, f32, dev))
+        state, ref["losses"], _ = _lmm_steps(torch, f32, tc, state,
+                                             batches[:2])
+        note("unsharded float32 steps 1-2")
+        ref["step2"] = _lmm_host(torch, state)
+        state, loss3, _ = _lmm_steps(torch, f32, tc, state, batches[2:])
+        ref["losses"] += loss3
+        ref["step3"] = _lmm_host(torch, state)
+        note("unsharded float32 step 3")
+        del state
+        torch.cuda.empty_cache()
+        state = TS.init_state(tc, _lmm_params(torch, bf16, dev))
+        torch.cuda.reset_peak_memory_stats()
+        state, _, ms = _lmm_steps(torch, bf16, tc, state,
+                                  batches[:1 + LMM_TIMED])
+        out["plain_bf16_ms"] = ms[1:]
+        out["plain_peak"] = torch.cuda.max_memory_allocated()
+        note(f"unsharded bf16 steps {ms}")
+        del state
+        torch.cuda.empty_cache()
+        prm = _lmm_params(torch, moe, dev)
+        with torch.no_grad():
+            loss, _ = transformer.loss_fn(
+                moe, prm, TS.batch_on(moe_batch, dev),
+                num_groups=LMM_MESH[0])
+        ref["moe_loss"] = float(loss)
+        del prm, loss
+        torch.cuda.empty_cache()
+    out["ref_s"] = time.perf_counter() - t0
+    collectives.barrier()
+    note("reference done")
+
+    # 2. float32 on (2, 2): two steps against the unsharded port, then a
+    # checkpoint written collectively
+    t0 = time.perf_counter()
+    mesh = RankMesh(LMM_MESH, ("data", "model"), device=dev.type)
+    sh = TS.state_shardings(f32, tc, mesh)
+    state = shd.distribute(TS.init_state(tc, _lmm_params(torch, f32, dev)),
+                           sh)
+    torch.cuda.empty_cache()
+    note("distributed")
+    out["local_elems"] = shd.local_numel(state.params)
+    out["whole_elems"] = sum(int(np.prod(x.shape))
+                             for x in T.leaves(state.params))
+    state, losses, ms = _lmm_steps(torch, f32, tc, state, batches[:2])
+    out["f32_ms"] = ms
+    out["losses"] = losses
+    note(f"sharded float32 steps {ms}")
+    t = time.perf_counter()
+    from repro_torch.train import checkpoint as ckpt_mod
+    ckpt_mod.save(ckpt_dir, 2, state)
+    out["save_s"] = time.perf_counter() - t
+    note("saved")
+    out["f32_s"] = time.perf_counter() - t0
+
+    # 3. resume on (4, 1): the state after step 2 through the checkpoint,
+    # held to the unsharded run's; then one more step, held the same way
+    t0 = time.perf_counter()
+    mesh41 = RankMesh(LMM_RESHARD, ("data", "model"), device=dev.type)
+    sh41 = TS.state_shardings(f32, tc, mesh41)
+    lc = loop_mod.LoopConfig(checkpoint_dir=ckpt_dir)
+    template = T.map(lambda x: 0, state)    # the tree's structure alone
+    del state
+    torch.cuda.empty_cache()
+    back = loop_mod.resume_or_init(lc, template, shardings=sh41)
+    out["restore_s"] = time.perf_counter() - t0
+    note("restored")
+    out["err_step2"] = _lmm_rel(torch, back, ref.get("step2"), rank)
+    back, loss3, _ = _lmm_steps(torch, f32, tc, back, batches[2:])
+    out["losses"] += loss3
+    note("resumed step 3")
+    out["err_step3"] = _lmm_rel(torch, back, ref.get("step3"), rank)
+    del back
+    torch.cuda.empty_cache()
+    out["reshard_s"] = time.perf_counter() - t0
+
+    # 4. bf16 on (2, 2), timed; the staged collectives counted a step
+    t0 = time.perf_counter()
+    sh = TS.state_shardings(bf16, tc, mesh)
+    state = shd.distribute(TS.init_state(tc, _lmm_params(torch, bf16, dev)),
+                           sh)
+    torch.cuda.empty_cache()
+    state, _, _ = _lmm_steps(torch, bf16, tc, state, batches[:1])
+    collectives.reset_staged_counts()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.barrier()
+    state, _, ms = _lmm_steps(torch, bf16, tc, state,
+                              batches[1:1 + LMM_TIMED])
+    out["bf16_ms"] = ms
+    out["bf16_peak"] = torch.cuda.max_memory_allocated()
+    out["staged_per_step"] = {k: [c / LMM_TIMED, b / LMM_TIMED] for k, (c, b)
+                              in collectives.staged_counts().items()}
+    del state
+    torch.cuda.empty_cache()
+    out["bf16_s"] = time.perf_counter() - t0
+    note(f"sharded bf16 steps {ms}")
+
+    # 5. olmoe-1b-7b, one layer: the loss on (2, 2)
+    t0 = time.perf_counter()
+    psh = shd.param_shardings(transformer.model_specs(moe), mesh,
+                              shd.ShardingPolicy())
+    prm = shd.distribute(_lmm_params(torch, moe, dev), psh)
+    torch.cuda.empty_cache()
+    from repro_torch.distributed import autoshard
+    with torch.no_grad(), autoshard.use(mesh):
+        loss, _ = transformer.loss_fn(
+            moe, prm, TS.batch_on(moe_batch, dev, mesh),
+            num_groups=shd.moe_groups(moe, mesh))
+    out["moe_loss"] = float(shd.gather(loss))
+    del prm, loss
+    torch.cuda.empty_cache()
+    out["moe_s"] = time.perf_counter() - t0
+    note("olmoe loss")
+    if rank == 0:
+        out["ref"] = {k: v for k, v in ref.items() if "step" not in k}
+    return out
+
+
+def phase_lm_mesh(torch, np, smi: str):
+    """The LM half of the mesh on the card: 4 ``torch.distributed`` ranks
+    (``repro_torch.launch.ranks.spawn``) lay a train state over a
+    (data, model) mesh by the reference's rules (FSDP over data, TP / EP
+    over model) as DTensors. On one card the 4 ranks share ``cuda:0``
+    over the staged backend (gloo through pinned host memory: NCCL
+    refuses two ranks on one GPU, and DTensor's collectives on CUDA
+    tensors over gloo never return); with 4 or more cards, NCCL, a card
+    a rank. No CUDA kernel of its own.
+
+    gemma3-1b at full width (d_model 1152, vocab 262144, 4 heads with
+    one kv head, d_ff 6912, head_dim 256), depth cut to one super-block
+    (6 of 26 layers), B = 4 x S = 1024 from ``data.synthetic``, the
+    default AdamW (warm-up 100), layers drawn with their own fan-in:
+
+    1. rank 0 runs the unsharded port on the same card first (3 float32
+       steps, 1 + 1 timed bf16 steps, olmoe's loss);
+    2. float32 on (2, 2): 2 steps, the losses within 1e-5 relative of
+       the unsharded ones; each rank holds under half the parameters; a
+       checkpoint written collectively;
+    3. resume on (4, 1) (``loop.resume_or_init(..., shardings=)``):
+       every parameter and moment within 1e-4 of its leaf's range of the
+       unsharded state after step 2; one more step, held the same way
+       to the unsharded third (the restore's bitwise check is the CPU
+       tests'; here it would cost a phase that must end in 120 s);
+    4. bf16 on (2, 2): 1 + 1 timed step, against the unsharded ones
+       (ms a step, each rank's peak, the staged collectives a step);
+    5. olmoe-1b-7b at full width, one layer, on (2, 2): the loss against
+       the unsharded port's at the same dispatch groups (2)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import ranks
+
+    ck = tempfile.mkdtemp(prefix="lm_mesh_ckpt_")
+    t = time.perf_counter()
+    try:
+        outs = ranks.spawn(_lm_mesh_rank, 4, (ck,), device="cuda",
+                           timeout_s=LMM_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"lm_mesh: {e}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    wall = time.perf_counter() - t
+    r0 = outs[0]
+    ref = r0["ref"]
+    print(f"lm_mesh [{smi}]: {LMM_ARCH} full width, {LMM_LAYERS} of 26 "
+          f"layers (cut: one super-block), B {LMM_B} x S {LMM_S}; 4 ranks "
+          f"on {sorted({o['device'] for o in outs})}, backend "
+          f"{r0['backend']}; spawn {wall:.2f} s (reference "
+          f"{r0['ref_s']:.2f} s, f32 {r0['f32_s']:.2f} s incl. save "
+          f"{r0['save_s']:.2f} s, reshard {r0['reshard_s']:.2f} s incl. "
+          f"restore {r0['restore_s']:.2f} s, bf16 {r0['bf16_s']:.2f} s, "
+          f"olmoe {r0['moe_s']:.2f} s)", flush=True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(r0["losses"], ref["losses"]))
+    print(f"lm_mesh [{smi}]: float32 losses sharded "
+          + ", ".join(f"{x:.7f}" for x in r0["losses"])
+          + " vs unsharded " + ", ".join(f"{x:.7f}" for x in ref["losses"])
+          + f" (max rel {loss_err:.3e}); leaves after step 2 on {LMM_MESH}, "
+          f"saved and restored on {LMM_RESHARD}: max rel "
+          f"{r0['err_step2']:.3e}; after step 3 there "
+          f"{r0['err_step3']:.3e}", flush=True)
+    check(all(np.isfinite(r0["losses"])), f"lm_mesh losses {r0['losses']}")
+    check(loss_err <= LMM_LOSS_TOL, f"lm_mesh: sharded loss {loss_err:.3e}"
+          " from the unsharded port's")
+    check(r0["err_step2"] <= LMM_TOL and r0["err_step3"] <= LMM_TOL,
+          f"lm_mesh: sharded state {r0['err_step2']:.3e} / "
+          f"{r0['err_step3']:.3e} of a leaf's range from the unsharded")
+    whole = r0["whole_elems"]
+    for o in outs:
+        check(o["local_elems"] < whole // 2,
+              f"lm_mesh: rank {o['rank']} holds {o['local_elems']:,} of "
+              f"{whole:,} parameters")
+    moe_err = abs(r0["moe_loss"] - ref["moe_loss"]) / abs(ref["moe_loss"])
+    print(f"lm_mesh [{smi}]: {LMM_MOE} full width, 1 layer, on {LMM_MESH}: "
+          f"loss {r0['moe_loss']:.7f} vs unsharded {ref['moe_loss']:.7f} "
+          f"(rel {moe_err:.3e})", flush=True)
+    check(moe_err <= LMM_LOSS_TOL, f"lm_mesh: olmoe loss {moe_err:.3e}")
+    sharded = sorted(ms for o in outs for ms in o["bf16_ms"])
+    print(f"lm_mesh [{smi}]: bf16 step, {LMM_TIMED} timed: sharded "
+          f"{LMM_MESH} " + ", ".join(f"{x:.1f}" for x in r0["bf16_ms"])
+          + " ms (rank 0), unsharded " + ", ".join(
+              f"{x:.1f}" for x in r0["plain_bf16_ms"])
+          + f" ms; f32 sharded steps " + ", ".join(
+              f"{x:.1f}" for x in r0["f32_ms"]) + " ms; peak "
+          + ", ".join(f"rank {o['rank']} {o['bf16_peak'] / 2**30:.2f} GiB"
+                      for o in outs)
+          + f", unsharded {r0['plain_peak'] / 2**30:.2f} GiB; parameters "
+          "held a rank " + ", ".join(f"{o['local_elems']:,}" for o in outs)
+          + f" of {whole:,}", flush=True)
+    print(f"lm_mesh [{smi}]: staged collectives a bf16 step (rank 0: "
+          "calls, bytes in): " + (", ".join(
+              f"{k} {c:.0f} / {b:,.0f}" for k, (c, b) in
+              sorted(r0["staged_per_step"].items())) or "none (NCCL)"),
+          flush=True)
+    print(json.dumps({"lm_mesh": {
+        "card": smi, "backend": r0["backend"], "bf16_ms": r0["bf16_ms"],
+        "plain_bf16_ms": r0["plain_bf16_ms"], "f32_ms": r0["f32_ms"],
+        "peak_bytes": [o["bf16_peak"] for o in outs],
+        "plain_peak_bytes": r0["plain_peak"],
+        "staged_per_step": r0["staged_per_step"],
+        "loss_rel": loss_err, "state_rel": [r0["err_step2"],
+                                            r0["err_step3"]],
+        "moe_loss_rel": moe_err, "wall_s": wall}}), flush=True)
 
 
 def main() -> int:
@@ -5031,6 +5408,7 @@ def main() -> int:
     timed("lm_moe_ssd_train", phase_lm_moe_ssd_train, torch, np)
     timed("lm_rglru_cross", phase_lm_rglru_cross, torch, np)
     timed("lm_rglru_cross_train", phase_lm_rglru_cross_train, torch, np)
+    timed("lm_mesh", phase_lm_mesh, torch, np, smi)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)
     timed("profile_fleet", phase_profile_fleet, torch, np)

@@ -1,8 +1,9 @@
-"""Distributed pieces of the port: gradient compression
-(:mod:`~repro_torch.distributed.collectives`, on one device) and the
-replica-axis mesh's sharding (:mod:`~repro_torch.distributed.sharding`:
-the TM fleet, the service and the cross-validation engine in slabs over
-a list of devices, one process driving them all). The LM half of the
-mesh (``ShardingPolicy``, ``spec_partition``, ``param_/batch_/
-cache_shardings``, ``autoshard``, FSDP / TP over ``torch.distributed``)
-waits for ROADMAP queue 1."""
+"""Distributed pieces of the port: gradient compression and the staged
+collectives of ranks that share a card
+(:mod:`~repro_torch.distributed.collectives`), the sharding rules of both
+halves of the mesh (:mod:`~repro_torch.distributed.sharding`: the TM
+fleet, the service and the cross-validation engine in slabs over a list
+of devices, one process driving them all; the LM's parameters, moments
+and batch as DTensors over a ``RankMesh`` of ``torch.distributed`` ranks,
+FSDP over data and TP / EP over model), and the model's layout hints
+(:mod:`~repro_torch.distributed.autoshard`)."""

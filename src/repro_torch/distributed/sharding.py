@@ -1,25 +1,39 @@
-"""Replica-axis sharding over a device mesh: the TM half of the reference's
-``repro.distributed.sharding``.
+"""Sharding over a device mesh: the reference's
+``repro.distributed.sharding``, both halves.
 
-The cross-validation engine (:mod:`repro_torch.eval.crossval`) and the
-serving fleet (:mod:`repro_torch.serve.service`) run R independent TMs as
-one program over a leading replica axis. Every replica is data-parallel by
+**The LM half** maps every parameter's logical axis names (its
+:class:`~repro_torch.models.params.PSpec`) to mesh axes by a rule table
+(:data:`DEFAULT_RULES`: TP / EP over ``model``), and on top of that shards
+each parameter's largest still-unsharded dim over ``("pod", "data")``
+(ZeRO-3 / FSDP; the optimizer's moments reuse the parameters' layout). A
+dim the mesh axis does not divide is replicated, never a crash.
+:func:`spec_partition`, :func:`param_shardings`, :func:`batch_shardings`
+and :func:`cache_shardings` make the reference's decisions entry for
+entry; they read only ``mesh.shape``, so a :class:`Mesh` over ``"meta"``
+devices (:func:`~repro_torch.launch.mesh.abstract_mesh`, the reference's
+``AbstractMesh``) evaluates them for a 256-chip mesh without ranks. On a
+:class:`~repro_torch.launch.mesh.RankMesh` (one ``torch.distributed``
+rank a mesh position) :func:`distribute` turns a tree into DTensors laid
+out by those shardings, each rank keeping its own shard
+(:meth:`NamedSharding.placements`: a tuple entry such as ``("pod",
+"data")`` shards one tensor dim over both mesh dims, major first), and
+:func:`gather` puts the whole of each leaf back on every rank.
+
+**The replica half** serves the cross-validation engine
+(:mod:`repro_torch.eval.crossval`) and the serving fleet
+(:mod:`repro_torch.serve.service`), which run R independent TMs as one
+program over a leading replica axis. Every replica is data-parallel by
 construction, so the only sharding decision is the replica axis itself:
 :func:`replica_shardings` shards the leaves whose leading dim is the full
 replica count and replicates the rest (the per-data-stream leaves of
 leading ``D | R``), so every replica's ``r % D`` read stays on its own
-device and nothing crosses devices inside a step.
-
-One process drives every device (single-controller): :func:`device_put`
-turns a tensor into a :class:`Sharded` value, one contiguous slab of rows
-per mesh position along the sharded axes (or, replicated, one copy per
-distinct device, shared where the mesh repeats a device), and
-:func:`gather` puts it back together. The caller runs its per-plane code
-once per slab (:func:`slabs`), on that slab's device.
-
-The LM rules (``ShardingPolicy``, ``spec_partition``,
-``param_/batch_/cache_shardings``) need ``torch.distributed`` and more
-than one card, and wait for the LM half of the mesh (ROADMAP queue 1).
+device and nothing crosses devices inside a step. One process drives
+every device (single-controller): :func:`device_put` turns a tensor into
+a :class:`Sharded` value, one contiguous slab of rows per mesh position
+along the sharded axes (or, replicated, one copy per distinct device,
+shared where the mesh repeats a device), and :func:`gather` puts it back
+together. The caller runs its per-plane code once per slab
+(:func:`slabs`), on that slab's device.
 """
 from __future__ import annotations
 
@@ -31,13 +45,17 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed.autoshard import DP, is_distributed
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models.params import PSpec, ShapeDtype, tree_map_specs
 
 
 class PartitionSpec(tuple):
-    """Per-dimension mesh axes of a leaf (None: not sharded), as the
-    reference's ``jax.sharding.PartitionSpec``; ``PartitionSpec()`` is
-    replicated."""
+    """Per-dimension mesh axes of a leaf, as the reference's
+    ``jax.sharding.PartitionSpec``: one entry per tensor dim, each None
+    (not sharded), a mesh axis name, or a tuple of names (the dim sharded
+    over all of them, the first the major one); missing trailing entries
+    are None, so ``PartitionSpec()`` is replicated."""
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
@@ -48,14 +66,46 @@ class PartitionSpec(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A leaf's layout over ``mesh``: ``spec``'s first entry names the
-    axes its leading dim shards over (None or an empty spec: replicated).
-    ``axes`` are the axes a replicated leaf's slabs follow, so that every
-    slab finds a copy on its own device."""
+    """A leaf's layout over ``mesh``: ``spec`` gives each tensor dim's mesh
+    axes. The replica half reads only its first entry (the axes the
+    leading replica dim shards over) and ``axes``, the axes a replicated
+    leaf's slabs follow, so that every slab finds a copy on its own
+    device; the LM half maps the whole spec to DTensor placements
+    (:meth:`placements`)."""
 
     mesh: Mesh
     spec: PartitionSpec
     axes: tuple = ("data",)
+
+    def placements(self, ndim: Optional[int] = None) -> tuple:
+        """The DTensor placements of ``spec`` on the mesh's dims, in the
+        mesh's axis order: ``Shard(d)`` on every mesh dim that tensor dim
+        d's entry names, ``Replicate()`` on the others and on a mesh dim
+        of size 1 (the same layout; DTensor cannot reshape a dim sharded
+        over one rank). A tuple entry must list its axes in the mesh's
+        order (DTensor shards one tensor dim over several mesh dims major
+        first, left to right)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = tuple(self.mesh.axis_names)
+        out: list = [Replicate()] * len(names)
+        for d, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            flat = entry if isinstance(entry, tuple) else (entry,)
+            idx = [names.index(a) for a in flat]
+            if idx != sorted(idx):
+                raise ValueError(f"{entry} is not in the mesh's axis order "
+                                 f"{names}")
+            for i in idx:
+                if not isinstance(out[i], Replicate):
+                    raise ValueError(f"mesh axis {names[i]} shards two dims "
+                                     f"of {self.spec}")
+                if self.mesh.shape[names[i]] > 1:
+                    out[i] = Shard(d)
+        if ndim is not None and len(self.spec) > ndim:
+            raise ValueError(f"{self.spec} has more entries than {ndim} dims")
+        return tuple(out)
 
     @property
     def sharded(self) -> bool:
@@ -71,6 +121,266 @@ class NamedSharding:
 
 def _mesh_axes_present(mesh: Mesh, axes: tuple) -> tuple:
     return tuple(a for a in axes if a in mesh.shape)
+
+
+# ---------------------------------------------------------------------------
+# The LM rules: logical axes -> mesh axes (DP / FSDP / TP / EP / SP)
+# ---------------------------------------------------------------------------
+
+# Logical-axis -> mesh-axis table (TP/EP on "model").
+DEFAULT_RULES: dict = {
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "ff": "model",
+    "expert_ff": "model",
+    "experts": "model",
+    "embed": None,
+    "inner": "model",       # ssm/rglru inner width
+    "ssm_heads": "model",
+    "conv": None,
+    "state": None,
+    "layers": None,
+    None: None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    rules: dict = dataclasses.field(default_factory=lambda: dict(DEFAULT_RULES))
+    fsdp: bool = True                      # ZeRO-3 over (pod, data)
+    fsdp_axes: tuple = ("pod", "data")
+    data_axes: tuple = ("pod", "data")     # batch sharding
+    seq_axis: Optional[str] = None         # SP: shard sequence/cache over this
+
+
+def _axis_size(mesh, name: Optional[str]) -> int:
+    if name is None:
+        return 1
+    return mesh.shape[name] if name in mesh.shape else 1
+
+
+def _group(mesh, axes: tuple) -> int:
+    return int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+
+
+def _entry(axes: tuple):
+    """A spec entry for the present ``axes``: None, one name or a tuple."""
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def spec_partition(spec: PSpec, mesh, policy: ShardingPolicy
+                   ) -> PartitionSpec:
+    """PartitionSpec for one parameter: each dim's rule axis where the mesh
+    has it, it is not used yet and it divides the dim; then (FSDP) the
+    largest still-unsharded dim that the ``fsdp_axes`` group divides goes
+    over that group."""
+    parts: list = []
+    used: set = set()
+    for dim, ax in zip(spec.shape, spec.axes):
+        mesh_ax = policy.rules.get(ax)
+        if (mesh_ax is not None and mesh_ax in mesh.shape
+                and mesh_ax not in used and dim % mesh.shape[mesh_ax] == 0):
+            parts.append(mesh_ax)
+            used.add(mesh_ax)
+        else:
+            parts.append(None)
+
+    if policy.fsdp:
+        fsdp = tuple(a for a in _mesh_axes_present(mesh, policy.fsdp_axes)
+                     if a not in used)
+        if fsdp:
+            group = _group(mesh, fsdp)
+            # shard the largest still-unsharded dim that divides the group
+            # (the reference sorts by the dim over its rule axis's size)
+            order = sorted(
+                range(len(spec.shape)),
+                key=lambda i: -(spec.shape[i] // max(
+                    _axis_size(mesh, parts[i]) if isinstance(parts[i], str)
+                    else 1, 1)))
+            for i in order:
+                if parts[i] is None and spec.shape[i] % group == 0:
+                    parts[i] = _entry(fsdp)
+                    break
+    return PartitionSpec(*parts)
+
+
+def param_shardings(specs_tree, mesh, policy: ShardingPolicy):
+    """NamedSharding tree matching a PSpec tree."""
+    return tree_map_specs(
+        lambda s: NamedSharding(mesh, spec_partition(s, mesh, policy)),
+        specs_tree)
+
+
+def _shape(x) -> tuple:
+    return tuple(getattr(x, "shape", np.shape(x)))
+
+
+def _map_structs(fn, tree):
+    """``fn`` over a tree whose leaves may be ShapeDtype (a NamedTuple,
+    which :func:`repro_torch.tree.map` would descend into)."""
+    if isinstance(tree, ShapeDtype):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_structs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
+        return type(tree)(_map_structs(fn, v) for v in tree)
+    return T.map(fn, tree)
+
+
+def batch_shardings(batch_struct, mesh, policy: ShardingPolicy):
+    """Shard inputs: leading batch dim over the data axes; optional SP on
+    the sequence. ``batch_struct`` is a tree of ShapeDtype, tensors or
+    arrays (a 0-d leaf, or a Python int such as decode's ``pos``,
+    replicates)."""
+    data = _mesh_axes_present(mesh, policy.data_axes)
+    group = _group(mesh, data)
+
+    def one(x):
+        shape = _shape(x)
+        parts: list = [None] * len(shape)
+        if len(shape) == 0:
+            return NamedSharding(mesh, PartitionSpec())
+        if group > 1 and shape[0] % group == 0:
+            parts[0] = _entry(data)
+        if (policy.seq_axis is not None and len(shape) >= 2
+                and policy.seq_axis in mesh.shape
+                and shape[1] % mesh.shape[policy.seq_axis] == 0):
+            parts[1] = policy.seq_axis
+        return NamedSharding(mesh, PartitionSpec(*parts))
+
+    return _map_structs(one, batch_struct)
+
+
+def cache_shardings(cache_struct, mesh, policy: ShardingPolicy):
+    """KV/state cache shardings, keyed on each leaf's name:
+
+    * self-attention ``k``/``v`` ([L?, B, S|W, Hkv, Dh]): a long cache
+      (S >= 4096) shards S over model (context parallelism: a decode read
+      touches 1/model of it), a short (window) one shards head_dim, so
+      the one-token write stays shard-local;
+    * cross-attention ``ck``/``cv``: read-only and small, batch over data
+      only;
+    * the SSM / RG-LRU ``h`` / ``conv`` states: the largest dim after the
+      first that is >= 1024 and divides over model (the inner width,
+      matching the recurrent weights' TP);
+
+    then the first of the two leading dims that the data group divides
+    goes over the data axes."""
+    model = "model" if "model" in mesh.shape else None
+    data = _mesh_axes_present(mesh, policy.data_axes)
+    group = _group(mesh, data)
+    msize = mesh.shape[model] if model else 1
+
+    def one(key, x):
+        shape = _shape(x)
+        parts: list = [None] * len(shape)
+        if key in ("k", "v") and len(shape) >= 4:
+            seq_dim = len(shape) - 3
+            if model and shape[seq_dim] >= 4096 and \
+                    shape[seq_dim] % msize == 0:
+                parts[seq_dim] = model
+            elif model and shape[-1] % msize == 0 and shape[-1] >= msize:
+                parts[-1] = model
+        elif key in ("ck", "cv"):
+            pass  # replicate over model; batch over data below
+        else:  # h / conv and other states: inner width over model
+            for i in sorted(range(1, len(shape)), key=lambda i: -shape[i]):
+                if model and shape[i] >= 1024 and shape[i] % msize == 0:
+                    parts[i] = model
+                    break
+        for i in range(min(2, len(shape))):
+            if parts[i] is None and group > 1 and shape[i] % group == 0:
+                parts[i] = _entry(data)
+                break
+        return NamedSharding(mesh, PartitionSpec(*parts))
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return one(key, node)
+
+    return walk(cache_struct, "")
+
+
+# ---------------------------------------------------------------------------
+# The LM layout over ranks: DTensors
+# ---------------------------------------------------------------------------
+
+
+def _local_chunk(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of ``x`` under ``sharding``: for every sharded
+    dim, the contiguous chunk at the rank's combined coordinate over the
+    dim's mesh axes (major first)."""
+    mesh = sharding.mesh
+    coord = dict(zip(mesh.axis_names, mesh.coordinate))
+    for d, entry in enumerate(sharding.spec):
+        if entry is None:
+            continue
+        flat = entry if isinstance(entry, tuple) else (entry,)
+        n, j = 1, 0
+        for a in flat:
+            n, j = n * mesh.shape[a], j * mesh.shape[a] + coord[a]
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"over {entry}")
+        size = x.shape[d] // n
+        x = x.narrow(d, j * size, size)
+    return x
+
+
+def distribute(tree, shardings):
+    """``tree`` (tensors or numpy arrays, the same whole value on every
+    rank) as DTensors laid out by ``shardings`` (a tree of NamedSharding
+    over a :class:`~repro_torch.launch.mesh.RankMesh`) on the mesh's
+    device. Each rank cuts its own shard, a copy; nothing is
+    communicated. A ``None`` subtree stays None; a Python scalar stays as
+    it is."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x, sh):
+        if not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
+            return x
+        x = torch.as_tensor(x)
+        mesh = sh.mesh
+        # a copy of its own: neither a view keeping the whole alive nor
+        # the caller's tensor (a donating step writes into it)
+        local = _local_chunk(x, sh).to(mesh.device).clone(
+            memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, mesh.device_mesh,
+                                  sh.placements(x.dim()), run_check=False,
+                                  shape=x.shape, stride=x.contiguous().stride())
+
+    return T.map(one, tree, shardings)
+
+
+def place_like(tree, like):
+    """Every DTensor leaf of ``tree`` redistributed to the placements of
+    the matching leaf of ``like`` (a gradient to its parameter's layout:
+    a partial sum becomes a reduce-scatter); other leaves pass."""
+    def one(x, ref):
+        if (is_distributed(x) and is_distributed(ref)
+                and tuple(x.placements) != tuple(ref.placements)):
+            return x.redistribute(ref.device_mesh, ref.placements)
+        return x
+
+    return T.map(one, tree, like)
+
+
+def moe_groups(cfg, mesh) -> int:
+    """MoE dispatch groups under ``mesh``: the data group size (the
+    reference's ``launch/dryrun._moe_groups``), 1 for a dense model."""
+    if cfg.moe is None or mesh is None:
+        return 1
+    return _group(mesh, _mesh_axes_present(mesh, DP))
+
+
+def local_numel(tree) -> int:
+    """Elements this rank holds of ``tree``'s tensors (a DTensor's local
+    shard)."""
+    return sum(int(x.to_local().numel() if is_distributed(x) else x.numel())
+               for x in T.leaves(tree) if torch.is_tensor(x))
 
 
 def slab_devices(mesh: Mesh, axes: tuple = ("data",)) -> list:
@@ -170,9 +480,19 @@ def device_put(x, sharding: NamedSharding) -> Sharded:
                                    in zip(bounds, devs)), devs, bounds)
 
 
-def gather(x: Sharded, device=None) -> torch.Tensor:
+def gather(x, device=None):
     """The whole of a :class:`Sharded` on ``device`` (default: its first
-    slab's): the slabs concatenated in order, or the first copy."""
+    slab's): the slabs concatenated in order, or the first copy. Given a
+    tree of DTensors (:func:`distribute`), every rank gets the whole of
+    each leaf (an all-gather a sharded leaf; collective, so every rank
+    calls it), on ``device`` when one is named; other leaves pass."""
+    if not isinstance(x, Sharded):
+        def full(t):
+            if not is_distributed(t):
+                return t
+            t = t.full_tensor()
+            return t if device is None else t.to(device)
+        return T.map(full, x)
     dev = x.devices[0] if device is None else torch.device(device)
     if x.bounds is None:
         return x.shards[0].to(dev)

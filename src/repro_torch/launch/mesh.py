@@ -1,26 +1,40 @@
-"""Device meshes for the port: a named grid of torch devices.
+"""Device meshes for the port: a named grid of torch devices, and a mesh
+over the ranks of a process group.
 
-The reference's ``jax.sharding.Mesh`` has no torch counterpart, so the port
-keeps its own :class:`Mesh`: an array of ``torch.device``s, its axis names,
-``.shape`` as a name -> size mapping and ``.devices.size``, read the way the
-reference's code reads them. One process drives every device of a mesh
-(single-controller), so no process group is involved.
+The reference's ``jax.sharding.Mesh`` has no torch counterpart, so the
+port keeps two. Both expose ``.shape`` as a name -> size mapping and
+``.axis_names``, which is all the sharding rules read.
 
-A mesh may name a device more than once. That is how a test lays four
-slabs of a replica axis on the CPU, and how one card holds four slabs:
-the counterpart of the reference's ``--xla_force_host_platform_device_count``.
+* :class:`Mesh` is an array of ``torch.device``s. One process drives
+  every device of it (single-controller), so no process group is
+  involved: the TM fleet, the service and the cross-validation engine lay
+  slabs of their replica axis on it. A mesh may name a device more than
+  once. That is how a test lays four slabs of a replica axis on the CPU,
+  and how one card holds four slabs: the counterpart of the reference's
+  ``--xla_force_host_platform_device_count``. A mesh over ``"meta"``
+  devices (:func:`abstract_mesh`) is the counterpart of the reference's
+  ``AbstractMesh``: the rules evaluate a 16 x 16 or 2 x 16 x 16 mesh
+  with no ranks and no memory.
+* :class:`RankMesh` wraps a ``torch.distributed`` ``DeviceMesh``: one rank
+  a mesh position, each computing on its own device, the LM's
+  parameters, moments and batch laid out over it as DTensors (SPMD;
+  :func:`init_ranks` starts a rank's process group).
+
 A mesh that names a CUDA device raises when no such card is present;
 nothing falls back to the CPU.
 
 Axes:
-  data  -- the replica axis's shards (the TM fleet, the sweep's grid)
-  model -- TP / EP / SP for the LM half, which is not ported yet
+  pod   -- across pods; the outer DP / FSDP axis
+  data  -- the replica axis's shards (the TM fleet, the sweep's grid);
+           the LM's DP / FSDP axis
+  model -- the LM's TP / EP / SP axis
 
-``make_production_mesh`` (the 256 / 512-chip dry-run meshes) comes with the
-dry run, after the LM half of the mesh (ROADMAP queue 1).
+``make_production_mesh`` (the 256 / 512-chip dry-run meshes) comes with
+the dry run (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import datetime
 from collections import OrderedDict
 from typing import Sequence
 
@@ -102,3 +116,117 @@ def make_host_mesh(model: int = 1, *, devices=None) -> Mesh:
     grid = np.empty(n, dtype=object)
     grid[:] = devices
     return Mesh(grid.reshape(n // model, model), ("data", "model"))
+
+
+def abstract_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    """A :class:`Mesh` of ``shape`` over ``"meta"`` devices, for the rules
+    alone (the reference's ``AbstractMesh(axis_sizes, axis_names)``)."""
+    grid = np.empty(tuple(shape), dtype=object)
+    grid.reshape(-1)[:] = [torch.device("meta")] * grid.size
+    return Mesh(grid, axis_names)
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    """The device a rank computes on: ``cuda:rank % cards`` for "cuda"
+    (ranks share cards when there are fewer cards than ranks), or the
+    CPU. "cuda" without a card raises."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a rank mesh on 'cuda' needs a CUDA device and none is "
+            "available; pass device='cpu' to run the ranks on the CPU")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def rank_backend(device, world_size: int, staged: bool = False) -> str:
+    """NCCL when every rank has a card of its own; gloo on the CPU; and
+    when ranks share a card (NCCL refuses two ranks on one GPU), gloo for
+    host tensors and the staged backend of
+    :mod:`repro_torch.distributed.collectives` for the card's (DTensor's
+    collectives on CUDA tensors over gloo never return). ``staged`` puts
+    the CPU's tensors through the staged backend too (the CPU tests of
+    that backend)."""
+    from repro_torch.distributed import collectives
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    if dev.type == "cuda":
+        return f"cpu:gloo,cuda:{collectives.register_staged_backend()}"
+    if staged:
+        return f"cpu:{collectives.register_staged_backend()}"
+    return "gloo"
+
+
+def init_ranks(rank: int, world_size: int, *, init_method: str,
+               device="cuda", timeout_s: float = 120.0,
+               staged: bool = False) -> str:
+    """Join this process to the world group (``init_method`` a
+    ``file://`` path or ``tcp://localhost:<port>``) with the backend
+    :func:`rank_backend` names; the rank's card is made current. Returns
+    the backend."""
+    import torch.distributed as dist
+
+    dev = _rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = rank_backend(dev, world_size, staged)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return backend
+
+
+class RankMesh:
+    """A mesh over the ranks of the world process group: ``shape`` (its
+    product the world size), ``axis_names`` the reference's (``("data",
+    "model")`` or ``("pod", "data", "model")``), each rank computing on
+    ``device`` ("cuda": ``cuda:rank % cards``; "cpu"). ``device_mesh`` is
+    the ``torch.distributed`` ``DeviceMesh`` the DTensors live on,
+    ``coordinate`` this rank's position on it."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device="cuda"):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        shape = tuple(int(n) for n in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} and names {axis_names} "
+                             "differ in rank")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"duplicate mesh axis names {axis_names}")
+        if not dist.is_initialized():
+            raise RuntimeError("RankMesh needs an initialised process group "
+                               "(init_ranks)")
+        world = dist.get_world_size()
+        if int(np.prod(shape)) != world:
+            raise ValueError(f"mesh shape {shape} does not cover the "
+                             f"{world} ranks")
+        self.device = _rank_device(device, dist.get_rank())
+        self.axis_names = axis_names
+        self.device_mesh = DeviceMesh(
+            self.device.type, torch.arange(world).reshape(shape),
+            mesh_dim_names=axis_names)
+        self.coordinate = tuple(self.device_mesh.get_coordinate())
+
+    @classmethod
+    def wrap(cls, device_mesh, device) -> "RankMesh":
+        """The RankMesh of an existing named ``DeviceMesh`` (a DTensor's),
+        this rank computing on ``device``."""
+        self = cls.__new__(cls)
+        self.device = torch.device(device)
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.device_mesh = device_mesh
+        self.coordinate = tuple(device_mesh.get_coordinate())
+        return self
+
+    @property
+    def shape(self) -> "OrderedDict[str, int]":
+        return OrderedDict(zip(self.axis_names, self.device_mesh.shape))
+
+    def __repr__(self) -> str:
+        return f"RankMesh({dict(self.shape)}, {self.device})"

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import autoshard
 from repro_torch.models.params import PSpec
 
 _F32 = torch.float32
@@ -170,9 +171,12 @@ def _dot(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     einsum with no batch dims), as one matrix product (``aten.mm``, which
     the ``remat="dots"`` policy saves; ``torch.einsum`` would lower it to
     a batched product over a batch of one)."""
+    # the view merges x's lead dims: none but the first may be sharded
+    x = autoshard.whole_dims(x, *range(1, x.dim() - n_in))
     lead, tail = x.shape[:x.dim() - n_in], w.shape[n_in:]
     w2 = w.reshape(-1, int(np.prod(tail, dtype=np.int64)))
-    return (x.reshape(*lead, w2.shape[0]) @ w2).reshape(*lead, *tail)
+    return autoshard.pin((x.reshape(*lead, w2.shape[0]) @ w2)
+                         .reshape(*lead, *tail))
 
 
 def _project_q(cfg, p, x):
@@ -200,8 +204,9 @@ def _project_qkv(cfg, p, x, xkv=None):
 
 
 def _gqa_scores_out(cfg, q, k, v, mask):
-    """Grouped-query attention core. mask: [B or 1, 1, S, T] additive f32."""
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    """Grouped-query attention core. mask: [B or 1, 1, S, T] additive f32.
+    The head counts are the tensors' (a rank's own heads under a mesh)."""
+    hq, hkv = q.shape[2], k.shape[2]
     g = hq // hkv
     B, S, D = q.shape[0], q.shape[1], q.shape[-1]
     qg = q.reshape(B, S, hkv, g, D)
@@ -360,11 +365,34 @@ def self_attention(
     cd = compute_dtype(cfg)
     S = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
-    pos = torch.arange(S, device=x.device) + pos_offset
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
-    out = gqa_attention(cfg, q, k, v, window=window)
+
+    def core(q, k, v):
+        pos = torch.arange(S, device=q.device) + pos_offset
+        return gqa_attention(cfg, rope(q, pos, cfg.rope_theta),
+                             rope(k, pos, cfg.rope_theta), v, window=window)
+
+    out = attend_local(core, q, k, v)
     return _dot(out, p["wo"].to(cd), 2)
+
+
+def attend_local(core, q, k, v):
+    """``core(q, k, v)`` (rope and attention over [B, S, H, D]) on each
+    rank's own batch rows and heads under a mesh, on local tensors
+    (:func:`autoshard.local_call`): the rows over the data axes, the
+    heads over ``model`` when both head counts divide it, or the query
+    heads alone when there is one kv head (every rank reads it whole, so
+    its gradient sums over ``model``); else the heads stay whole. Without
+    a mesh it is ``core(q, k, v)``."""
+    mesh = autoshard.current_mesh()
+    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    hq, hkv = q.shape[2], k.shape[2]
+    split = m > 1 and hq % m == 0 and (hkv % m == 0 or hkv == 1)
+    kv_split = split and hkv % m == 0
+    q_ax = (autoshard.DP, None, "model" if split else None, None)
+    kv_ax = (autoshard.DP, None, "model" if kv_split else None, None)
+    partial = {1: ("model",), 2: ("model",)} if split and not kv_split else {}
+    return autoshard.local_call(core, (q, k, v), (q_ax, kv_ax, kv_ax),
+                                partial_grads=partial)
 
 
 def _check_index(i: int, n: Optional[int], what: str) -> None:
@@ -548,11 +576,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     cd = compute_dtype(cfg)
-    xc = x.to(cd)
+    # the products view [B, S, D] as [B * S, D]: S whole on each rank
+    xc = autoshard.whole_dims(x.to(cd), *range(1, x.dim() - 1))
     if cfg.act in ("swiglu", "geglu"):
         g = xc @ p["w_gate"].to(cd)
         u = xc @ p["w_up"].to(cd)
         g = silu(g) if cfg.act == "swiglu" else gelu_tanh(g)
-        return (g * u) @ p["w_down"].to(cd)
+        return autoshard.pin((g * u) @ p["w_down"].to(cd))
     h = gelu_tanh(xc @ p["w_up"].to(cd))
-    return h @ p["w_down"].to(cd)
+    return autoshard.pin(h @ p["w_down"].to(cd))

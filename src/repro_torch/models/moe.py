@@ -9,10 +9,15 @@ combine gathers each token's ``top_k`` outputs back, weighted by its
 renormalised gates. arctic-480b's ``dense_residual`` adds the
 architecture's parallel dense FFN.
 
-The reference's sharding hints (``hint``, ``setting`` from
-``distributed/autoshard.py``) are no-ops without a mesh, and the port's
-mesh shards the TM replica axis only (the LM half, ``autoshard`` with it,
-waits in ROADMAP queue 1), so they are left out.
+Under a mesh (:func:`repro_torch.distributed.autoshard.use`) the groups
+shard over the data axes: routing, dispatch and combine stay group-local
+(the dispatch and the combine run on each rank's own groups,
+:func:`~repro_torch.distributed.autoshard.local_call`), and the buffers
+are hinted to [groups -> data, experts -> model] for the expert products
+(expert parallelism; the hint boundary is the all-to-all), as in the
+reference. ``setting("moe_expert_axis")`` puts the experts over ``data``
+instead (weight-stationary serving). Without a mesh every hint is the
+identity.
 
 Where a straight translation would go wrong:
 * ``jax.lax.top_k`` puts the lower expert index first among equal
@@ -30,8 +35,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.autoshard import (
+    DP, group_size, hint, local_call, pin, setting,
+)
 from repro_torch.models import layers
 from repro_torch.models.params import PSpec
+
+
+def _expert_axis():
+    # training: experts over `model` (EP in the TP axis); serving: experts
+    # over `data` (weight-stationary, expert_ff stays on `model`).
+    return setting("moe_expert_axis", "model")
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -77,10 +91,16 @@ def route(cfg: ModelConfig, p: dict, xt: torch.Tensor) -> Routing:
     acc = layers.acc_dtype(cd)
     G, Tg, _ = xt.shape
     E, k = m.n_experts, m.top_k
-    logits = layers._dot(xt, p["router"].to(cd), 1).to(acc)
+    logits = hint(layers._dot(xt, p["router"].to(cd), 1).to(acc),
+                  DP, None, None)
     probs = torch.softmax(logits, dim=-1)                       # [G,Tg,E]
-    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, expert_idx = srt.values[..., :k], srt.indices[..., :k]
+    # group-local; on each rank's own groups under a mesh (the sort's
+    # backward scatters into a plain tensor, which a DTensor refuses)
+    values, indices = local_call(
+        lambda p: tuple(torch.sort(p, dim=-1, descending=True,
+                                   stable=True)), (probs,),
+        ((DP, None, None),))
+    gates, expert_idx = values[..., :k], indices[..., :k]
     gates = gates / gates.sum(dim=-1, keepdim=True)
 
     # Switch-style load-balance loss: E * sum_e mean(probs_e) * mean(top1==e).
@@ -108,30 +128,57 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     if T % G:
         raise ValueError(f"{T} tokens do not split into {G} groups")
     Tg = T // G
-    xt = x.reshape(G, Tg, D).to(cd)
+    # The views regroup the tokens: the rows may stay sharded over the
+    # data axes only where the groups split over them too (and back)
+    n = group_size(DP)
+    x = hint(x, DP if G % n == 0 else None, None, None)
+    xt = hint(x.reshape(G, Tg, D).to(cd), DP, None, None)
     r = route(cfg, p, xt)
     C = r.capacity
     w = torch.where(r.keep, r.gates, 0.0).to(cd)                # [G,Tg,k]
-    # Dropped slots scatter into a discard row (index C, sliced off below),
-    # multiplied by 0 first; each kept (e, pos) receives exactly one token,
-    # so the kept rows are exact whatever order the adds land in.
+    # Dropped slots scatter into a discard row (index C, sliced off below).
     pos_c = torch.where(r.keep, r.pos, C)
-    g = torch.arange(G, device=x.device)[:, None, None].expand_as(pos_c)
-    xk = xt[:, :, None, :] * r.keep.to(cd)[..., None]           # [G,Tg,k,D]
-    buf = torch.zeros((G, m.n_experts, C + 1, D), dtype=cd, device=x.device)
-    buf = buf.index_put((g, r.expert_idx, pos_c), xk, accumulate=True)
-    buffers = buf[:, :, :C, :]
+    grouped = (DP, None, None)
+
+    def dispatch(xt, expert_idx, pos_c, keep):
+        # multiplied by 0 first, the dropped slots land in row C; each kept
+        # (e, pos) receives exactly one token, so the kept rows are exact
+        # whatever order the adds land in
+        g = torch.arange(xt.shape[0], device=xt.device)[:, None, None]
+        xk = xt[:, :, None, :] * keep.to(cd)[..., None]         # [G,Tg,k,D]
+        buf = torch.zeros((xt.shape[0], m.n_experts, C + 1, D), dtype=cd,
+                          device=xt.device)
+        buf = buf.index_put((g.expand_as(pos_c), expert_idx, pos_c), xk,
+                            accumulate=True)
+        return buf[:, :, :C, :]
+
+    buffers = local_call(dispatch, (xt, r.expert_idx, pos_c, r.keep),
+                         (grouped,) * 4)
+    # Dispatch happened group-local (buffers sharded over G = DP); the
+    # expert products want the expert axis sharded: this hint boundary is
+    # the all-to-all.
+    ea = _expert_axis()
+    g_axis = None if ea == "data" else DP
+    buffers = hint(buffers, g_axis, ea, None, None)
 
     # Expert FFN over [G, E, C, D] buffers (weights shared across groups).
     g_ = torch.einsum("gecd,edf->gecf", buffers, p["w_gate"].to(cd))
     act = layers.silu(g_) if cfg.act == "swiglu" else layers.gelu_tanh(g_)
     if "w_up" in p:
         act = act * torch.einsum("gecd,edf->gecf", buffers, p["w_up"].to(cd))
-    ex_out = torch.einsum("gecf,efd->gecd", act, p["w_down"].to(cd))
+    ex_out = hint(torch.einsum("gecf,efd->gecd", act, p["w_down"].to(cd)),
+                  g_axis, ea, None, None)
 
-    # combine: the gate-weighted sum of each token's expert outputs
-    got = ex_out[g, r.expert_idx, torch.clamp_max(pos_c, C - 1)]  # [G,Tg,k,D]
-    out = (got * w[..., None]).sum(dim=2)
+    def combine(ex_out, expert_idx, pos_c, w):
+        # the gate-weighted sum of each token's expert outputs
+        g = torch.arange(ex_out.shape[0], device=ex_out.device)[:, None, None]
+        got = ex_out[g.expand_as(pos_c), expert_idx,
+                     torch.clamp_max(pos_c, C - 1)]               # [G,Tg,k,D]
+        return (got * w[..., None]).sum(dim=2)
+
+    out = local_call(combine, (ex_out, r.expert_idx, pos_c, w),
+                     ((DP, None, None, None),) + (grouped,) * 3)
     if m.dense_residual:
         out = out + layers.mlp(cfg, p["dense"], xt)
-    return out.reshape(B, S, D).to(x.dtype), r.aux
+    out = hint(out, DP if B % n == 0 else None, None, None)
+    return pin(out.reshape(B, S, D)).to(x.dtype), r.aux

@@ -15,8 +15,9 @@ TPU; that changes no element's arithmetic, so the port computes all heads
 at once. Its bfloat16 products with ``preferred_element_type=float32``
 are computed here on float32 copies of the bfloat16 operands (the
 products of two bfloat16 numbers are exact in float32, and the sums are
-float32 in both). The sharding hints are no-ops without a mesh and are
-left out (the LM half of the mesh waits in ROADMAP queue 1).
+float32 in both). The reference's sharding hints here are left out: the
+SSD block's sharded run comes with a later slice (ROADMAP queue 1), and
+without a mesh they are no-ops.
 
 Where the port departs from a straight translation:
 * the masked exponentials (the intra-chunk decay plane, the inter-chunk

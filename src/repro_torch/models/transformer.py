@@ -27,9 +27,17 @@ window). The MoE FFN returns the router's aux loss, which ``forward`` sums
 over the layers and ``loss_fn`` adds; decode and prefill drop it. A vlm
 batch carries ``cross_embeds`` [B, N, D] (the stub vision frontend's
 embeddings) for the forward and the prefill; decode reads them from the
-CROSS layers' caches. The sharding hints are no-ops without a mesh and
-are left out: the port's mesh shards the TM replica axis only, and the
-LM half (FSDP / TP over ``torch.distributed``) waits in ROADMAP queue 1.
+CROSS layers' caches.
+
+The forward and the loss also run on DTensor parameters and batches laid
+out over a ``RankMesh`` (``distributed.sharding``; training over
+``torch.distributed`` ranks): the residual stream carries the reference's
+hint (``_shard_stream``: batch over the data axes, sequence over
+``model``), the embedding gather and the attention core run on each
+rank's own rows and heads (``autoshard.local_call``), and the loss's
+gold gather sees the vocabulary whole. Without a mesh every hint is the
+identity. Sharded serving (the prefill and cache hints) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -44,10 +52,26 @@ from repro_torch.configs.base import (
     CROSS, GLOBAL, LOCAL, RGLRU, SSD, ModelConfig,
 )
 from repro_torch.core.tm import resolve_device
+from repro_torch.distributed.autoshard import (
+    DP, gathered, group_size, hint, local_call,
+)
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.params import PSpec, ShapeDtype, stack_specs
 
 _NORMS = ("ln1", "ln2", "final_norm")
+
+
+def _shard_stream(x: torch.Tensor) -> torch.Tensor:
+    """Residual-stream sharding: batch over DP axes, sequence over `model`
+    (Megatron-style sequence parallelism: the element-wise and norm work
+    stays SP; the ops around attention and the FFN redistribute). The
+    identity without an active mesh; dims that do not divide
+    replicate."""
+    if x.dim() == 3:
+        return hint(x, DP, "model", None)
+    return x
+
+
 # the sub-trees whose listed leaves the reference reads in float32
 _FLOAT_LEAVES = {"mamba": ssm.FLOAT_LEAVES, "rec": rglru.FLOAT_LEAVES}
 
@@ -184,8 +208,16 @@ def _need_cross(cross_embeds):
     return cross_embeds
 
 
+def _gathered(p: dict) -> dict:
+    """A layer's parameters, each whole over the data axes (its FSDP
+    all-gather; the identity without a mesh)."""
+    return {k: _gathered(v) if isinstance(v, dict) else gathered(v)
+            for k, v in p.items()}
+
+
 def _apply_block(cfg, kind, p, x, cross_embeds=None, num_groups=1):
     """One layer over the full sequence. Returns (x, aux loss or None)."""
+    p = _gathered(p)
     if kind == SSD:
         return x + ssm.ssd_forward(cfg, p["mamba"],
                                    layers.norm(cfg, p["ln1"], x)), None
@@ -215,13 +247,23 @@ def embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     cd = layers.compute_dtype(cfg)
     if cfg.embeds_input:
         return batch["embeds"].to(cd)
-    return params["embed"].to(cd)[batch["tokens"]]
+    # Under a mesh the gather runs on each rank's own rows with the table
+    # whole (DTensor's index rules mis-handle a sharded table, and the
+    # reference's GSPMD rejects its own layout here); where the rows split
+    # over the data axes, the table's gradient is a partial sum over them.
+    tokens = batch["tokens"]
+    n = group_size(DP)
+    split = n > 1 and tokens.shape[0] % n == 0
+    return local_call(lambda e, t: e[t], (params["embed"].to(cd), tokens),
+                      ((None, None), (DP, None)), out_of=1,
+                      partial_grads={0: DP} if split else {})
 
 
 def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = layers.norm(cfg, params["final_norm"], x)
+    # the head's product views [B, S, D] as [B * S, D]: S whole on each rank
+    x = hint(layers.norm(cfg, params["final_norm"], x), DP, None, None)
     w = (params["embed"].T if cfg.tie_embeddings else params["head"])
-    return (x @ w.to(x.dtype)).to(layers.acc_dtype(x.dtype))
+    return (x @ gathered(w.to(x.dtype))).to(layers.acc_dtype(x.dtype))
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -260,10 +302,11 @@ def _super_block(cfg: ModelConfig, num_groups: int, x: torch.Tensor,
     output; ``cross`` (the compute-dtype ``cross_embeds`` or None) enters
     it as an argument."""
     aux = None
+    x = _shard_stream(x)
     for i, kind in enumerate(cfg.layer_pattern):
         x, a = _apply_block(cfg, kind, blk[f"pos{i}"], x, cross, num_groups)
         aux = _add_aux(aux, a)
-    return x, aux
+    return _shard_stream(x), aux
 
 
 def _cross_embeds(batch: dict, x: torch.Tensor):
@@ -296,6 +339,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         x, a = _apply_block(cfg, cfg.layer_pattern[i],
                             params["rem"][f"rem{i}"], x, cross, num_groups)
         aux = _add_aux(aux, a)
+    x = _shard_stream(x)
     if aux is None:
         aux = torch.zeros((), dtype=layers.acc_dtype(x.dtype),
                           device=x.device)
@@ -314,7 +358,10 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     else:
         labels = batch["tokens"][:, 1:]
         logits = logits[:, :-1]
-    valid = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    # the gold gather below wants the vocab whole on each rank (DTensor's
+    # gather over a vocab-sharded dim mis-masks its partial sums)
+    logits = hint(logits, DP, None, None)
+    valid = torch.ones_like(labels, dtype=torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     ce = ((lse - gold) * valid).sum() / torch.clamp_min(valid.sum(), 1.0)

@@ -60,8 +60,9 @@ bitwise its unsharded twin. Under residency slot s lives on the device of
 slab ``s // (R / N)``, and ``"auto"`` plane widths round up to the mesh's
 device count. A plane whose length the mesh does not divide is one slab
 on the mesh's first device (the reference replicates it). Checkpoints are
-the full-K layout either way. The LM half of the mesh (FSDP / TP over
-``torch.distributed``) is not ported yet.
+the full-K layout either way. (The LM half of the mesh, FSDP / TP over
+``torch.distributed`` ranks, is :mod:`repro_torch.distributed.sharding`'s
+other half; the service does not use it.)
 
 Threading: ``submit``/``submit_rows`` are safe from any number of
 producer threads (they touch only the router's staging state and the

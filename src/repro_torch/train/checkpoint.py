@@ -17,6 +17,15 @@ trees are dicts, tuples, lists and NamedTuples (a ``TrainState``: its
 :func:`restore` returns host arrays; :func:`restore_tensors` places each
 leaf on its template leaf's device. The port has no typed key arrays:
 keys are plain uint32 pairs, so ``key_impls`` is always empty.
+
+Sharded trees (DTensor leaves over a ``RankMesh``): :func:`save` is
+collective. Every rank gathers each sharded leaf whole (its shards
+all-gathered), rank 0 writes, and the ranks meet at a barrier, so the
+files hold whole arrays and do not depend on the writer's mesh.
+``restore(..., shardings=)`` and ``restore_tensors(..., shardings=)``
+lay every leaf out by ``shardings`` (a tree of ``NamedSharding``) on the
+current mesh, whatever mesh wrote it, or none (reshard-on-load); each
+rank cuts its own shards from the arrays it reads.
 """
 from __future__ import annotations
 
@@ -29,6 +38,9 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.autoshard import is_distributed
 
 
 def _flatten_with_paths(tree) -> dict[str, Any]:
@@ -76,10 +88,32 @@ def _host(v) -> np.ndarray:
 
 def save(directory: str, step: int, tree, *, keep: int = 3,
          extra: Optional[dict] = None) -> str:
-    """Atomic checkpoint write. Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
-    arrays = {k: _host(v) for k, v in _flatten_with_paths(tree).items()}
+    """Atomic checkpoint write. Returns the final path. With DTensor
+    leaves every rank must call it (see the module's docstring)."""
+    flat = _flatten_with_paths(tree)
     final = os.path.join(directory, f"step_{step:09d}")
+    if any(is_distributed(v) for v in flat.values()):
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == 0
+        arrays = {}
+        for k, v in flat.items():   # each leaf whole on every rank, in turn
+            v = shd.gather(v)
+            if writer:
+                arrays[k] = _host(v)
+            del v
+        if writer:
+            _write(directory, step, arrays, final, keep, extra)
+        collectives.barrier()
+        return final
+    arrays = {k: _host(v) for k, v in flat.items()}
+    _write(directory, step, arrays, final, keep, extra)
+    return final
+
+
+def _write(directory: str, step: int, arrays: dict, final: str, keep: int,
+           extra: Optional[dict]) -> None:
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -105,7 +139,6 @@ def save(directory: str, step: int, tree, *, keep: int = 3,
         f.write(os.path.basename(final))
 
     _gc(directory, keep)
-    return final
 
 
 def _gc(directory: str, keep: int):
@@ -144,27 +177,70 @@ def read_manifest(directory: str, *, step: Optional[int] = None) -> dict:
 
 
 def restore_tensors(directory: str, template, *,
-                    step: Optional[int] = None):
+                    step: Optional[int] = None, shardings=None):
     """:func:`restore`, with every leaf whose template leaf is a tensor made
     a tensor on that leaf's device (the reference's default placement; a
-    ``TrainState`` restores this way). Returns (tree, manifest)."""
+    ``TrainState`` restores this way), or, with ``shardings``, every leaf
+    laid out by them. Returns (tree, manifest)."""
+    if shardings is not None:
+        return restore(directory, template, step=step, shardings=shardings)
     tree, manifest = restore(directory, template, step=step)
     return T.map(lambda t, a: (torch.from_numpy(a).to(t.device)
                                if torch.is_tensor(t) else a),
                  template, tree), manifest
 
 
-def restore(directory: str, template, *, step: Optional[int] = None):
+def restore(directory: str, template, *, step: Optional[int] = None,
+            shardings=None):
     """Load a checkpoint into the template's structure: host numpy arrays,
     each with exactly the dtype its manifest names. Returns
-    (tree, manifest); the caller places leaves on its device."""
+    (tree, manifest); the caller places leaves on its device.
+
+    ``shardings`` (a tree of ``NamedSharding`` over a ``RankMesh``,
+    matching the template) places every leaf under that mesh instead, as
+    DTensors: a restart may use another mesh than the writer
+    (reshard-on-load)."""
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if manifest.get("key_impls"):
         raise ValueError("checkpoint holds typed key arrays; the port reads "
                          "raw uint32 key data only")
-    data = np.load(os.path.join(path, "arrays.npz"))
+    npz = os.path.join(path, "arrays.npz")
+    data = _mapped(npz) if shardings is not None else None
+    if data is None:
+        data = np.load(npz)
     flat = {k: np.asarray(data[k], dtype=np.dtype(manifest["dtypes"][k]))
             for k in manifest["keys"]}
-    return _unflatten_like(template, flat), manifest
+    tree = _unflatten_like(template, flat)
+    if shardings is not None:
+        tree = shd.distribute(tree, shardings)
+    return tree, manifest
+
+
+def _mapped(npz: str) -> Optional[dict]:
+    """The arrays of an ``np.savez`` file as copy-on-write maps of it
+    (``savez`` stores its members uncompressed), so that a rank that
+    cuts its shards out of them reads only those pages; None when a
+    member is compressed."""
+    import struct
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(npz) as zf, open(npz, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                return None
+            # the member's data follow its local header: 30 bytes, then
+            # the name and the extra field, whose lengths end the header
+            f.seek(info.header_offset)
+            n, m = struct.unpack("<HH", f.read(30)[26:30])
+            f.seek(info.header_offset + 30 + n + m)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            out[info.filename[:-len(".npy")]] = np.memmap(
+                npz, dtype=dtype, mode="c", offset=f.tell(), shape=shape,
+                order="F" if fortran else "C")
+    return out

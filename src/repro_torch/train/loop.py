@@ -12,7 +12,12 @@ known-good state; §5.3.2) generalised to the LM trainer:
   median are recorded.
 
 The loss is read to the host once a step (the watchdog's one sync), as in
-the reference. A faulty step's update is skipped: the loop keeps the state
+the reference. Sharded (``shardings=``, the state's layout over a
+``RankMesh``; every rank runs the loop): the ranks agree on the loss and
+on the step's time, the slowest rank's, in one all-reduce before the
+watchdog decides, so every rank applies or skips the same updates and
+restores together; checkpoints are written collectively and restored
+under ``shardings``. A faulty step's update is skipped: the loop keeps the state
 it passed in. A donating ``step_fn`` (``train_step(..., donate=True)``,
 the reference's ``donate_argnums``) has already written that update into
 the state, its step counter included, so its update cannot be skipped:
@@ -29,6 +34,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.distributed import collectives
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.train_step import TrainState
 
@@ -61,9 +67,11 @@ def run(
     step_fn: Callable[[TrainState, dict], tuple[TrainState, dict]],
     data_iter,
     *,
+    shardings=None,
     log_every: int = 10,
     log: Callable[[str], None] = print,
 ) -> tuple[TrainState, LoopReport]:
+    mesh = collectives.mesh_of(shardings)
     report = LoopReport()
     durations: list[float] = []
     consecutive_faults = 0
@@ -77,6 +85,8 @@ def run(
         new_state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t0
+        if mesh is not None:
+            loss, dt = collectives.agree(loss, dt, mesh)
 
         healthy = np.isfinite(loss) and dt <= lc.step_deadline_s
         if durations and dt > lc.straggler_factor * float(
@@ -93,7 +103,8 @@ def run(
             donated = new_state.opt.step is state.opt.step
             if donated or consecutive_faults >= lc.max_faults:
                 log(f"[fault] restoring last good checkpoint @ {last_good}")
-                state, _ = ckpt_mod.restore_tensors(lc.checkpoint_dir, state)
+                state, _ = ckpt_mod.restore_tensors(
+                    lc.checkpoint_dir, state, shardings=shardings)
                 report.restores += 1
                 consecutive_faults = 0
             continue  # skip the bad update
@@ -112,9 +123,12 @@ def run(
     return state, report
 
 
-def resume_or_init(lc: LoopConfig, init_state: TrainState) -> TrainState:
+def resume_or_init(lc: LoopConfig, init_state: TrainState, *,
+                   shardings=None) -> TrainState:
     """Restore the latest checkpoint if present (restart path), else init;
-    restored leaves land on ``init_state``'s devices."""
+    restored leaves land on ``init_state``'s devices, or are laid out by
+    ``shardings`` on the current mesh, whichever mesh wrote them."""
     if ckpt_mod.latest_step(lc.checkpoint_dir) is None:
         return init_state
-    return ckpt_mod.restore_tensors(lc.checkpoint_dir, init_state)[0]
+    return ckpt_mod.restore_tensors(lc.checkpoint_dir, init_state,
+                                    shardings=shardings)[0]

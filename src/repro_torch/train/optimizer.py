@@ -55,9 +55,10 @@ def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: OptConfig, params) -> OptState:
+    """Zero moments laid out like their parameters (a DTensor parameter's
+    moments are DTensors of its placements: ZeRO), and a step of 0."""
     dt = _DTYPES[cfg.moment_dtype]
-    zeros = T.map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                  params)
+    zeros = T.map(lambda p: torch.zeros_like(p, dtype=dt), params)
     step = torch.zeros((), dtype=torch.int32,
                        device=T.leaves(params)[0].device)
     return OptState(step=step, mu=zeros, nu=T.map(torch.zeros_like, zeros))
@@ -83,7 +84,11 @@ def schedule_lr(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 def clip_by_global_norm(grads, max_norm: float):
     """Scale every gradient by min(1, max_norm / global norm), in float32,
     and cast back to the gradient's dtype (so bfloat16 gradients are rounded
-    after clipping, as in the reference). Returns (grads, norm)."""
+    after clipping, as in the reference). Returns (grads, norm). On
+    DTensor gradients each leaf's sum of squares is a partial sum over its
+    shards, so the norm covers every shard (the sum is reduced across the
+    ranks before the square root), and every rank scales by the same
+    number."""
     gn = torch.sqrt(sum(torch.square(g.to(_F32)).sum()
                         for g in T.leaves(grads)))
     scale = torch.clamp_max(_f32(max_norm, gn) / torch.clamp_min(gn, 1e-9),
@@ -94,6 +99,10 @@ def clip_by_global_norm(grads, max_norm: float):
 def apply(cfg: OptConfig, state: OptState, params, grads, *,
           donate: bool = False):
     """One update. Returns (new_params, new_state, metrics).
+
+    DTensor leaves (parameters, moments and gradients laid out alike:
+    ``train_step`` puts each gradient in its parameter's layout first)
+    update shard by shard: every op is element-wise on equal placements.
 
     ``donate=True`` is the reference's ``donate_argnums``: every leaf of
     ``params``, ``state.mu`` and ``state.nu`` is overwritten with its new

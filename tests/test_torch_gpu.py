@@ -1368,3 +1368,122 @@ def test_lm_rglru_cross_train_step_on_card_equals_cpu(cuda, arch):
     for g, c in zip(T.leaves((sg.params, sg.opt.mu, sg.opt.nu)),
                     T.leaves((sc.params, sc.opt.mu, sc.opt.nu))):
         _lm_close(g, c)
+
+
+# -- the LM half of the mesh: 4 ranks on the card(s) -----------------------
+
+MESH_PLAN = {"train": [("adamw", (2, 2))], "reshard": [(4, 1)]}
+
+
+def _mesh_inputs(arch):
+    from repro_torch import configs
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke_config(arch)
+    rng = np.random.default_rng(11)
+
+    def walk(spec):
+        if isinstance(spec, P.PSpec):
+            if spec.init in ("zeros", "ones"):
+                return np.full(spec.shape, spec.init == "ones", np.float32)
+            shape = spec.shape[1:] if spec.axes[0] == "layers" else spec.shape
+            fan = shape[0] if len(shape) > 1 else max(shape[0], 1)
+            return (spec.scale / np.sqrt(fan) * rng.standard_normal(
+                spec.shape)).astype(np.float32)
+        return {k: walk(spec[k]) for k in sorted(spec)}
+
+    prm = walk(transformer.model_specs(cfg))
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 32)).astype(
+        np.int32)} for _ in range(4)]
+    return cfg, prm, batches
+
+
+def _adamw_close(got, want, floor, what):
+    """Within 1e-4 of the leaf's range, save elements whose gap is within
+    ``floor``: for parameters AdamW's own reach for noise-level gradients
+    (2 x the summed learning rate: each step moves an element by about lr
+    whatever its gradient's size), for moments 1e-4 of the largest moment
+    of the tree (a leaf whose gradients cancel to near zero carries the
+    float32 noise of its larger terms, which the ranks sum in another
+    order)."""
+    a = np.asarray(got, np.float64)
+    b = np.asarray(want, np.float64)
+    gap = np.abs(a - b)
+    ok = (gap <= 1e-4 * (np.max(np.abs(b)) or 1.0)) | (gap <= floor)
+    assert ok.all(), f"{what}: {gap.max():.3e}"
+
+
+@pytest.mark.parametrize("arch", ["gemma3_1b", "olmoe_1b_7b"])
+def test_lm_sharded_train_steps_on_card_equal_unsharded(cuda, arch,
+                                                        tmp_path):
+    """4 ranks on the card(s) (one card: the staged backend; 4 or more:
+    NCCL), smoke config on a (2, 2) mesh: 3 AdamW steps and a resume on
+    (4, 1) with a 4th, against the unsharded port on ``cuda``: losses
+    within 1e-5 relative; moments and parameters within 1e-4 of their
+    leaf's range, save the noise-level elements ``_adamw_close`` names.
+    For olmoe the state is held after the first step only: the two runs'
+    float32 router logits differ in the last bits (other products, other
+    sums), and once a token at a near-tie takes another expert its
+    embedding row's moment moves by far more than the noise (seen at step
+    3 on an H100); the CPU test holds all three steps."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import torch_lm_mesh_ranks as R
+
+    from repro_torch import tree as T
+    from repro_torch.launch import ranks
+    from repro_torch.train import train_step as TS
+
+    cfg, prm, batches = _mesh_inputs(arch)
+    out = ranks.spawn(R.run, 4, (arch, prm, batches, MESH_PLAN,
+                                 str(tmp_path), "cuda"), device="cuda",
+                      timeout_s=120)[0]
+    groups = 2 if cfg.moe is not None else 1
+    tc = R.train_config(cfg, "adamw", groups)
+    state = TS.init_state(tc, T.map(lambda x: torch.tensor(x, device=cuda),
+                                    prm))
+    lr_sum = 0.0
+    for k in range(4):
+        state, m = TS.train_step(cfg, tc, state, batches[k])
+        lr_sum += float(m["lr"])
+        if k < 3:
+            got, gm = out["train"]["adamw"][k]
+            assert abs(gm["loss"] - float(m["loss"])) <= 1e-5 * abs(
+                float(m["loss"]))
+        else:
+            got = out["reshard"][(4, 1)]
+        if cfg.moe is not None and k > 0:
+            continue    # the loss only: see the docstring
+        want = R.host(state)
+        for part in ("mu", "nu"):
+            leaves = T.leaves(getattr(want.opt, part))
+            top = max(float(np.max(np.abs(b))) for b in leaves)
+            for a, b in zip(T.leaves(getattr(got.opt, part)), leaves):
+                _adamw_close(a, b, 1e-4 * top, f"{arch} step {k + 1} {part}")
+        for a, b in zip(T.leaves(got.params), T.leaves(want.params)):
+            _adamw_close(a, b, lr_sum, f"{arch} step {k + 1} params")
+
+
+def test_lm_staged_collectives_on_card(cuda, tmp_path):
+    """The staged backend on CUDA tensors: its Shard -> Shard kernel gives
+    the whole tensor's chunk (and DTensor's move, which runs through it on
+    a card), ``agree``, and the sharded loop's agreement and resume."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import torch_lm_mesh_ranks as R
+
+    from repro_torch.launch import ranks
+
+    outs = ranks.spawn(R.misc, 4, (str(tmp_path), "cuda"), device="cuda",
+                       timeout_s=120)
+    for r, out in enumerate(outs):
+        assert out["alltoall"], r
+        assert out["agree"] == (3.0, 1.5), (r, out["agree"])
+        assert out["agree_nan"], r
+    reports = [o["report"] for o in outs]
+    assert all(r == reports[0] for r in reports), reports
+    assert reports[0][1] == [(1, "nan_loss")] and reports[0][3] == 3
+    assert all(o["resumed_step"] == 3 for o in outs)

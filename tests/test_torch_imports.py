@@ -247,3 +247,26 @@ def test_lm_training_entry_points_default_to_cuda(no_cuda, tmp_path):
                             "--seq", "16", "--device", "cpu",
                             "--ckpt-dir", str(tmp_path / "t")])
     assert report.steps_run == 2
+
+
+def test_scan_covers_the_lm_mesh_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"distributed/autoshard.py", "distributed/sharding.py",
+            "distributed/collectives.py", "launch/mesh.py",
+            "launch/ranks.py"} <= names
+
+
+def test_lm_mesh_entry_points_default_to_cuda(no_cuda):
+    """A rank mesh and the ranks' start-up compute on the card unless told
+    otherwise, and raise without one; the CPU's ranks take gloo, or the
+    staged backend when asked."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_mod._rank_device("cuda", 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_mod.init_ranks(0, 1, init_method="file:///nonexistent")
+    assert mesh_mod._rank_device("cpu", 3) == torch.device("cpu")
+    assert mesh_mod.rank_backend("cpu", 4) == "gloo"
+    assert mesh_mod.rank_backend("cpu", 4, staged=True) == "cpu:staged"
