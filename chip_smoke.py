@@ -191,7 +191,17 @@ Phases, each with its seconds:
    more step held the same way, a timed bf16 step beside the unsharded
    one (each
    rank's peak, the staged collectives' calls and bytes a step), and
-   olmoe-1b-7b's loss at full width, one layer;
+   olmoe-1b-7b's loss at full width, one layer. Then ``lm_mesh_serve``
+   (``phase_lm_mesh_serve``): the same 4 ranks run the dry run's serving
+   cells (``launch/dryrun.build_cell``) on a KV cache laid out by
+   ``cache_shardings``, each rank writing and attending over its own
+   block: gemma3-1b at full width, 6 of 26 layers, 4 prompts of 4096
+   tokens and 16 given tokens on (2, 2) with the SP decode policy,
+   float32 and bf16 against the unsharded port on the card; olmoe-1b-7b
+   one layer, experts over data, its routing integers equal; mamba2-780m
+   2 layers, one sharded float32 train step against the unsharded one;
+   then the dry run's TM cell, slab 0 (32 replicas) of the 8192-replica
+   grid through K3/K4/K9 (counts from 0, each must move), with its peak;
 9. profile -- torch.profiler over one more 16-point drain chunk of the
    service, over one offline epoch of the f = 784, O = 8 engine, and over
    one drain chunk of the K = 16 fleet: wall time, device busy time, idle
@@ -5310,6 +5320,458 @@ def phase_lm_mesh(torch, np, smi: str):
         "moe_loss_rel": moe_err, "wall_s": wall}}), flush=True)
 
 
+LMS_ARCH = "gemma3_1b"
+LMS_LAYERS = 6                  # one super-block of gemma3-1b's 26 layers
+LMS_B, LMS_S, LMS_NEW = 4, 4096, 16
+LMS_MESH = (2, 2)               # (data, model)
+LMS_MOE, LMS_MOE_S, LMS_MOE_NEW = "olmoe_1b_7b", 256, 2
+LMS_SSD, LMS_SSD_LAYERS, LMS_SSD_S = "mamba2_780m", 2, 512
+LMS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LMS_F64_TOL = 1e-9              # the float64 SGD updates, sharded vs not
+# the float32 SGD updates, sharded vs not, at most this many times the
+# unsharded float32 updates' distance from the float64 ones (two float32
+# results, each within that distance of the float64 one, differ by up to
+# twice it). An update read back from float32 parameters is rounded to
+# the parameter's spacing: a norm scale near 1 moved by a few hundred of
+# its ulps misses by one of them, a few 1e-3 of the update's range.
+LMS_F32_FACTOR = 4.0
+LMS_TIMEOUT_S = 120.0           # the phase's limit
+
+
+def _lms_serve(torch, cfg, mesh, params, prompts, new, groups=1):
+    """``launch/dryrun.build_cell``'s prefill, then its decode cell for
+    each column of ``new``, on ``mesh`` (every rank); without a mesh the
+    port's plain prefill and decode_step at ``groups`` MoE dispatch
+    groups (the mesh's, which the cells use). Returns (the logits of every
+    step, whole on every rank; prefill ms; decode ms a step), the times
+    on the host's clock around synchronised calls."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+
+    B, S = prompts.shape
+    max_seq = S + new.shape[1]
+    out = []
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def whole(x):
+        # numpy: a rank's result crosses to the parent by pickle
+        return shd.gather(x).float().cpu().numpy()
+
+    sync()
+    t = time.perf_counter()
+    if mesh is None:
+        dev = T.leaves(params)[0].device
+        logits, cache = transformer.prefill(
+            cfg, params, {"tokens": prompts.to(dev)}, max_seq,
+            num_groups=groups)
+    else:
+        pre = ShapeConfig("lms", max_seq, B, "prefill")
+        with dryrun.serving(cfg, pre, mesh):
+            fn, args = dryrun.build_cell(cfg, pre, mesh, params=params,
+                                         batch={"tokens": prompts})
+            logits, cache = fn(*args)
+        params = args[0]
+    sync()
+    pre_ms = 1e3 * (time.perf_counter() - t)
+    out.append(whole(logits))
+    dec = ShapeConfig("lms", max_seq, B, "decode")
+    ms = []
+    for i in range(new.shape[1]):
+        batch = {"token": new[:, i:i + 1], "pos": S + i}
+        sync()
+        t = time.perf_counter()
+        if mesh is None:
+            batch["token"] = batch["token"].to(dev)
+            logits, cache = transformer.decode_step(cfg, params, batch,
+                                                    cache, num_groups=groups)
+        else:
+            with dryrun.serving(cfg, dec, mesh):
+                fn, args = dryrun.build_cell(cfg, dec, mesh, params=params,
+                                             batch=batch, cache=cache)
+                logits, cache = fn(*args)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t))
+        out.append(whole(logits))
+    return out, pre_ms, ms
+
+
+def _lms_rank(rank, world, dev_type, spec):
+    """One rank of phase ``lm_mesh_serve`` (the docstring of
+    :func:`phase_lm_mesh_serve` says what it does). ``spec`` holds the
+    configs' names and sizes (smaller to rehearse on the CPU). Returns
+    what this rank measured; rank 0 also what it checked against."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dev_type == "cuda" else torch.device("cpu"))
+    cuda = dev.type == "cuda"
+    mesh = RankMesh(spec["mesh"], ("data", "model"), device=dev_type)
+    rng = np.random.default_rng(SEED)
+    out = {"rank": rank, "device": str(dev)}
+    start = time.perf_counter()
+
+    def note(what):
+        if rank == 0:
+            print(f"lm_mesh_serve rank 0 at "
+                  f"{time.perf_counter() - start:.1f} s: {what}",
+                  file=sys.stderr, flush=True)
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+
+    def cfg_of(arch, layers, dtype):
+        c = spec["configs"][arch]
+        return dataclasses.replace(c, n_layers=layers, compute_dtype=dtype)
+
+    # 1. the dense model, float32 and bf16, with the sequence-parallel
+    # decode policy (B < 16): the unsharded port on rank 0 first
+    base = cfg_of(spec["arch"], spec["layers"], "float32")
+    prompts = torch.from_numpy(rng.integers(
+        0, base.vocab_size, (spec["B"], spec["S"])))
+    new = torch.from_numpy(rng.integers(
+        0, base.vocab_size, (spec["B"], spec["new"])))
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg_of(spec["arch"], spec["layers"], dtype)
+        cd = getattr(torch, dtype)
+        params = T.map(lambda x: x.to(cd),
+                       _per_layer_init(torch, cfg, _lm_model(
+                           torch, cfg, SEED, dev)))
+        if rank == 0:
+            out[f"ref_{dtype}"], out[f"plain_prefill_ms_{dtype}"], \
+                out[f"plain_decode_ms_{dtype}"] = _lms_serve(
+                    torch, cfg, None, params, prompts, new)
+            note(f"unsharded {dtype}")
+        collectives.barrier()
+        collectives.reset_staged_counts()
+        peak_reset()
+        got, out[f"prefill_ms_{dtype}"], out[f"decode_ms_{dtype}"] = \
+            _lms_serve(torch, cfg, mesh, params, prompts, new)
+        out[f"peak_{dtype}"] = peak()
+        out[f"staged_{dtype}"] = collectives.staged_counts()
+        if rank == 0:
+            out[f"got_{dtype}"] = got
+        del params, got
+        note(f"sharded {dtype}")
+
+    # 2. the MoE model, one layer, experts over data: the logits at the
+    # same dispatch groups, and the routing integers of the prefill
+    cfg = cfg_of(spec["moe"], 1, "float32")
+    params = _per_layer_init(torch, cfg, _lm_model(torch, cfg, SEED, dev))
+    mp = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                       (spec["B"], spec["moe_S"])))
+    mn = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                       (spec["B"], spec["moe_new"])))
+
+    @contextlib.contextmanager
+    def spy(seen):
+        orig = moe_mod.route
+
+        def route(cfg, p, xt):
+            r = orig(cfg, p, xt)
+            seen.append((r.expert_idx, r.pos, r.keep))
+            return r
+
+        moe_mod.route = route
+        try:
+            yield
+        finally:
+            moe_mod.route = orig
+
+    if rank == 0:
+        # the unsharded run at the mesh's dispatch groups
+        seen = []
+        with spy(seen):
+            out["moe_ref"], _, _ = _lms_serve(
+                torch, cfg, None, params, mp, mn,
+                groups=shd.moe_groups(cfg, mesh))
+        out["moe_ref_routing"] = [x.cpu().numpy() for x in seen[0]]
+    collectives.barrier()
+    seen = []
+    with spy(seen):
+        got, out["moe_prefill_ms"], out["moe_decode_ms"] = _lms_serve(
+            torch, cfg, mesh, params, mp, mn)
+    routing = [shd.gather(x).cpu().numpy() for x in seen[0]]
+    if rank == 0:
+        out["moe_got"], out["moe_routing"] = got, routing
+    del params
+    note("olmoe")
+
+    # 3. the SSD model: one SGD step sharded (the training policy)
+    # against the unsharded one on rank 0, on one batch: at float32 the
+    # loss, and each leaf's update (lr x its clipped gradient) against
+    # the unsharded float32 one and against the float64 one, beside the
+    # unsharded float32 updates against the float64 ones (the float32
+    # rounding the sharded run is held to); at float64 each leaf's update
+    tc = TS.TrainConfig(opt=opt_mod.OptConfig(
+        name="sgd", lr=1e-2, warmup_steps=1, schedule="constant"))
+    sh = None
+    upd = {}
+    cfg = cfg_of(spec["ssd"], spec["ssd_layers"], "float32")
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (spec["B"], spec["ssd_S"])
+                                    ).astype(np.int32)}
+    for dtype in ("float32", "float64"):
+        cfg = cfg_of(spec["ssd"], spec["ssd_layers"], dtype)
+        params = _per_layer_init(torch, cfg, _lm_model(torch, cfg, SEED,
+                                                       dev))
+        if dtype == "float64":
+            params = T.map(lambda x: x.double(), params)
+        init = [x.detach().to("cpu", copy=True) for x in T.leaves(params)]
+        if rank == 0:
+            state, m = TS.train_step(cfg, tc, TS.init_state(tc, T.map(
+                torch.clone, params)), batch)
+            out[f"ssd_ref_loss_{dtype}"] = float(m["loss"])
+            ref_leaves = [a - b for a, b in
+                          zip(_lmm_host(torch, state.params), init)]
+            del state
+        collectives.barrier()
+        sh = TS.state_shardings(cfg, tc, mesh)
+        state = shd.distribute(TS.init_state(tc, params), sh)
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = TS.train_step(cfg, tc, state, batch, donate=True)
+        out[f"ssd_loss_{dtype}"] = float(m["loss"])
+        if cuda:
+            torch.cuda.synchronize()
+        out[f"ssd_step_ms_{dtype}"] = 1e3 * (time.perf_counter() - t)
+        paths = [p for p, _ in _paths(state.params)]
+        got_leaves = []
+        for x, x0 in zip(T.leaves(state.params), init):
+            whole = shd.gather(x)
+            if rank == 0:
+                got_leaves.append(whole.cpu() - x0)
+        if rank == 0:
+            out[f"ssd_err_{dtype}"], out[f"ssd_worst_{dtype}"] = _lms_worst(
+                torch, got_leaves, ref_leaves, paths)
+            upd[dtype] = (ref_leaves, got_leaves)
+        del state, params, got_leaves
+    if rank == 0:
+        (u32, s32), (u64, _) = upd["float32"], upd["float64"]
+        out["ssd_base_float32"], out["ssd_base_worst"] = _lms_worst(
+            torch, u32, u64, paths)
+        out["ssd_f32_vs_f64"], out["ssd_f32_vs_f64_worst"] = _lms_worst(
+            torch, s32, u64, paths)
+    del upd
+    note("mamba2 train step")
+    out["wall_s"] = time.perf_counter() - start
+    return out
+
+
+def _lms_worst(torch, got, want, paths) -> tuple:
+    """(max over leaves of max |got - want| / max |want|, that leaf's
+    path)."""
+    errs = [_lmm_rel_host(torch, g, w) for g, w in zip(got, want)]
+    i = max(range(len(errs)), key=errs.__getitem__)
+    return errs[i], paths[i]
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) of a tree of dicts, in ``tree.leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _lms_spec(dev: str) -> dict:
+    from repro_torch import configs
+
+    names = (LMS_ARCH, LMS_MOE, LMS_SSD)
+    return {"arch": LMS_ARCH, "layers": LMS_LAYERS, "B": LMS_B,
+            "S": LMS_S, "new": LMS_NEW, "mesh": LMS_MESH, "moe": LMS_MOE,
+            "moe_S": LMS_MOE_S, "moe_new": LMS_MOE_NEW, "ssd": LMS_SSD,
+            "ssd_layers": LMS_SSD_LAYERS, "ssd_S": LMS_SSD_S,
+            "configs": {a: configs.get_config(a) for a in names}}
+
+
+def phase_lm_mesh_serve(torch, np, ce, fb, smi: str, dev: str = "cuda",
+                        spec: dict = None):
+    """Sharded serving and the dry run's TM slab on the card. 4
+    ``torch.distributed`` ranks (``launch.ranks.spawn``; on one card the
+    staged backend, as phase ``lm_mesh``) run ``launch/dryrun.build_cell``'s
+    serving cells, the same code the dry run traces, and the ranks' own
+    blocks of the KV cache (``cache_shardings``) are written and read in
+    place:
+
+    1. gemma3-1b at full width, one super-block (6 of 26 layers), B = 4
+       prompts of 4096 tokens plus 16 new tokens given, on (2, 2) under
+       the serving policy with sequence parallelism (decode with B < 16):
+       the GLOBAL cache's sequence over ``model`` (the partial-softmax
+       decode), the LOCAL windows' head_dim over ``model``; float32 and
+       bf16 each held to the unsharded port on the same card (logits
+       within LMS_TOL of max |ref|, greedy tokens equal or at a near-tie);
+    2. olmoe-1b-7b at full width, one layer, experts over ``data``: the
+       logits of a 256-token prefill and 2 decode steps at the mesh's 2
+       dispatch groups, and the prefill's routing integers, against the
+       unsharded port at the same groups;
+    3. mamba2-780m at full width, 2 layers: one sharded SGD step (the
+       chunk views over ``model``) against the unsharded one on one
+       batch: the float32 loss within 1e-5 relative; each leaf's float32
+       update (lr x gradient) within LMS_F32_FACTOR times the unsharded
+       float32 updates' own distance from the float64 ones (an update
+       read back from float32 parameters near 1 is rounded to their
+       spacing), and at float64 compute within 1e-9 of its range;
+    4. the dry run's TM cell: slab 0 of the 8192-replica grid (32
+       replicas, 10 epochs) through K3/K4/K9, with its peak; the kernels'
+       counts are set to 0 just before and must have moved just after.
+
+    Prints prefill ms, decode ms a step, each rank's peak and the staged
+    collectives a step; no kernel of its own."""
+    import tempfile
+
+    from repro_torch.launch import dryrun, ranks
+
+    spec = spec or _lms_spec(dev)
+    t = time.perf_counter()
+    try:
+        outs = ranks.spawn(_lms_rank, 4, (dev, spec), device=dev,
+                           timeout_s=LMS_TIMEOUT_S, staged=dev == "cpu")
+    except RuntimeError as e:
+        fail(f"lm_mesh_serve: {e}")
+    wall = time.perf_counter() - t
+    r0 = outs[0]
+    report = {"card": smi, "wall_s": wall, "ranks_wall_s": r0["wall_s"]}
+    for dtype in ("float32", "bfloat16"):
+        got = [torch.from_numpy(x) for x in r0[f"got_{dtype}"]]
+        want = [torch.from_numpy(x) for x in r0[f"ref_{dtype}"]]
+        errs = [((g - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(got, want)]
+        for g in got:
+            check(bool(torch.isfinite(g).all()),
+                  f"lm_mesh_serve {dtype}: non-finite logits")
+        tol = LMS_TOL[dtype]
+        check(max(errs) <= tol, f"lm_mesh_serve {dtype}: logits "
+              f"{max(errs):.3e} of max|ref| from the unsharded port")
+        gt = np.stack([g.argmax(-1).numpy() for g in got], 1)
+        wt = np.stack([w.argmax(-1).numpy() for w in want], 1)
+        for b in range(gt.shape[0]):
+            for i in np.nonzero(gt[b] != wt[b])[0]:
+                top2 = torch.topk(want[i][b], 2).values
+                gap = (top2[0] - top2[1]).item()
+                check(gap <= tol * want[i][b].abs().max().item(),
+                      f"lm_mesh_serve {dtype}: row {b} step {i} token "
+                      f"{gt[b, i]} vs {wt[b, i]} at a top-2 gap {gap}")
+        dec = [ms for o in outs for ms in o[f"decode_ms_{dtype}"][1:]]
+        report[dtype] = {
+            "logits_rel": max(errs),
+            "prefill_ms": r0[f"prefill_ms_{dtype}"],
+            "decode_ms": r0[f"decode_ms_{dtype}"],
+            "plain_prefill_ms": r0[f"plain_prefill_ms_{dtype}"],
+            "plain_decode_ms": r0[f"plain_decode_ms_{dtype}"],
+            "peak_bytes": [o[f"peak_{dtype}"] for o in outs],
+            "staged_per_step": {k: [c / (1 + LMS_NEW), b / (1 + LMS_NEW)]
+                                for k, (c, b) in
+                                r0[f"staged_{dtype}"].items()}}
+        print(f"lm_mesh_serve [{smi}]: {spec['arch']} full width, "
+              f"{spec['layers']} layers, B {spec['B']} x {spec['S']} + "
+              f"{spec['new']} on {spec['mesh']} ({dtype}): logits max rel "
+              f"{max(errs):.3e}; prefill {r0[f'prefill_ms_{dtype}']:.1f} ms "
+              f"(unsharded {r0[f'plain_prefill_ms_{dtype}']:.1f}); decode "
+              f"median {np.median(r0[f'decode_ms_{dtype}'][1:]):.1f} ms a "
+              f"step, min-max {min(dec):.1f}-{max(dec):.1f} over ranks "
+              f"(unsharded median "
+              f"{np.median(r0[f'plain_decode_ms_{dtype}'][1:]):.1f}); peak "
+              + ", ".join(f"{p / 2**30:.2f}" for p in
+                          report[dtype]["peak_bytes"]) + " GiB", flush=True)
+        print(f"lm_mesh_serve [{smi}]: staged collectives a step ({dtype}, "
+              "rank 0: calls, bytes in): " + (", ".join(
+                  f"{k} {c:.1f} / {b:,.0f}" for k, (c, b) in sorted(
+                      report[dtype]["staged_per_step"].items()))
+                  or "none (NCCL)"), flush=True)
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(r0["moe_got"], r0["moe_ref"])]
+    check(max(errs) <= LMS_TOL["float32"],
+          f"lm_mesh_serve olmoe: logits {max(errs):.3e}")
+    for g, w, name in zip(r0["moe_routing"], r0["moe_ref_routing"],
+                          ("expert_idx", "pos", "keep")):
+        check(np.array_equal(g, w), f"lm_mesh_serve olmoe: routing {name}")
+    report["olmoe"] = {"logits_rel": max(errs),
+                       "prefill_ms": r0["moe_prefill_ms"],
+                       "decode_ms": r0["moe_decode_ms"]}
+    print(f"lm_mesh_serve [{smi}]: {spec['moe']} full width, 1 layer, "
+          f"experts over data: logits max rel {max(errs):.3e}, routing "
+          f"integers equal; prefill {r0['moe_prefill_ms']:.1f} ms, decode "
+          + ", ".join(f"{x:.1f}" for x in r0["moe_decode_ms"]) + " ms",
+          flush=True)
+    loss_err = abs(r0["ssd_loss_float32"] - r0["ssd_ref_loss_float32"]) \
+        / abs(r0["ssd_ref_loss_float32"])
+    check(loss_err <= LMM_LOSS_TOL, f"lm_mesh_serve mamba2: loss "
+          f"{loss_err:.3e}")
+    check(r0["ssd_err_float64"] <= LMS_F64_TOL, f"lm_mesh_serve mamba2: "
+          f"float64 updates {r0['ssd_err_float64']:.3e} of a leaf's range "
+          f"({r0['ssd_worst_float64']})")
+    check(r0["ssd_err_float32"] <= LMS_F32_FACTOR * r0["ssd_base_float32"],
+          f"lm_mesh_serve mamba2: float32 updates, sharded vs not, "
+          f"{r0['ssd_err_float32']:.3e} of a leaf's range "
+          f"({r0['ssd_worst_float32']}) > {LMS_F32_FACTOR} x the unsharded "
+          f"float32's distance from float64, {r0['ssd_base_float32']:.3e} "
+          f"({r0['ssd_base_worst']})")
+    report["mamba2"] = {
+        "loss_rel": loss_err, "update_rel_f64": r0["ssd_err_float64"],
+        "update_rel_f32": r0["ssd_err_float32"],
+        "unsharded_f32_vs_f64": r0["ssd_base_float32"],
+        "sharded_f32_vs_f64": r0["ssd_f32_vs_f64"],
+        "step_ms": [o["ssd_step_ms_float32"] for o in outs]}
+    print(f"lm_mesh_serve [{smi}]: {spec['ssd']} full width, "
+          f"{spec['ssd_layers']} layers, one SGD step on {spec['mesh']}: "
+          f"float32 loss rel {loss_err:.3e}; float32 updates, sharded vs "
+          f"not, {r0['ssd_err_float32']:.3e} of a leaf's range "
+          f"({r0['ssd_worst_float32']}); unsharded float32 vs float64 "
+          f"{r0['ssd_base_float32']:.3e} ({r0['ssd_base_worst']}); sharded "
+          f"float32 vs float64 {r0['ssd_f32_vs_f64']:.3e} "
+          f"({r0['ssd_f32_vs_f64_worst']}); float64 updates, sharded vs "
+          f"not, {r0['ssd_err_float64']:.3e}; float32 step "
+          + ", ".join(f"{o['ssd_step_ms_float32']:.1f}" for o in outs)
+          + " ms", flush=True)
+
+    # 4. the TM slab: launches counted from 0
+    zero_counters(ce, fb)
+    with tempfile.TemporaryDirectory() as tmp:
+        tm = dryrun.run_tm_cell("single", tmp, device=dev)
+    got = counters(ce, fb)
+    if dev != "cpu":
+        for name in ("clause_counts_replicated",
+                     "clause_counts_batch_replicated",
+                     "feedback_plane_replicated"):
+            check(got.get(name, 0) > 0, f"lm_mesh_serve: the TM slab never "
+                  f"launched {name}")
+    report["tm_slab"] = {"replicas": tm["replicas_per_device"],
+                         "peak_bytes": tm["memory"]["temp_size_in_bytes"],
+                         "slab_s": tm["slab_s"], "launches": got}
+    print(f"lm_mesh_serve [{smi}]: dry-run TM slab ({tm['replicas']} "
+          f"replicas over {tm['n_devices']}, slab 0 = "
+          f"{tm['replicas_per_device']}) in {tm['slab_s']:.2f} s, peak "
+          f"{tm['memory']['temp_size_in_bytes'] / 2**20:.2f} MiB, launches "
+          f"{got}", flush=True)
+    print(json.dumps({"lm_mesh_serve": report}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-from", type=Path, metavar="DIR",
@@ -5409,6 +5871,7 @@ def main() -> int:
     timed("lm_rglru_cross", phase_lm_rglru_cross, torch, np)
     timed("lm_rglru_cross_train", phase_lm_rglru_cross_train, torch, np)
     timed("lm_mesh", phase_lm_mesh, torch, np, smi)
+    timed("lm_mesh_serve", phase_lm_mesh_serve, torch, np, ce, fb, smi)
     timed("profile", phase_profile, torch, np)
     timed("profile_epoch", phase_profile_epoch, torch, np)
     timed("profile_fleet", phase_profile_fleet, torch, np)

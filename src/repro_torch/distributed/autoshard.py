@@ -202,13 +202,14 @@ def gathered(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, placements)
 
 
-def local_call(fn, inputs, axes, *, out_of: int = 0,
+def local_call(fn, inputs, axes, *, out_of=0,
                partial_grads: dict = None):
     """``fn`` on each rank's own blocks, for work that is independent
     across the sharded dims (attention over its batch and heads): every
     DTensor input hinted to its ``axes`` entry, ``fn`` called on the local
     tensors, its output (or each of a tuple of outputs) a DTensor laid out
-    as input ``out_of``. Inputs
+    as input ``out_of`` (a tuple of outputs may name one input each in a
+    tuple ``out_of``). Inputs
     that every rank reads whole but uses in part (one kv head read by the
     rank's own query heads) get a gradient that sums over the mesh axes
     ``partial_grads[i]`` names. Without an active mesh, or on plain
@@ -233,11 +234,14 @@ def local_call(fn, inputs, axes, *, out_of: int = 0,
         local.append(a.to_local(grad_placements=grad))
         placed.append(a)
     out = fn(*local)
-    place = placed[out_of].placements
     if isinstance(out, tuple):
-        return tuple(DTensor.from_local(o, mesh.device_mesh, place,
-                                        run_check=False) for o in out)
-    return DTensor.from_local(out, mesh.device_mesh, place, run_check=False)
+        of = out_of if isinstance(out_of, tuple) else (out_of,) * len(out)
+        return tuple(DTensor.from_local(o, mesh.device_mesh,
+                                        placed[i].placements,
+                                        run_check=False)
+                     for o, i in zip(out, of))
+    return DTensor.from_local(out, mesh.device_mesh,
+                              placed[out_of].placements, run_check=False)
 
 
 def is_distributed(x) -> bool:
@@ -245,3 +249,144 @@ def is_distributed(x) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
+
+
+# ---------------------------------------------------------------------------
+# Caches laid out over a mesh: each rank reads and writes its own block
+# ---------------------------------------------------------------------------
+
+
+def replicated_like(t: torch.Tensor, x) -> torch.Tensor:
+    """``t`` (a plain tensor every rank holds whole: a mask, positions) as
+    a replicated DTensor on ``x``'s mesh when ``x`` is a DTensor, so that
+    an op may take both; else ``t`` itself."""
+    if not is_distributed(x) or is_distributed(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def block(x) -> tuple[tuple, tuple]:
+    """(local shape, global offset) of a DTensor's own block."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return tuple(shape), tuple(off)
+
+
+def all_reduce_over(t: torch.Tensor, mesh, dims, op: str) -> torch.Tensor:
+    """A rank's plain ``t`` reduced (``op``: "sum" or "max") over the mesh
+    dims ``dims`` (a DTensor ``Partial`` there, redistributed whole); the
+    other mesh dims are left as they are."""
+    if not dims:
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    n = mesh.ndim
+    part = [Partial(op) if i in dims else Replicate() for i in range(n)]
+    d = DTensor.from_local(t, mesh, part, run_check=False)
+    return d.redistribute(mesh, [Replicate()] * n).to_local()
+
+
+def layer_of(buf, idx: int):
+    """Layer ``idx`` of a stacked cache leaf ``buf`` [L, ...]: ``buf[idx]``
+    for a plain tensor (a view). For a DTensor, a DTensor [...] laid out as
+    ``buf`` without its first dim, a view of the rank's block where the
+    layer dim is not sharded; where it is, the ranks that hold the layer
+    send it to the others (a sum in which the rest add zeros)."""
+    if not is_distributed(buf):
+        return buf[idx]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = buf.device_mesh
+    shape, off = block(buf)
+    loc = buf.to_local()
+    own = off[0] <= idx < off[0] + shape[0]
+    place, lead = [], False
+    for p in buf.placements:
+        if p.is_shard(0):
+            place.append(Partial("sum"))
+            lead = True
+        elif p.is_shard():
+            place.append(Shard(p.dim - 1))
+        else:
+            place.append(p)
+    local = loc[idx - off[0]] if own else torch.zeros_like(loc[0])
+    out = DTensor.from_local(local, mesh, place, run_check=False,
+                             shape=buf.shape[1:],
+                             stride=contiguous_stride(buf.shape[1:]))
+    if lead:
+        out = out.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                      else p for p in place])
+    return out
+
+
+def write_block(buf, value, index: tuple) -> None:
+    """``buf[index] = value`` in place: on a DTensor ``buf`` from a
+    DTensor ``value``, each rank writing its own block; a plain ``buf``
+    is one block at offset 0, written from a plain ``value``. ``index``
+    has one entry a dim of ``buf``: an int (that coordinate; ``value``
+    has no such dim), ``slice(None)`` (the whole dim; ``value``'s
+    matching dim is as long) or a sequence of positions (``value``'s
+    matching dim has one row each; at most one such entry; a ``range``
+    of step 1 is written as one slice). A DTensor ``value`` is first laid
+    out like ``buf`` on the whole dims and whole elsewhere, so a rank
+    finds the rows of its block."""
+    vdim, j = {}, 0
+    for d, e in enumerate(index):
+        if not isinstance(e, int):
+            vdim[d], j = j, j + 1
+    whole = not is_distributed(buf)
+    if whole:
+        v, tgt = value, buf
+        shape, off = tuple(buf.shape), (0,) * buf.dim()
+    else:
+        from torch.distributed.tensor import Replicate, Shard
+
+        place = [Shard(vdim[p.dim]) if p.is_shard() and p.dim in vdim
+                 and isinstance(index[p.dim], slice) else Replicate()
+                 for p in buf.placements]
+        v = value.redistribute(buf.device_mesh, place).to_local()
+        shape, off = block(buf)
+        tgt = buf.to_local()
+    posdim, positions = None, None
+    for d in reversed(range(len(index))):
+        e = index[d]
+        if isinstance(e, int):
+            if not whole and not off[d] <= e < off[d] + shape[d]:
+                return
+            tgt = tgt.select(d, e - off[d])
+        elif not isinstance(e, slice):
+            posdim, positions = d, e
+    if posdim is None:
+        tgt.copy_(v.to(tgt.dtype))
+        return
+    lo, n = off[posdim], shape[posdim]
+    pd = vdim[posdim]
+    if isinstance(positions, range) and positions.step == 1:
+        a, b = max(positions.start, lo), min(positions.stop, lo + n)
+        if a < b:
+            tgt.narrow(pd, a - lo, b - a).copy_(
+                v.narrow(pd, a - positions.start, b - a).to(tgt.dtype))
+        return
+    rows = [(i, p - lo) for i, p in enumerate(positions) if lo <= p < lo + n]
+    if not rows:
+        return
+    src = torch.tensor([r[0] for r in rows], device=tgt.device)
+    dst = torch.tensor([r[1] for r in rows], device=tgt.device)
+    tgt.index_copy_(pd, dst, v.index_select(pd, src).to(tgt.dtype))

@@ -45,7 +45,9 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.distributed.autoshard import DP, is_distributed
+from repro_torch.distributed.autoshard import (
+    DP, contiguous_stride, is_distributed,
+)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.params import PSpec, ShapeDtype, tree_map_specs
 
@@ -335,12 +337,13 @@ def distribute(tree, shardings):
     rank) as DTensors laid out by ``shardings`` (a tree of NamedSharding
     over a :class:`~repro_torch.launch.mesh.RankMesh`) on the mesh's
     device. Each rank cuts its own shard, a copy; nothing is
-    communicated. A ``None`` subtree stays None; a Python scalar stays as
-    it is."""
+    communicated. A ``None`` subtree stays None; a Python scalar, or a
+    leaf already a DTensor, stays as it is."""
     from torch.distributed.tensor import DTensor
 
     def one(x, sh):
-        if not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
+        if not (torch.is_tensor(x) or isinstance(x, np.ndarray)) \
+                or is_distributed(x):
             return x
         x = torch.as_tensor(x)
         mesh = sh.mesh
@@ -355,6 +358,33 @@ def distribute(tree, shardings):
     return T.map(one, tree, shardings)
 
 
+def zeros(structs, shardings):
+    """A tree of zero DTensors: each ShapeDtype leaf of ``structs`` laid
+    out by the matching NamedSharding over a RankMesh, every rank making
+    only its own block (a cache built where it lives)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    def one(s, sh):
+        mesh = sh.mesh
+        place = sh.placements(len(s.shape))
+        local, _ = compute_local_shape_and_global_offset(
+            s.shape, mesh.device_mesh, place)
+        return DTensor.from_local(
+            torch.zeros(tuple(local), dtype=s.dtype, device=mesh.device),
+            mesh.device_mesh, place, run_check=False, shape=s.shape,
+            stride=contiguous_stride(s.shape))
+
+    def walk(node, sh):
+        if isinstance(node, ShapeDtype):
+            return one(node, sh)
+        return {k: walk(node[k], sh[k]) for k in node}
+
+    return walk(structs, shardings)
+
+
 def place_like(tree, like):
     """Every DTensor leaf of ``tree`` redistributed to the placements of
     the matching leaf of ``like`` (a gradient to its parameter's layout:
@@ -366,6 +396,23 @@ def place_like(tree, like):
         return x
 
     return T.map(one, tree, like)
+
+
+def policy_for(cfg, shape) -> ShardingPolicy:
+    """The layout a dry-run cell runs under (the reference's
+    ``launch/dryrun._policy_for``): training, the default policy (FSDP
+    over the data axes, TP / EP over ``model``); serving is
+    weight-stationary: no FSDP (a weight all-gather every step would
+    dominate decode), experts over ``data`` (EP all-to-all), the rest TP
+    over ``model``, and a decode batch under 16 sequences shards its
+    sequence (the KV cache) over ``model`` too."""
+    if shape.kind == "train":
+        return ShardingPolicy()
+    rules = dict(DEFAULT_RULES)
+    rules["experts"] = "data"
+    seq_axis = ("model" if shape.kind == "decode" and shape.global_batch < 16
+                else None)
+    return ShardingPolicy(rules=rules, fsdp=False, seq_axis=seq_axis)
 
 
 def moe_groups(cfg, mesh) -> int:

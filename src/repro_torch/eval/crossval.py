@@ -117,6 +117,29 @@ def _slab_streams(streams, lo: int, hi: int, D: int):
     return T.map(take, streams)
 
 
+def sweep_slab(cfg: TMConfig, off, val, keys: torch.Tensor, s_slab, T_slab,
+               lo: int, hi: int, *, n_epochs: int, device) -> torch.Tensor:
+    """Rows [lo, hi) of a sweep's replica axis (grid-major,
+    ordering-minor), trained and validated on ``device``: off = (x [O, n,
+    f], y [O, n], valid [O, n] or None) and val = (x [O, m, f], y [O, m])
+    per-ordering sets, keys [O, 2] the per-ordering keys, s_slab / T_slab
+    [hi - lo] the rows' hyper-parameters. Returns the rows' validation
+    accuracies [hi - lo], bitwise those rows of the whole sweep."""
+    O = keys.shape[0]
+    off = (_on(off[0], torch.bool, device), _on(off[1], torch.int32, device),
+           None if off[2] is None else _on(off[2], torch.bool, device))
+    val = (_on(val[0], torch.bool, device), _on(val[1], torch.int32, device))
+    off_j, val_j, keys_j = _slab_streams((off, val, keys.to(device)), lo, hi,
+                                         O)
+    rt = tm_mod.init_runtime(cfg, device=device)._replace(
+        s=s_slab.to(device), T=T_slab.to(device))
+    state = replicate_state(cfg, hi - lo, device)
+    state = fb_mod.train_epochs_replicated(
+        cfg, state, rt, off_j[0], off_j[1], keys_j, n_epochs,
+        valid=off_j[2])
+    return acc_mod.analyze_replicated(cfg, state, rt, *val_j)
+
+
 def _analyze_all_replicated(cfg, state, ctl: mgr.CycleCtl) -> torch.Tensor:
     # One K4 launch for the whole three-set analysis block: the include
     # banks stream once per cycle.
@@ -185,17 +208,9 @@ class CrossValRun:
         keys = rnd.split(rnd.PRNGKey(seed, dev), O)
         accs = []
         for sl in self._put((s_rep, T_rep), n_replicas=R):
-            s_j, T_j = sl.tree
-            off_j, val_j, keys_j = T.map(
-                lambda a, _d=sl.device: a.to(_d),
-                _slab_streams((off, val, keys), sl.lo, sl.hi, O))
-            rt = tm_mod.init_runtime(cfg, device=sl.device)._replace(
-                s=s_j, T=T_j)
-            state = replicate_state(cfg, sl.hi - sl.lo, sl.device)
-            state = fb_mod.train_epochs_replicated(
-                cfg, state, rt, off_j[0], off_j[1], keys_j, n_epochs,
-                valid=off_j[2])
-            accs.append(acc_mod.analyze_replicated(cfg, state, rt, *val_j))
+            accs.append(sweep_slab(cfg, off, val, keys, *sl.tree, sl.lo,
+                                   sl.hi, n_epochs=n_epochs,
+                                   device=sl.device))
         acc = torch.cat([a.to(dev) for a in accs])
         shard_mod.sync(devices)
         wall = time.perf_counter() - t0

@@ -54,6 +54,17 @@ def clause_eval_batch(include: torch.Tensor, literals: torch.Tensor, *,
     return torch.where(empty[None], training, fired)
 
 
+def clause_eval_loop(include: torch.Tensor, literals: torch.Tensor, *,
+                     training: bool) -> torch.Tensor:
+    """Per-sample-loop batched eval: [C, J, L] x [B, L] -> [B, C, J], row
+    b :func:`clause_eval` on literals[b] (the reference's vmap of it); the
+    oracle the batch paths are tested against."""
+    return torch.stack([clause_eval(include, lit, training=training)
+                        for lit in literals]) if literals.shape[0] else \
+        torch.zeros((0,) + include.shape[:2], dtype=torch.bool,
+                    device=include.device)
+
+
 def feedback_probabilities(s: torch.Tensor, *, s_policy: str,
                            boost_true_positive: bool):
     """(p_strengthen, p_erase) as float32 0-dim tensors on ``s``'s device.

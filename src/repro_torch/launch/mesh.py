@@ -29,8 +29,11 @@ Axes:
            the LM's DP / FSDP axis
   model -- the LM's TP / EP / SP axis
 
-``make_production_mesh`` (the 256 / 512-chip dry-run meshes) comes with
-the dry run (ROADMAP queue 1).
+:func:`make_production_mesh` is the reference's production meshes, (16, 16)
+``("data", "model")`` or (pods, 16, 16) ``("pod", "data", "model")``, as
+a :class:`RankMesh` over the current process group: the dry run
+(:mod:`repro_torch.launch.dryrun`) evaluates every cell on them as rank 0
+of a fake world of 256 or 512 ranks.
 """
 from __future__ import annotations
 
@@ -208,9 +211,11 @@ class RankMesh:
                              f"{world} ranks")
         self.device = _rank_device(device, dist.get_rank())
         self.axis_names = axis_names
+        # a rank on "meta" (the dry run: shapes without memory) keeps its
+        # tensors there over a CPU mesh of the process group
         self.device_mesh = DeviceMesh(
-            self.device.type, torch.arange(world).reshape(shape),
-            mesh_dim_names=axis_names)
+            "cpu" if self.device.type == "meta" else self.device.type,
+            torch.arange(world).reshape(shape), mesh_dim_names=axis_names)
         self.coordinate = tuple(self.device_mesh.get_coordinate())
 
     @classmethod
@@ -230,3 +235,14 @@ class RankMesh:
 
     def __repr__(self) -> str:
         return f"RankMesh({dict(self.shape)}, {self.device})"
+
+
+def make_production_mesh(*, multi_pod: bool = False, n_pods: int = 2,
+                         device="cuda") -> RankMesh:
+    """The reference's production mesh over the current process group:
+    (16, 16) ``("data", "model")``, or (n_pods, 16, 16) ``("pod", "data",
+    "model")``. The world must have exactly that many ranks (the dry run's
+    fake world does; a real one would need 256 or 512 GPUs)."""
+    shape = (n_pods, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return RankMesh(shape, axes, device=device)

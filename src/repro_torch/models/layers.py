@@ -166,6 +166,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     ).to(x.dtype)
 
 
+def rope_local(x: torch.Tensor, start: int, theta: float) -> torch.Tensor:
+    """:func:`rope` of x [B, S, H, D] at positions ``start .. start + S - 1``
+    (made where it runs); under a mesh on each rank's own rows and heads,
+    the sequence whole (:func:`autoshard.local_call`)."""
+    def one(t):
+        pos = torch.arange(t.shape[1], device=t.device) + start
+        return rope(t, pos, theta)
+
+    return autoshard.local_call(one, (x,), ((autoshard.DP, None, "model",
+                                             None),))
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     """The contraction of x's last ``n_in`` dims with w's first ``n_in`` (an
     einsum with no batch dims), as one matrix product (``aten.mm``, which
@@ -404,6 +416,9 @@ def _check_index(i: int, n: Optional[int], what: str) -> None:
 
 def _decode_qkv(cfg, p, x, pos: int):
     q, k, v = _project_qkv(cfg, p, x)
+    if autoshard.is_distributed(q):
+        return (rope_local(q, pos, cfg.rope_theta),
+                rope_local(k, pos, cfg.rope_theta), v)
     at = torch.full((1,), pos, device=x.device)
     return (rope(q, at, cfg.rope_theta), rope(k, at, cfg.rope_theta), v)
 
@@ -486,25 +501,99 @@ def decode_attention_stacked(
     cache buffer** at layer ``idx``. Returns (out, buf_k, buf_v).
 
     Global attention masks keys beyond `pos`; local attention uses a rotating
-    window buffer (slot = pos % W) with absolute-position masking.
+    window buffer (slot = pos % W) with absolute-position masking. On a
+    cache of DTensors the new K/V land in the blocks that hold the slot
+    and each rank attends over its own block (:func:`attend_cache`).
     """
     q, k, v = _decode_qkv(cfg, p, x, pos)
     if idx is not None:
         _check_index(idx, buf_k.shape[0], "layer index")
-        ck, cv = buf_k[idx], buf_v[idx]
-    else:
-        ck, cv = buf_k, buf_v
-    W = ck.shape[1]
+    lead = () if idx is None else (idx,)
+    rest = (slice(None),) * 2
+    W = buf_k.shape[-3]
     _check_index(pos, None if local else W, "decode position")
-    write_pos = pos % W if local else pos
-    ck[:, write_pos] = k[:, 0].to(ck.dtype)
-    cv[:, write_pos] = v[:, 0].to(cv.dtype)
+    at = pos % W if local else pos
+    autoshard.write_block(buf_k, k, lead + (slice(None), range(at, at + 1))
+                          + rest)
+    autoshard.write_block(buf_v, v, lead + (slice(None), range(at, at + 1))
+                          + rest)
+    ck = buf_k if idx is None else autoshard.layer_of(buf_k, idx)
+    cv = buf_v if idx is None else autoshard.layer_of(buf_v, idx)
+    dev = (q.to_local() if autoshard.is_distributed(q) else q).device
+    ok = (_window_ok(pos, W, dev) if local
+          else torch.arange(W, device=dev) <= pos)
+    return (_dot(attend_cache(cfg, q, ck, cv, ok),
+                 p["wo"].to(compute_dtype(cfg)), 2), buf_k, buf_v)
 
-    if local:
-        ok = _window_ok(pos, W, x.device)
+
+def attend_cache(cfg, q, ck, cv, ok: torch.Tensor) -> torch.Tensor:
+    """One query position q [B, 1, Hq, D] attending a cache ck, cv [B, T,
+    Hkv, D] with key validity ``ok`` [T] (a plain bool tensor over the
+    whole sequence). Returns [B, 1, Hq, D].
+
+    On a cache of DTensors laid out by ``sharding.cache_shardings``
+    (batch over the data axes; a long cache's sequence, or a short one's
+    head_dim, over ``model``) each rank attends over its own block of the
+    cache, never gathering it; a plain cache is the one block. A rank
+    whose block is a slice of the sequence computes the softmax's parts
+    over its keys: the local max, then, after the max over the sequence's
+    ranks, its sum of exponentials and its weighted values, which those
+    ranks sum. A rank holding a slice of head_dim computes a partial q.k,
+    which the ranks of that dim sum before the softmax, and the slice of
+    the output its values give. The output's heads are over ``model``
+    where they divide."""
+    cd = q.dtype if not autoshard.is_distributed(q) else q.to_local().dtype
+    if autoshard.is_distributed(ck):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, pl = ck.device_mesh, ck.placements
+        n = mesh.ndim
+        seq = [i for i in range(n) if pl[i].is_shard(1)]
+        hd = [i for i in range(n) if pl[i].is_shard(3)]
+        bat = [i for i in range(n) if pl[i].is_shard(0)]
+        lay = [Shard(0) if i in bat else Shard(3) if i in hd
+               else Replicate() for i in range(n)]
+        ql = q.redistribute(mesh, lay).to_local()
+        kl, vl = ck.to_local(), cv.to_local()
+        (_, tl, _, _), (_, t0, _, _) = autoshard.block(ck)
+        okl = ok[t0:t0 + tl]
     else:
-        ok = torch.arange(W, device=x.device) <= pos
-    return _decode_out(cfg, p, q, ck, cv, ok), buf_k, buf_v
+        mesh, seq, hd = None, [], []
+        ql, kl, vl, okl = q, ck, cv, ok
+    acc = acc_dtype(cd)
+    B, S, hq, Dl = ql.shape
+    hkv = kl.shape[2]
+    g = hq // hkv
+    qg = ql.reshape(B, S, hkv, g, Dl)
+    if hd:
+        # partial products over the rank's slice of head_dim, summed
+        s = torch.einsum("bskgd,btkd->bkgst", qg.to(acc), kl.to(acc))
+        s = autoshard.all_reduce_over(s, mesh, hd, "sum")
+    else:
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kl.to(cd)).to(acc)
+    s = s / torch.sqrt(_scalar(q.shape[-1], acc, ql.device))
+    s = s + _additive(okl)
+    m = autoshard.all_reduce_over(s.amax(dim=-1, keepdim=True), mesh, seq,
+                                  "max")
+    e = torch.exp(s - m)
+    den = autoshard.all_reduce_over(e.sum(dim=-1, keepdim=True), mesh, seq,
+                                    "sum")
+    w = (e / den).to(cd)
+    if seq:
+        # each rank's share of the weighted values, summed in float32
+        o = torch.einsum("bkgst,btkd->bskgd", w.to(acc), vl.to(acc))
+        o = autoshard.all_reduce_over(o, mesh, seq, "sum").to(cd)
+    else:
+        o = torch.einsum("bkgst,btkd->bskgd", w, vl.to(cd))
+    o = o.reshape(B, S, hq, Dl)
+    if mesh is None:
+        return o
+    out = DTensor.from_local(o, mesh, lay, run_check=False, shape=q.shape,
+                             stride=q.stride())
+    # head_dim whole again, the heads over model (the layout ``wo``'s
+    # product reads)
+    out = autoshard.whole_dims(out, 3)
+    return autoshard.hint(out, autoshard.DP, None, "model", None)
 
 
 def cross_attend(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -513,10 +602,13 @@ def cross_attend(cfg: ModelConfig, p: dict, x: torch.Tensor,
     projected keys and values [B, N, Hkv, D]: no rope, no mask (a zero
     one), then ``wo`` and ``* tanh(gate)``."""
     cd = compute_dtype(cfg)
-    mask = torch.zeros((1, 1, x.shape[1], k.shape[1]), dtype=_F32,
-                       device=x.device)
-    out = _gqa_scores_out(cfg, _project_q(cfg, p, x), k.to(cd), v.to(cd),
-                          mask)
+
+    def core(q, k, v):
+        mask = torch.zeros((1, 1, q.shape[1], k.shape[1]), dtype=_F32,
+                           device=q.device)
+        return _gqa_scores_out(cfg, q, k.to(cd), v.to(cd), mask)
+
+    out = attend_local(core, _project_q(cfg, p, x), k, v)
     return _dot(out, p["wo"].to(cd), 2) * torch.tanh(p["gate"].to(cd))
 
 

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import autoshard
 from repro_torch.models import layers
 from repro_torch.models.params import PSpec
 from repro_torch.models.ssm import softplus
@@ -170,24 +171,57 @@ def scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor,
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
+_LOCAL = ("conv_w", "conv_b", "w_a", "b_a", "w_x", "b_x", "lambda_p")
+
+
+def _local(core, ins: tuple, p: dict, out_of=0):
+    """``core(*ins, *p's conv and gate leaves)`` on each rank's own rows
+    (over the data axes) and channels (over ``model`` where both the width
+    and the gate blocks divide it), the sequence whole: the conv, the
+    gates and the scan are element-wise or block-local in the channels
+    and sequential in the sequence (:func:`autoshard.local_call`). The
+    outputs are laid out as ``ins[out_of]`` (one input an output when a
+    tuple). The identity wrapper without a mesh."""
+    di, nb = p["b_a"].shape[0], p["w_a"].shape[0]
+    m = autoshard.group_size(("model",))
+    ch = "model" if di % m == 0 and nb % m == 0 else None
+    n = autoshard.group_size(autoshard.DP)
+    split = n > 1 and ins[0].shape[0] % n == 0
+    row = (autoshard.DP,) + (None,) * (ins[0].dim() - 2) + (ch,)
+    axes = tuple(row[:1] + (None,) * (a.dim() - 2) + (ch,) for a in ins)
+    axes += ((None, ch), (ch,), (ch, None, None), (ch,), (ch, None, None),
+             (ch,), (ch,))
+    first = len(ins)
+    grads = {first + i: autoshard.DP for i in range(len(_LOCAL))} \
+        if split else {}
+    return autoshard.local_call(
+        lambda *a: core(*a[:first], dict(zip(_LOCAL, a[first:]))),
+        ins + tuple(p[k] for k in _LOCAL), axes, out_of=out_of,
+        partial_grads=grads)
+
+
 def _recurrence(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """The rec branch over a full sequence (x [B, S, D] in the compute
     dtype): (h [B, S, di] float32, the conv tail)."""
-    rec = x @ p["w_rec_branch"].to(x.dtype)
-    rec, tail = _causal_conv(cfg, p, rec)
-    a, gx = _gates(cfg, p, rec.to(layers.acc_dtype(x.dtype)))
-    # h_t = a_t h_{t-1} + gx_t  — associative over the sequence axis.
-    _, h = scan(a, gx)
-    return h, tail
+    rec = layers._dot(x, p["w_rec_branch"].to(x.dtype), 1)
+
+    def core(rec, q):
+        rec, tail = _causal_conv(cfg, q, rec)
+        a, gx = _gates(cfg, q, rec.to(layers.acc_dtype(x.dtype)))
+        # h_t = a_t h_{t-1} + gx_t  — associative over the sequence axis.
+        _, h = scan(a, gx)
+        return h, tail
+
+    return _local(core, (rec,), p)
 
 
 def _block(cfg: ModelConfig, p: dict, xin: torch.Tensor):
     """(out [B, S, D], h [B, S, di], the conv tail)."""
     cd = layers.compute_dtype(cfg)
     x = xin.to(cd)
-    gate = layers.gelu_tanh(x @ p["w_gate_branch"].to(cd))
+    gate = layers.gelu_tanh(layers._dot(x, p["w_gate_branch"].to(cd), 1))
     h, tail = _recurrence(cfg, p, x)
-    return (h.to(cd) * gate) @ p["w_out"].to(cd), h, tail
+    return layers._dot(h.to(cd) * gate, p["w_out"].to(cd), 1), h, tail
 
 
 def rglru_forward(cfg: ModelConfig, p: dict,
@@ -218,11 +252,14 @@ def rglru_decode_step(cfg: ModelConfig, p: dict, xin: torch.Tensor,
     """One-token decode. xin: [B, 1, D] -> ([B, 1, D], new state)."""
     cd = layers.compute_dtype(cfg)
     x = xin.to(cd)
-    gate = layers.gelu_tanh(x @ p["w_gate_branch"].to(cd))
-    rec = x @ p["w_rec_branch"].to(cd)
-    rec, new_tail = _causal_conv(cfg, p, rec, tail=state.conv)
+    gate = layers.gelu_tanh(layers._dot(x, p["w_gate_branch"].to(cd), 1))
+    rec = layers._dot(x, p["w_rec_branch"].to(cd), 1)
 
-    a, gx = _gates(cfg, p, rec[:, 0].to(layers.acc_dtype(cd)))
-    h = torch.addcmul(gx, a, state.h)                      # [B, di]
-    out = (h[:, None, :].to(cd) * gate) @ p["w_out"].to(cd)
+    def core(rec, tail, h, q):
+        rec, new_tail = _causal_conv(cfg, q, rec, tail=tail)
+        a, gx = _gates(cfg, q, rec[:, 0].to(layers.acc_dtype(cd)))
+        return torch.addcmul(gx, a, h), new_tail           # [B, di]
+
+    h, new_tail = _local(core, (rec, state.conv, state.h), p, out_of=(2, 1))
+    out = layers._dot(h[:, None, :].to(cd) * gate, p["w_out"].to(cd), 1)
     return out, RGLRUState(h=h, conv=new_tail.to(state.conv.dtype))

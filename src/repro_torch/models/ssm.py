@@ -15,9 +15,10 @@ TPU; that changes no element's arithmetic, so the port computes all heads
 at once. Its bfloat16 products with ``preferred_element_type=float32``
 are computed here on float32 copies of the bfloat16 operands (the
 products of two bfloat16 numbers are exact in float32, and the sums are
-float32 in both). The reference's sharding hints here are left out: the
-SSD block's sharded run comes with a later slice (ROADMAP queue 1), and
-without a mesh they are no-ops.
+float32 in both). Under a mesh the chunk views and the inter-chunk states
+carry the reference's hints (the chunks over ``model``, the batch over
+the data axes) and the causal conv runs on each rank's own rows and
+channels; without a mesh they are no-ops.
 
 Where the port departs from a straight translation:
 * the masked exponentials (the intra-chunk decay plane, the inter-chunk
@@ -36,6 +37,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import DP, hint
 from repro_torch.models import layers
 from repro_torch.models.params import PSpec
 
@@ -102,7 +105,23 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _causal_conv(cfg: ModelConfig, p: dict, xbc: torch.Tensor,
                  conv_tail=None):
     """Depthwise causal conv over the sequence. xbc: [B, S, conv_dim].
-    Returns (silu(conv + bias), the last d_conv - 1 inputs)."""
+    Returns (silu(conv + bias), the last d_conv - 1 inputs). Under a mesh
+    on each rank's own rows and channels, the sequence whole."""
+    C = xbc.shape[-1]
+    ch = "model" if C % autoshard.group_size(("model",)) == 0 else None
+    n = autoshard.group_size(autoshard.DP)
+    split = n > 1 and xbc.shape[0] % n == 0
+    ins = (xbc, p["conv_w"], p["conv_b"])
+    axes = ((autoshard.DP, None, ch), (None, ch), (ch,))
+    if conv_tail is not None:
+        ins, axes = ins + (conv_tail,), axes + ((autoshard.DP, None, ch),)
+    return autoshard.local_call(
+        lambda x, w, b, *t: _conv(cfg, w, b, x, t[0] if t else None),
+        ins, axes, partial_grads={1: autoshard.DP, 2: autoshard.DP}
+        if split else {})
+
+
+def _conv(cfg: ModelConfig, conv_w, conv_b, xbc, conv_tail):
     dc = cfg.ssm.d_conv
     if conv_tail is None:
         pad = torch.zeros((xbc.shape[0], dc - 1, xbc.shape[2]),
@@ -112,16 +131,17 @@ def _causal_conv(cfg: ModelConfig, p: dict, xbc: torch.Tensor,
     xp = torch.cat([pad, xbc], dim=1)
     S = xbc.shape[1]
     # the reference's order: a Python sum from 0 over the shifted products
-    out = sum(xp[:, i:i + S, :] * p["conv_w"][i].to(xbc.dtype)
+    out = sum(xp[:, i:i + S, :] * conv_w[i].to(xbc.dtype)
               for i in range(dc))
-    out = out + p["conv_b"].to(xbc.dtype)
+    out = out + conv_b.to(xbc.dtype)
     new_tail = xp[:, xp.shape[1] - (dc - 1):, :]
     return layers.silu(out), new_tail
 
 
 def _masked_exp(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """exp(x) where ``mask``, 0 elsewhere, with a 0 gradient there."""
-    return torch.exp(torch.where(mask, x, -torch.inf))
+    return torch.exp(torch.where(autoshard.replicated_like(mask, x), x,
+                                 -torch.inf))
 
 
 def _gated_norm_out(cfg: ModelConfig, p: dict, y: torch.Tensor,
@@ -133,7 +153,21 @@ def _gated_norm_out(cfg: ModelConfig, p: dict, y: torch.Tensor,
     yf = y.to(f)
     y = (yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + 1e-6)
          * p["norm"].to(f)).to(cd)
-    return y @ p["out_proj"].to(cd)
+    return layers._dot(y, p["out_proj"].to(cd), 1)
+
+
+def _chunks(x: torch.Tensor, n: int, q: int) -> torch.Tensor:
+    """x [B, S, ...] viewed as [B, n, q, ...]; a sequence sharded over
+    more ranks than divide n is made whole first (a view cannot split a
+    dim sharded unevenly)."""
+    if autoshard.is_distributed(x):
+        ranks = 1
+        for i, p in enumerate(x.placements):
+            if p.is_shard(1):
+                ranks *= x.device_mesh.size(i)
+        if n % ranks:
+            x = autoshard.whole_dims(x, 1)
+    return x.reshape(x.shape[0], n, q, *x.shape[2:])
 
 
 def ssd_forward(cfg: ModelConfig, p: dict, xin: torch.Tensor) -> torch.Tensor:
@@ -151,7 +185,7 @@ def ssd_forward(cfg: ModelConfig, p: dict, xin: torch.Tensor) -> torch.Tensor:
     n = max(1, S // Qe)
     dev = xin.device
 
-    zxbcdt = xin.to(cd) @ p["in_proj"].to(cd)
+    zxbcdt = layers._dot(xin.to(cd), p["in_proj"].to(cd), 1)
     z, x, Bmat, Cmat, dt = _split_proj(cfg, zxbcdt)
     xbc, _ = _causal_conv(cfg, p, torch.cat([x, Bmat, Cmat], dim=-1))
     x, Bmat, Cmat = torch.split(xbc, [di, ds, ds], dim=-1)
@@ -161,16 +195,60 @@ def ssd_forward(cfg: ModelConfig, p: dict, xin: torch.Tensor) -> torch.Tensor:
     dA = dt * A[None, None, :]                            # [B,S,nh] log-decay
 
     xh = x.reshape(B_, S, nh, hd)
-    xc = xh.reshape(B_, n, Qe, nh, hd)
-    Bc = Bmat.reshape(B_, n, Qe, ds).to(f)
-    Cc = Cmat.reshape(B_, n, Qe, ds).to(f)
-    dtc = dt.reshape(B_, n, Qe, nh)
-    dAc = dA.reshape(B_, n, Qe, nh)
+    # chunk views: the chunks are sequence-parallel over `model`
+    # (intra-chunk work is independent across chunks)
+    xc = hint(_chunks(xh, n, Qe), DP, "model", None, None, None)
+    Bc = hint(_chunks(Bmat, n, Qe).to(f), DP, "model", None, None)
+    Cc = hint(_chunks(Cmat, n, Qe).to(f), DP, "model", None, None)
+    dtc = hint(_chunks(dt, n, Qe), DP, "model", None, None)
+    dAc = hint(_chunks(dA, n, Qe), DP, "model", None, None)
 
+    # the per-chunk work on each rank's own chunks (a plain tensor op
+    # inside: DTensor's einsum views would merge the sharded batch and
+    # chunk dims)
+    chunked = (DP, "model", None, None)
+    y_intra, chunk_state, seg_last, decay_in = autoshard.local_call(
+        lambda *a: _chunk_terms(cd, *a), (xc, Bc, Cc, dtc, dAc),
+        (chunked + (None,), chunked, chunked, chunked, chunked))
+
+    # --- inter-chunk state passing: a triangular product over chunks ---
+    # on each rank's rows, the chunks whole (DTensor has no rule for the
+    # flip in a cumsum's backward)
+    L = autoshard.local_call(lambda t: torch.cumsum(t, dim=1), (seg_last,),
+                             ((DP, None, None),))         # [B,n,nh]
+    tri = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
+    Wd = _masked_exp(tri[None, :, :, None],
+                     L[:, :, None, :] - L[:, None, :, :])  # [B,n,m,nh]
+    # the output chunk axis stays sharded: the contraction over the
+    # sharded m axis then reduce-scatters its partial sums
+    st_scan = hint(torch.einsum("bnmh,bmhds->bnhds", Wd, chunk_state),
+                   DP, "model", None, None, None)
+    # state entering chunk n = scan result of chunks < n
+    h_in = torch.cat([torch.zeros_like(st_scan[:, :1]), st_scan[:, :-1]],
+                     dim=1)                               # [B,n,nh,hd,ds]
+    y_inter = autoshard.local_call(
+        lambda C, h, d: torch.einsum("bnis,bnhds->bnihd", C, h) * d[..., None],
+        (Cc, h_in, decay_in), (chunked, chunked + (None,), chunked))
+
+    # the gradient of this view comes back laid out as y is (a sequence
+    # sharded where the chunks were not cannot be viewed into them)
+    y = autoshard.pin((y_intra + y_inter).reshape(B_, S, nh, hd))
+    y = y + xh.to(f) * p["d_skip"].to(f)[None, None, :, None]
+    y = autoshard.pin(y.reshape(B_, S, di)).to(cd)
+    return _gated_norm_out(cfg, p, y, z)
+
+
+def _chunk_terms(cd, xc, Bc, Cc, dtc, dAc):
+    """The work within each chunk: (the intra-chunk output y [B,n,Q,nh,hd],
+    each chunk's final state [B,n,nh,hd,ds], its total log-decay [B,n,nh],
+    the decay from its start to each position [B,n,Q,nh])."""
+    f = layers.acc_dtype(cd)
+    Qe = xc.shape[2]
     seg = torch.cumsum(dAc, dim=2)                        # [B,n,Q,nh]
     # --- intra-chunk (quadratic within the chunk) ---
     # decay from position j to i (i >= j): exp(seg_i - seg_j)
-    causal = torch.tril(torch.ones((Qe, Qe), dtype=torch.bool, device=dev))
+    causal = torch.tril(torch.ones((Qe, Qe), dtype=torch.bool,
+                                   device=xc.device))
     cb = torch.einsum("bnis,bnjs->bnij", Cc, Bc)          # [B,n,Q,Q]
     seg_h = seg.transpose(2, 3)                           # [B,n,nh,Q]
     rel = seg_h[..., :, None] - seg_h[..., None, :]       # [B,n,nh,Q,Q]
@@ -181,27 +259,11 @@ def ssd_forward(cfg: ModelConfig, p: dict, xin: torch.Tensor) -> torch.Tensor:
           * xc.permute(0, 1, 3, 2, 4).to(cd).to(f))       # [B,n,nh,Q,hd]
     y_intra = torch.matmul(att.to(f), dx)                 # [B,n,nh,Q,hd]
     y_intra = y_intra.permute(0, 1, 3, 2, 4)              # [B,n,Q,nh,hd]
-
-    # --- inter-chunk state passing: a triangular product over chunks ---
+    # each chunk's state from its own positions
     decay_to_end = torch.exp(seg[:, :, -1:, :] - seg)     # [B,n,Q,nh]
     xw = xc.to(f) * (dtc * decay_to_end)[..., None]       # [B,n,Q,nh,hd]
     chunk_state = torch.einsum("bnjs,bnjhd->bnhds", Bc, xw)
-    L = torch.cumsum(seg[:, :, -1, :], dim=1)             # [B,n,nh]
-    tri = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
-    Wd = _masked_exp(tri[None, :, :, None],
-                     L[:, :, None, :] - L[:, None, :, :])  # [B,n,m,nh]
-    st_scan = torch.einsum("bnmh,bmhds->bnhds", Wd, chunk_state)
-    # state entering chunk n = scan result of chunks < n
-    h_in = torch.cat([torch.zeros_like(st_scan[:, :1]), st_scan[:, :-1]],
-                     dim=1)                               # [B,n,nh,hd,ds]
-    decay_in = torch.exp(seg)                             # [B,n,Q,nh]
-    y_inter = (torch.einsum("bnis,bnhds->bnihd", Cc, h_in)
-               * decay_in[..., None])
-
-    y = (y_intra + y_inter).reshape(B_, S, nh, hd)
-    y = y + xh.to(f) * p["d_skip"].to(f)[None, None, :, None]
-    y = y.reshape(B_, S, di).to(cd)
-    return _gated_norm_out(cfg, p, y, z)
+    return y_intra, chunk_state, seg[:, :, -1, :], torch.exp(seg)
 
 
 def final_state(cfg: ModelConfig, p: dict, xin: torch.Tensor) -> SSDState:
@@ -214,7 +276,7 @@ def final_state(cfg: ModelConfig, p: dict, xin: torch.Tensor) -> SSDState:
     f = layers.acc_dtype(cd)
     di, nh, ds, _ = _dims(cfg)
     B_, S, _ = xin.shape
-    zxbcdt = xin.to(cd) @ p["in_proj"].to(cd)
+    zxbcdt = layers._dot(xin.to(cd), p["in_proj"].to(cd), 1)
     _, x, Bmat, Cmat, dt = _split_proj(cfg, zxbcdt)
     xbc, tail = _causal_conv(cfg, p, torch.cat([x, Bmat, Cmat], dim=-1))
     x, Bmat, _ = torch.split(xbc, [di, ds, ds], dim=-1)
@@ -237,7 +299,7 @@ def ssd_decode_step(cfg: ModelConfig, p: dict, xin: torch.Tensor,
     hd = cfg.ssm.head_dim
     B_ = xin.shape[0]
 
-    zxbcdt = xin.to(cd) @ p["in_proj"].to(cd)
+    zxbcdt = layers._dot(xin.to(cd), p["in_proj"].to(cd), 1)
     z, x, Bmat, Cmat, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([x, Bmat, Cmat], dim=-1)              # [B,1,conv_dim]
     xbc_act, new_tail = _causal_conv(cfg, p, xbc, conv_tail=state.conv)

@@ -36,8 +36,15 @@ hint (``_shard_stream``: batch over the data axes, sequence over
 ``model``), the embedding gather and the attention core run on each
 rank's own rows and heads (``autoshard.local_call``), and the loss's
 gold gather sees the vocabulary whole. Without a mesh every hint is the
-identity. Sharded serving (the prefill and cache hints) is not ported
-yet.
+identity. Serving runs sharded too: :func:`prefill` and
+:func:`decode_step` on DTensor parameters under the serving policy
+(``sharding.policy_for``) build and update a cache laid out by
+``sharding.cache_shardings`` (the GLOBAL K/V enter it through the
+reference's ``kv_hint``), each rank writing its own block of the cache
+and attending over it (``layers.attend_cache``: partial softmax over a
+sequence-sharded cache, partial q.k over a head_dim-sharded one); a
+plain cache is the one block of the same code. ``launch/dryrun.build_cell``
+builds these cells.
 """
 from __future__ import annotations
 
@@ -48,12 +55,15 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch import tree as T
 from repro_torch.configs.base import (
     CROSS, GLOBAL, LOCAL, RGLRU, SSD, ModelConfig,
 )
 from repro_torch.core.tm import resolve_device
+from repro_torch.distributed import autoshard
 from repro_torch.distributed.autoshard import (
-    DP, gathered, group_size, hint, local_call,
+    DP, gathered, group_size, hint, is_distributed, layer_of, local_call,
+    use_for, write_block,
 )
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.params import PSpec, ShapeDtype, stack_specs
@@ -166,7 +176,10 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     """The ``n`` layers of a stacked tree (views), each leaf unbound once
     (under autograd one node a leaf, whose backward stacks the layers'
     gradients)."""
-    flat = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+    # a leaf whose layer dim is sharded (FSDP picks it when it is the
+    # largest) is gathered along it first: DTensor cannot unbind it
+    flat = {k: _unstack(v, n) if isinstance(v, dict)
+            else autoshard.whole_dims(v, 0).unbind(0)
             for k, v in tree.items()}
     return [{k: v[j] for k, v in flat.items()} for j in range(n)]
 
@@ -244,14 +257,19 @@ def _add_aux(total, aux):
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    cd = layers.compute_dtype(cfg)
     if cfg.embeds_input:
-        return batch["embeds"].to(cd)
-    # Under a mesh the gather runs on each rank's own rows with the table
-    # whole (DTensor's index rules mis-handle a sharded table, and the
-    # reference's GSPMD rejects its own layout here); where the rows split
-    # over the data axes, the table's gradient is a partial sum over them.
-    tokens = batch["tokens"]
+        return batch["embeds"].to(layers.compute_dtype(cfg))
+    return _embed(cfg, params, batch["tokens"])
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in the compute dtype. Under a mesh
+    the gather runs on each rank's own rows with the table whole
+    (DTensor's index rules mis-handle a sharded table, and the
+    reference's GSPMD rejects its own layout here); where the rows split
+    over the data axes, the table's gradient is a partial sum over
+    them."""
+    cd = layers.compute_dtype(cfg)
     n = group_size(DP)
     split = n > 1 and tokens.shape[0] % n == 0
     return local_call(lambda e, t: e[t], (params["embed"].to(cd), tokens),
@@ -363,7 +381,11 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     logits = hint(logits, DP, None, None)
     valid = torch.ones_like(labels, dtype=torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # on each rank's own rows: the gather's backward makes its zeros
+    # there (on a DTensor it makes them at the whole batch's size)
+    gold = local_call(
+        lambda lg, lb: torch.gather(lg, -1, lb[..., None].long())[..., 0],
+        (logits, labels), ((DP, None, None), (DP, None)), out_of=1)
     ce = ((lse - gold) * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -437,11 +459,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def _layer_cache(cache: dict, idx) -> dict:
-    """One layer's cache entries (views at layer ``idx`` when stacked)."""
-    return cache if idx is None else {k: v[idx] for k, v in cache.items()}
+    """One layer's cache entries (views at layer ``idx`` when stacked; a
+    sharded stacked leaf's layer as ``autoshard.layer_of`` gives it)."""
+    return cache if idx is None else {k: layer_of(v, idx)
+                                      for k, v in cache.items()}
 
 
-def _decode_block(cfg, kind, p, x, cache, pos, idx=None):
+def _put(buf, idx, value) -> None:
+    """Layer ``idx`` of a cache leaf (the leaf itself when ``idx`` is None)
+    set to ``value`` in place; on a DTensor each rank writes its own
+    block."""
+    lead = () if idx is None else (idx,)
+    write_block(buf, value, lead + (slice(None),) * value.dim())
+
+
+def _decode_block(cfg, kind, p, x, cache, pos, idx=None, num_groups=1):
     """One layer, one token; the K/V or the recurrent state land in
     ``cache`` (stacked: at layer ``idx``) in place; a CROSS layer reads its
     K/V and writes nothing. Returns x."""
@@ -450,16 +482,16 @@ def _decode_block(cfg, kind, p, x, cache, pos, idx=None):
         out, st = ssm.ssd_decode_step(
             cfg, p["mamba"], layers.norm(cfg, p["ln1"], x),
             ssm.SSDState(h=c["h"], conv=c["conv"]))
-        c["h"].copy_(st.h)
-        c["conv"].copy_(st.conv)
+        _put(cache["h"], idx, st.h)
+        _put(cache["conv"], idx, st.conv)
         return x + out
     if kind == RGLRU:
         c = _layer_cache(cache, idx)
         out, st = rglru.rglru_decode_step(
             cfg, p["rec"], layers.norm(cfg, p["ln1"], x),
             rglru.RGLRUState(h=c["h"], conv=c["conv"]))
-        c["h"].copy_(st.h)
-        c["conv"].copy_(st.conv)
+        _put(cache["h"], idx, st.h)
+        _put(cache["conv"], idx, st.conv)
         x = x + out
         return x + layers.mlp(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x))
     if kind == CROSS:
@@ -475,27 +507,45 @@ def _decode_block(cfg, kind, p, x, cache, pos, idx=None):
         local=(kind == LOCAL),
     )
     x = x + a
-    f, _ = _ffn(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x), 1)
+    f, _ = _ffn(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x), num_groups)
     return x + f
 
 
-@torch.inference_mode()
+def _serving(params):
+    """The autograd context of a serving pass: inference mode, or on
+    DTensor parameters no_grad (DTensor's ops cannot run on inference
+    tensors)."""
+    if any(is_distributed(x) for x in T.leaves(params)):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
 def decode_step(
     cfg: ModelConfig,
     params: dict,
     batch: dict,     # {token: [B,1] int | embeds: [B,1,D], pos: int}
     cache: dict,
+    *,
+    num_groups: int = 1,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step for the whole stack. Returns (logits [B,V], cache):
-    the cache is updated in place and returned."""
+    the cache is updated in place and returned. On DTensor parameters and
+    a cache laid out by ``sharding.cache_shardings`` (sharded serving,
+    ``launch/dryrun.build_cell``) each rank writes and attends over its
+    own block of the cache. ``num_groups`` splits a MoE layer's tokens
+    into dispatch groups (the reference's decode uses one)."""
     pos = int(batch["pos"])
-    if cfg.embeds_input:
-        x = batch["embeds"].to(layers.compute_dtype(cfg))
-    else:
-        x = params["embed"].to(layers.compute_dtype(cfg))[batch["token"]]
-    for kind, p, idx, (top, name) in _layers(cfg, params):
-        x = _decode_block(cfg, kind, p, x, cache[top][name], pos, idx)
-    return unembed(cfg, params, x)[:, 0, :], cache
+    with _serving(params), use_for(params):
+        if cfg.embeds_input:
+            x = batch["embeds"].to(layers.compute_dtype(cfg))
+        elif is_distributed(params["embed"]):
+            x = _embed(cfg, params, batch["token"])
+        else:
+            x = params["embed"].to(layers.compute_dtype(cfg))[batch["token"]]
+        for kind, p, idx, (top, name) in _layers(cfg, params):
+            x = _decode_block(cfg, kind, p, x, cache[top][name], pos, idx,
+                              num_groups)
+        return unembed(cfg, params, x)[:, 0, :], cache
 
 
 # ---------------------------------------------------------------------------
@@ -503,7 +553,7 @@ def decode_step(
 # ---------------------------------------------------------------------------
 
 
-def _prefill_block(cfg, kind, p, x, cross):
+def _prefill_block(cfg, kind, p, x, cross, num_groups=1):
     """Layer forward that also returns what its cache keeps: the roped K
     and V [B, S, Hkv, D] of an attention layer, the K and V [B, N, Hkv, D]
     of ``cross`` for a CROSS layer, the final state of an RG-LRU or SSD
@@ -526,66 +576,117 @@ def _prefill_block(cfg, kind, p, x, cross):
     cd = layers.compute_dtype(cfg)
     w = cfg.sliding_window if kind == LOCAL else None
     h = layers.norm(cfg, p["ln1"], x)
-    S = h.shape[1]
     q, k, v = layers._project_qkv(cfg, p["attn"], h)
-    pos = torch.arange(S, device=x.device)
-    q = layers.rope(q, pos, cfg.rope_theta)
-    k = layers.rope(k, pos, cfg.rope_theta)
-    a = layers.gqa_attention(cfg, q, k, v, window=w)
+    q = layers.rope_local(q, 0, cfg.rope_theta)
+    k = layers.rope_local(k, 0, cfg.rope_theta)
+    a = layers.attend_local(
+        lambda q, k, v: layers.gqa_attention(cfg, q, k, v, window=w), q, k, v)
     x = x + layers._dot(a, p["attn"]["wo"].to(cd), 2)
-    f, _ = _ffn(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x), 1)
+    f, _ = _ffn(cfg, p["ffn"], layers.norm(cfg, p["ln2"], x), num_groups)
     return x + f, (k, v)
 
 
-def _store_prompt(kind, ck, cv, k, v):
-    """Write a prompt's K/V into one layer's (zeroed) cache [B, T, Hkv, D]:
-    a global cache at positions 0..S-1, a local one its last W entries at
-    their rotating slots (abs % W)."""
-    S, T = k.shape[1], ck.shape[1]
+def kv_hint(max_seq: int) -> tuple:
+    """The layout of a prompt's K/V [B, S, Hkv, D] before it enters a
+    GLOBAL cache (the reference's prefill hint): a long cache (max_seq >=
+    4096) shards the sequence over ``model``, a short one head_dim."""
+    return ((DP, "model", None, None) if max_seq >= 4096
+            else (DP, None, None, "model"))
+
+
+def _store_prompt(kind, bk, bv, idx, k, v, max_seq: int) -> None:
+    """Write a prompt's K/V [B, S, Hkv, D] into layer ``idx`` of a
+    stacked (``idx`` None: a layer's) zeroed cache [B, T, Hkv, D]: a
+    global cache at positions 0..S-1 (laid out first by :func:`kv_hint`),
+    a local one its last T entries at their rotating slots (abs % T). On
+    a cache of DTensors each rank writes the positions of its own
+    block."""
+    lead = () if idx is None else (idx,)
+    S, T = k.shape[1], bk.shape[-3]
     if kind == GLOBAL:
         if S > T:
             raise ValueError(f"a {S}-token prompt does not fit a {T}-slot "
                              "cache")
-        ck[:, :S] = k.to(ck.dtype)
-        cv[:, :S] = v.to(cv.dtype)
-        return
-    first = max(S - T, 0)
-    slots = torch.arange(first, S, device=k.device) % T
-    ck[:, slots] = k[:, first:].to(ck.dtype)
-    cv[:, slots] = v[:, first:].to(cv.dtype)
+        k, v = hint(k, *kv_hint(max_seq)), hint(v, *kv_hint(max_seq))
+        at = range(S)
+    else:
+        first = max(S - T, 0)
+        at = range(S) if not first else [t % T for t in range(first, S)]
+        if first:
+            k = autoshard.whole_dims(k, 1)[:, first:]
+            v = autoshard.whole_dims(v, 1)[:, first:]
+    rest = (slice(None),) * 2
+    write_block(bk, k, lead + (slice(None), at) + rest)
+    write_block(bv, v, lead + (slice(None), at) + rest)
 
 
-@torch.inference_mode()
+def _new_cache(cfg, x, max_seq: int, mesh, shardings) -> dict:
+    """The zero cache a prefill fills: on x's device, or under a mesh laid
+    out by ``shardings`` (default: ``cache_shardings`` of the mesh)."""
+    if mesh is None:
+        return init_cache(cfg, x.shape[0], max_seq, device=x.device)
+    from repro_torch.distributed import sharding as shd
+
+    struct = cache_struct(cfg, x.shape[0], max_seq)
+    if shardings is None:
+        shardings = shd.cache_shardings(struct, mesh, shd.ShardingPolicy())
+    return shd.zeros(struct, shardings)
+
+
 def prefill(
     cfg: ModelConfig,
     params: dict,
     batch: dict,
     max_seq: int,
+    *,
+    num_groups: int = 1,
+    shardings=None,
 ) -> tuple[torch.Tensor, dict]:
     """Consume the prompt (batch: {tokens|embeds, cross_embeds?}); return
-    (last-position logits [B,V], decode cache)."""
-    x = embed_inputs(cfg, params, batch)
-    cross = _cross_embeds(batch, x)
-    cache = init_cache(cfg, x.shape[0], max_seq, device=x.device)
-    for kind, p, idx, (top, name) in _layers(cfg, params):
-        x, kept = _prefill_block(cfg, kind, p, x, cross)
-        c = _layer_cache(cache[top][name], idx)
-        if kind in (SSD, RGLRU):
-            c["h"].copy_(kept.h)
-            c["conv"].copy_(kept.conv)
-        elif kind == CROSS:
-            if kept[0].shape != c["ck"].shape:
-                raise ValueError(
-                    f"cross_embeds of {kept[0].shape[1]} tokens for a cache "
-                    f"of n_cross_tokens = {c['ck'].shape[1]}")
-            c["ck"].copy_(kept[0])
-            c["cv"].copy_(kept[1])
-        else:
-            _store_prompt(kind, c["k"], c["v"], *kept)
-    # The reference unembeds all S positions and keeps the last; the norm
-    # and the head act row by row, so unembedding the last row alone gives
-    # the same values without the [B, S, V] logits.
-    return unembed(cfg, params, x[:, -1:])[:, 0, :], cache
+    (last-position logits [B,V], decode cache).
+
+    On DTensor parameters and batch over a ``RankMesh`` (sharded serving)
+    the residual stream carries the reference's hint around each
+    super-block, and the cache is built laid out by ``shardings`` (a tree
+    of NamedSharding; default ``sharding.cache_shardings``), each rank
+    writing its own block. ``num_groups`` splits a MoE layer's tokens
+    into dispatch groups (the reference's prefill uses one)."""
+    last = f"pos{len(cfg.layer_pattern) - 1}"
+    with _serving(params), use_for(params) as mesh:
+        x = embed_inputs(cfg, params, batch)
+        cross = _cross_embeds(batch, x)
+        cache = _new_cache(cfg, x, max_seq, mesh, shardings)
+        for kind, p, idx, (top, name) in _layers(cfg, params):
+            if idx is not None and name == "pos0":
+                x = _shard_stream(x)
+            x, kept = _prefill_block(cfg, kind, p, x, cross, num_groups)
+            if idx is not None and name == last:
+                x = _shard_stream(x)
+            _keep(kind, cache[top][name], idx, kept, max_seq)
+        # The reference unembeds all S positions and keeps the last; the
+        # norm and the head act row by row, so unembedding the last row
+        # alone gives the same values without the [B, S, V] logits.
+        if is_distributed(x):
+            x = hint(x, DP, None, None)
+        return unembed(cfg, params, x[:, -1:])[:, 0, :], cache
+
+
+def _keep(kind, cache: dict, idx, kept, max_seq: int) -> None:
+    """A prefilled layer's K/V or final state into its cache entries."""
+    if kind in (SSD, RGLRU):
+        _put(cache["h"], idx, kept.h)
+        _put(cache["conv"], idx, kept.conv)
+        return
+    if kind == CROSS:
+        want = cache["ck"].shape[1 if idx is None else 2]
+        if kept[0].shape[1] != want:
+            raise ValueError(
+                f"cross_embeds of {kept[0].shape[1]} tokens for a cache "
+                f"of n_cross_tokens = {want}")
+        _put(cache["ck"], idx, kept[0])
+        _put(cache["cv"], idx, kept[1])
+        return
+    _store_prompt(kind, cache["k"], cache["v"], idx, *kept, max_seq)
 
 
 # ---------------------------------------------------------------------------

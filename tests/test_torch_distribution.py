@@ -41,9 +41,21 @@ MESHES = [((4, 2), ("data", "model")), ((2, 16), ("data", "model")),
 MESH_IDS = ["4x2", "2x16", "16x16", "2x16x16"]
 
 
+# a cell of each policy: train, serving (prefill / large-batch decode),
+# serving small-batch decode
+_POLICY_CELLS = {"train": SHAPES["train_4k"], "serve": SHAPES["prefill_32k"],
+                 "serve_sp": SHAPES["long_500k"]}
+
+
 def _policies(mod):
-    """train, serving (prefill / large-batch decode), serving small-batch
-    decode: the reference dry run's ``_policy_for``."""
+    """The three policies of the reference dry run's ``_policy_for``
+    (``launch/dryrun.py:46-56``): the port's from ``sharding.policy_for``;
+    the reference's built as that function builds them (importing its
+    dry run sets ``XLA_FLAGS`` for the whole process;
+    ``tests/test_torch_dryrun.py`` holds the two functions against each
+    other in a subprocess)."""
+    if mod is shd:
+        return {k: shd.policy_for(None, s) for k, s in _POLICY_CELLS.items()}
     serve = dict(mod.DEFAULT_RULES)
     serve["experts"] = "data"
     return {"train": mod.ShardingPolicy(),

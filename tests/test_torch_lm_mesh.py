@@ -4,7 +4,7 @@ reference's rules (FSDP over data, TP / EP over model) as DTensors, held
 to the port without a mesh and to the reference's single-device loss,
 and a checkpoint written under one mesh restored under another.
 
-Three smoke configs at float32: granite_8b (the reference's own sharded
+Three smoke configs at float32 (and three more, below): granite_8b (the reference's own sharded
 test; here with ``remat="dots"``, so the backward recomputes each
 super-block under the mesh), gemma3_1b (one kv head: the heads' rule falls back to
 replication) and olmoe_1b_7b (experts over model; the dispatch groups
@@ -25,6 +25,9 @@ Tolerances:
   half-level, listed and left out);
 * every leaf's local shard is the block its spec implies (checked on
   the ranks after every step);
+* mamba2_780m on (2, 2), recurrentgemma_9b on (1, 4) and
+  llama32_vision_11b on (2, 2) (the SSD, RG-LRU and CROSS blocks): 3
+  AdamW steps each, held as above;
 * reshard-on-load: the (2, 2) state after step 3, saved, restores on
   (4, 1), on (1, 4) and without a mesh bitwise, and a 4th step from each
   is held to the uninterrupted unsharded run as above.
@@ -56,6 +59,12 @@ ARCHS = ["granite_8b", "gemma3_1b", "olmoe_1b_7b"]
 PLAN = {"train": [("adamw", (2, 2)), ("microbatches", (4, 1)),
                   ("grad_compress", (1, 4))],
         "reshard": [(4, 1), (1, 4)]}
+# the SSD, RG-LRU and CROSS blocks: 3 AdamW steps each, mamba2 on (2, 2)
+# (its chunks over model, the batch over data), recurrentgemma on (1, 4)
+# (the recurrence's channels over model), the vlm on (2, 2)
+BLOCK_MESH = {"mamba2_780m": (2, 2), "recurrentgemma_9b": (1, 4),
+              "llama32_vision_11b": (2, 2)}
+BLOCK_ARCHS = list(BLOCK_MESH)
 CASE_MESH = dict(PLAN["train"])
 BATCH = 4
 
@@ -82,9 +91,14 @@ def _spawn(arch, ckpt_dir):
             return ranks.spawn(ranks_mod.misc, 4, (ckpt_dir,), device="cpu",
                                timeout_s=120, staged=True)
         _, prm, batches = _inputs(arch)
-        return ranks.spawn(ranks_mod.run, 4, (arch, prm, batches, PLAN,
+        plan = ({"train": [("adamw", BLOCK_MESH[arch])], "reshard": []}
+                if arch in BLOCK_MESH else PLAN)
+        # the block archs' spawns share the cores with the others: a
+        # longer limit (it only guards against a hang)
+        return ranks.spawn(ranks_mod.run, 4, (arch, prm, batches, plan,
                                               ckpt_dir),
-                           device="cpu", timeout_s=120,
+                           device="cpu",
+                           timeout_s=300 if arch in BLOCK_ARCHS else 120,
                            staged=arch in STAGED)[0]
     except RuntimeError as e:
         return e
@@ -96,7 +110,7 @@ def sharded(tmp_path_factory):
     (each its own 120 s limit): {arch: (checkpoint dir, rank 0's results
     or the error)}."""
     root = tmp_path_factory.mktemp("lm_mesh")
-    names = ARCHS + ["misc"]
+    names = ARCHS + BLOCK_ARCHS + ["misc"]
     with ThreadPoolExecutor(len(names)) as pool:
         futures = {a: pool.submit(_spawn, a, str(root / a)) for a in names}
         return {a: (root / a, f.result()) for a, f in futures.items()}
@@ -304,3 +318,17 @@ def test_sharded_loop_agrees_and_resumes_on_another_mesh(sharded):
     assert faults == [(1, "nan_loss")]
     assert steps_run == 3 and len(losses) == 3 and step == 3
     assert all(o["resumed_step"] == 3 for o in outs)
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_sharded_block_train_steps_match_unsharded(arch, sharded):
+    """mamba2 (SSD: the chunk views and the inter-chunk states hinted
+    over model, the conv on each rank's rows and channels),
+    recurrentgemma (RG-LRU: the conv, gates and scan on each rank's rows
+    and channels) and llama-3.2-vision (CROSS: the cross-attention on
+    each rank's rows and heads): the loss within 1e-5 relative and the
+    state within 1e-4 of each leaf's range of the unsharded port after
+    each of 3 AdamW steps, as the dense and MoE cases above."""
+    got = _run(arch, sharded)["train"]["adamw"]
+    want, _, tc = _unsharded(arch, "adamw", BLOCK_MESH[arch])
+    _hold(arch, "adamw", got, want, lambda m: m["lr"], tc.opt)
