@@ -218,6 +218,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -4979,6 +4980,18 @@ LMM_TIMED = 1                   # bf16 steps timed a side, after one
 LMM_MOE = "olmoe_1b_7b"         # one layer, the loss only
 LMM_LOSS_TOL = 1e-5
 LMM_TOL = 1e-4
+# the vocabulary-parallel loss: the loss and the embedding's gradient
+# (gemma3 ties the head to it) against the unsharded port's, relative
+# (PERF.md §2; the bf16 loss at the bf16 tolerance)
+LMM_GRAD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# A bf16 gradient at this init is itself far from the float32 one (the
+# unsharded one by 1.706e-01 of its largest element on the card, PERF.md
+# §6), so two bf16 runs that sum in another order differ by as
+# much: the sharded bf16 gradient is held to the float32 one instead, no
+# further from it than this many times the unsharded bf16 gradient is.
+LMM_BF16_GRAD_FACTOR = 1.5
+# a rank's bf16 peak with the vocabulary whole in the loss (PERF.md §6)
+LMM_WHOLE_VOCAB_PEAK_GIB = 12.1
 LMM_TIMEOUT_S = 120.0            # the phase's limit
 
 
@@ -5054,6 +5067,75 @@ def _lmm_steps(torch, cfg, tc, state, batches):
     return state, losses, ms
 
 
+@contextlib.contextmanager
+def _lmm_vocab_blocks(seen: list):
+    """Appends the local vocabulary width of every block the loss's
+    cross-entropy (``transformer._VocabCE``) computes on inside."""
+    from repro_torch.models import transformer
+
+    block = transformer._VocabCE.apply
+
+    def apply(x, *rest):
+        seen.append(int(x.shape[-1]))
+        return block(x, *rest)
+
+    transformer._VocabCE.apply = staticmethod(apply)
+    try:
+        yield
+    finally:
+        del transformer._VocabCE.apply   # back to Function.apply
+
+
+@contextlib.contextmanager
+def _lmm_first_grad(store: dict, key: str, rank: int):
+    """``store[key]`` = (loss, the embedding's gradient whole as a host
+    copy on rank 0, None elsewhere) of the first ``train_step`` inside,
+    taken where it computes them (``train_step.grad_fn``): a step at the
+    initial parameters gives them without a pass of its own. The gather
+    is collective, at the same point on every rank."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import train_step as TS
+
+    orig = TS.grad_fn
+
+    def grad_fn(cfg, tc, params, batch):
+        loss, parts, grads = orig(cfg, tc, params, batch)
+        if key not in store:
+            g = shd.gather(grads["embed"]).detach()
+            store[key] = (float(shd.gather(loss)),
+                          g.to("cpu", copy=True) if rank == 0 else None)
+            del g
+        return loss, parts, grads
+
+    TS.grad_fn = grad_fn
+    try:
+        yield
+    finally:
+        TS.grad_fn = orig
+
+
+def _lmm_grad_diag(torch, got, ref, f32, dev) -> dict:
+    """The sharded gradient ``got`` against the unsharded ``ref`` (host
+    copies), on the card: max |got - ref| / max |ref| ("max_rel"), the
+    norm-wise ||got - ref|| / ||ref||, and each against the unsharded
+    float32 gradient ``f32`` the same two ways; where the largest
+    difference sits (row, column, both values, max |ref|)."""
+    g, r, a = (x.to(dev).double() for x in (got, ref, f32))
+    scale = r.abs().max()
+    diff = (g - r).abs()
+    i = int(diff.argmax())
+    row, col = divmod(i, r.shape[-1])
+    out = {"max_rel": float(diff.max() / scale),
+           "norm_rel": float(diff.norm() / r.norm()),
+           "at": [row, col, float(g.view(-1)[i]), float(r.view(-1)[i]),
+                  float(scale)]}
+    for name, x in (("got", g), ("ref", r)):
+        out[f"{name}_vs_f32_max_rel"] = float((x - a).abs().max()
+                                              / a.abs().max())
+        out[f"{name}_vs_f32_norm_rel"] = float((x - a).norm() / a.norm())
+    return out
+
+
 def _lm_mesh_rank(rank, world, ckpt_dir):
     """One rank of phase ``lm_mesh`` (``repro_torch.launch.ranks.spawn``
     starts 4; the docstring of :func:`phase_lm_mesh` says what it does).
@@ -5096,8 +5178,10 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
     ref = {}
     if rank == 0:
         state = TS.init_state(tc, _lmm_params(torch, f32, dev))
-        state, ref["losses"], _ = _lmm_steps(torch, f32, tc, state,
-                                             batches[:2])
+        ref["grad"] = {}
+        with _lmm_first_grad(ref["grad"], "float32", rank):
+            state, ref["losses"], _ = _lmm_steps(torch, f32, tc, state,
+                                                 batches[:2])
         note("unsharded float32 steps 1-2")
         ref["step2"] = _lmm_host(torch, state)
         state, loss3, _ = _lmm_steps(torch, f32, tc, state, batches[2:])
@@ -5108,8 +5192,9 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
         torch.cuda.empty_cache()
         state = TS.init_state(tc, _lmm_params(torch, bf16, dev))
         torch.cuda.reset_peak_memory_stats()
-        state, _, ms = _lmm_steps(torch, bf16, tc, state,
-                                  batches[:1 + LMM_TIMED])
+        with _lmm_first_grad(ref["grad"], "bfloat16", rank):
+            state, _, ms = _lmm_steps(torch, bf16, tc, state,
+                                      batches[:1 + LMM_TIMED])
         out["plain_bf16_ms"] = ms[1:]
         out["plain_peak"] = torch.cuda.max_memory_allocated()
         note(f"unsharded bf16 steps {ms}")
@@ -5139,10 +5224,28 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
     out["local_elems"] = shd.local_numel(state.params)
     out["whole_elems"] = sum(int(np.prod(x.shape))
                              for x in T.leaves(state.params))
-    state, losses, ms = _lmm_steps(torch, f32, tc, state, batches[:2])
+    # the vocabulary-parallel loss at the initial parameters (the first
+    # step's): its local blocks, its value and the embedding's gradient
+    out["vocab_blocks"] = []
+    out["grad"], out["grad_rel"], out["grad_diag"] = {}, {}, {}
+
+    def grad_rel(dtype):
+        loss, g = out["grad"].pop(dtype)
+        if rank == 0:
+            rloss, rg = ref["grad"][dtype]
+            d = _lmm_grad_diag(torch, g, rg, ref["grad"]["float32"][1], dev)
+            out["grad_diag"][dtype] = d
+            out["grad_rel"][dtype] = (abs(loss - rloss) / abs(rloss),
+                                      d["max_rel"])
+
+    with _lmm_first_grad(out["grad"], "float32", rank), \
+            _lmm_vocab_blocks(out["vocab_blocks"]):
+        state, losses, ms = _lmm_steps(torch, f32, tc, state, batches[:2])
     out["f32_ms"] = ms
     out["losses"] = losses
-    note(f"sharded float32 steps {ms}")
+    note(f"sharded float32 steps {ms}, vocabulary blocks "
+         f"{out['vocab_blocks']}")
+    grad_rel("float32")
     t = time.perf_counter()
     from repro_torch.train import checkpoint as ckpt_mod
     ckpt_mod.save(ckpt_dir, 2, state)
@@ -5177,7 +5280,10 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
     state = shd.distribute(TS.init_state(tc, _lmm_params(torch, bf16, dev)),
                            sh)
     torch.cuda.empty_cache()
-    state, _, _ = _lmm_steps(torch, bf16, tc, state, batches[:1])
+    with _lmm_first_grad(out["grad"], "bfloat16", rank):
+        state, _, _ = _lmm_steps(torch, bf16, tc, state, batches[:1])
+    grad_rel("bfloat16")
+    torch.cuda.empty_cache()
     collectives.reset_staged_counts()
     torch.cuda.reset_peak_memory_stats()
     collectives.barrier()
@@ -5209,7 +5315,8 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
     out["moe_s"] = time.perf_counter() - t0
     note("olmoe loss")
     if rank == 0:
-        out["ref"] = {k: v for k, v in ref.items() if "step" not in k}
+        out["ref"] = {k: v for k, v in ref.items()
+                      if "step" not in k and k != "grad"}
     return out
 
 
@@ -5230,16 +5337,22 @@ def phase_lm_mesh(torch, np, smi: str):
 
     1. rank 0 runs the unsharded port on the same card first (3 float32
        steps, 1 + 1 timed bf16 steps, olmoe's loss);
-    2. float32 on (2, 2): 2 steps, the losses within 1e-5 relative of
-       the unsharded ones; each rank holds under half the parameters; a
-       checkpoint written collectively;
+    2. float32 on (2, 2): the vocabulary-parallel loss at the initial
+       parameters, each rank's block of the logits V / 2 wide, the loss
+       and the (tied) embedding's gradient within 1e-5 relative of the
+       unsharded port's (bf16 in 4: the loss within 3e-2, the gradient
+       no further from the float32 one than 1.5 times the unsharded
+       bf16 gradient is); 2 steps, the losses within
+       1e-5 relative of the unsharded ones; each rank holds under half
+       the parameters; a checkpoint written collectively;
     3. resume on (4, 1) (``loop.resume_or_init(..., shardings=)``):
        every parameter and moment within 1e-4 of its leaf's range of the
        unsharded state after step 2; one more step, held the same way
        to the unsharded third (the restore's bitwise check is the CPU
        tests'; here it would cost a phase that must end in 120 s);
     4. bf16 on (2, 2): 1 + 1 timed step, against the unsharded ones
-       (ms a step, each rank's peak, the staged collectives a step);
+       (ms a step, each rank's peak beside the 12.1 GiB it took with the
+       vocabulary whole in the loss, the staged collectives a step);
     5. olmoe-1b-7b at full width, one layer, on (2, 2): the loss against
        the unsharded port's at the same dispatch groups (2)."""
     import shutil
@@ -5287,6 +5400,35 @@ def phase_lm_mesh(torch, np, smi: str):
         check(o["local_elems"] < whole // 2,
               f"lm_mesh: rank {o['rank']} holds {o['local_elems']:,} of "
               f"{whole:,} parameters")
+    V = _lmm_cfg(LMM_ARCH, LMM_LAYERS, "float32").vocab_size
+    blocks = [o["vocab_blocks"] for o in outs]
+    print(f"lm_mesh [{smi}]: vocabulary-parallel loss on {LMM_MESH}: local "
+          f"vocabulary blocks a rank {blocks} of V = {V:,}; loss / "
+          "embedding gradient vs the unsharded port: " + ", ".join(
+              f"{d} {a:.3e} / {b:.3e}"
+              for d, (a, b) in sorted(r0["grad_rel"].items())), flush=True)
+    for d, diag in sorted(r0["grad_diag"].items()):
+        print(f"lm_mesh [{smi}]: {d} embedding gradient: " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in diag.items()), flush=True)
+    for o, b in zip(outs, blocks):
+        check(b and all(w == V // LMM_MESH[1] for w in b),
+              f"lm_mesh: rank {o['rank']}'s loss blocks {b}, not V / "
+              f"{LMM_MESH[1]} = {V // LMM_MESH[1]}")
+    check(sorted(r0["grad_rel"]) == ["bfloat16", "float32"],
+          f"lm_mesh: gradients compared {sorted(r0['grad_rel'])}")
+    for d, (a, b) in r0["grad_rel"].items():
+        check(a <= (LMM_LOSS_TOL if d == "float32" else LMM_GRAD_TOL[d]),
+              f"lm_mesh: {d} loss {a:.3e} from the unsharded port's")
+    check(r0["grad_rel"]["float32"][1] <= LMM_GRAD_TOL["float32"],
+          f"lm_mesh: float32 embedding gradient "
+          f"{r0['grad_rel']['float32'][1]:.3e} from the unsharded port's")
+    bd = r0["grad_diag"]["bfloat16"]
+    check(bd["got_vs_f32_max_rel"]
+          <= LMM_BF16_GRAD_FACTOR * bd["ref_vs_f32_max_rel"],
+          f"lm_mesh: bf16 embedding gradient {bd['got_vs_f32_max_rel']:.3e}"
+          f" from the float32 one, the unsharded bf16 "
+          f"{bd['ref_vs_f32_max_rel']:.3e}")
     moe_err = abs(r0["moe_loss"] - ref["moe_loss"]) / abs(ref["moe_loss"])
     print(f"lm_mesh [{smi}]: {LMM_MOE} full width, 1 layer, on {LMM_MESH}: "
           f"loss {r0['moe_loss']:.7f} vs unsharded {ref['moe_loss']:.7f} "
@@ -5301,7 +5443,9 @@ def phase_lm_mesh(torch, np, smi: str):
               f"{x:.1f}" for x in r0["f32_ms"]) + " ms; peak "
           + ", ".join(f"rank {o['rank']} {o['bf16_peak'] / 2**30:.2f} GiB"
                       for o in outs)
-          + f", unsharded {r0['plain_peak'] / 2**30:.2f} GiB; parameters "
+          + f" (the vocabulary whole in the loss: {LMM_WHOLE_VOCAB_PEAK_GIB} "
+          f"GiB a rank), unsharded {r0['plain_peak'] / 2**30:.2f} "
+          "GiB; parameters "
           "held a rank " + ", ".join(f"{o['local_elems']:,}" for o in outs)
           + f" of {whole:,}", flush=True)
     print(f"lm_mesh [{smi}]: staged collectives a bf16 step (rank 0: "
@@ -5317,6 +5461,8 @@ def phase_lm_mesh(torch, np, smi: str):
         "staged_per_step": r0["staged_per_step"],
         "loss_rel": loss_err, "state_rel": [r0["err_step2"],
                                             r0["err_step3"]],
+        "vocab_blocks": blocks, "grad_rel": r0["grad_rel"],
+        "grad_diag": r0["grad_diag"],
         "moe_loss_rel": moe_err, "wall_s": wall}}), flush=True)
 
 

@@ -368,7 +368,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         "build_s": round(got["build_s"], 2),
         "trace_s": round(got["trace_s"], 2),
         "memory": {"argument_size_in_bytes": got["argument_bytes"],
-                   "temp_size_in_bytes": int(c.peak_bytes)},
+                   "temp_size_in_bytes": int(c.peak_bytes),
+                   "peak_live": [{"bytes": b, "op": op, "shape": list(sh),
+                                  "dtype": dt}
+                                 for b, op, sh, dt in c.peak_live]},
         "cost": {"flops": c.flops, "bytes accessed": c.traffic_bytes},
         "collectives": _collectives(c),
         "param_count": cfg.param_count(),

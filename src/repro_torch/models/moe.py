@@ -16,7 +16,8 @@ shard over the data axes: routing, dispatch and combine stay group-local
 are hinted to [groups -> data, experts -> model] for the expert products
 (expert parallelism; the hint boundary is the all-to-all), as in the
 reference. ``setting("moe_expert_axis")`` puts the experts over ``data``
-instead (weight-stationary serving). Without a mesh every hint is the
+instead (weight-stationary serving), and the groups then stay over
+``pod`` where the mesh has one. Without a mesh every hint is the
 identity.
 
 Where a straight translation would go wrong:
@@ -156,9 +157,12 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                          (grouped,) * 4)
     # Dispatch happened group-local (buffers sharded over G = DP); the
     # expert products want the expert axis sharded: this hint boundary is
-    # the all-to-all.
+    # the all-to-all. The groups keep the data axes the experts do not
+    # take: serving's experts over `data` leave G over `pod` (the
+    # reference leaves G whole there, and DTensor reaches that layout by
+    # gathering every group's buffers on each rank before it cuts E).
     ea = _expert_axis()
-    g_axis = None if ea == "data" else DP
+    g_axis = tuple(a for a in DP if a != ea)
     buffers = hint(buffers, g_axis, ea, None, None)
 
     # Expert FFN over [G, E, C, D] buffers (weights shared across groups).

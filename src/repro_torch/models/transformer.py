@@ -34,8 +34,11 @@ out over a ``RankMesh`` (``distributed.sharding``; training over
 ``torch.distributed`` ranks): the residual stream carries the reference's
 hint (``_shard_stream``: batch over the data axes, sequence over
 ``model``), the embedding gather and the attention core run on each
-rank's own rows and heads (``autoshard.local_call``), and the loss's
-gold gather sees the vocabulary whole. Without a mesh every hint is the
+rank's own rows and heads (``autoshard.local_call``), and the loss runs
+on each rank's own block of the vocabulary (:func:`vocab_cross_entropy`:
+the logits stay sharded over ``model``, as the head's product leaves
+them; the logsumexp and the gold logit are all-reduced over the ranks
+that split the vocabulary). Without a mesh every hint is the
 identity. Serving runs sharded too: :func:`prefill` and
 :func:`decode_step` on DTensor parameters under the serving policy
 (``sharding.policy_for``) build and update a cache laid out by
@@ -364,11 +367,71 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     return unembed(cfg, params, x), aux
 
 
+class _VocabCE(torch.autograd.Function):
+    """Per-position ``logsumexp(x) - x[label]`` over a vocabulary split
+    into blocks, in float32 (float64 logits in float64), on one rank's
+    block ``x`` [..., Vb] (columns
+    ``lo`` to ``lo + Vb`` of the whole vocabulary): the max, the sum of
+    exponentials and the gold logit (each rank's own labels, 0 for the
+    others) all-reduced over the mesh dims ``dims`` of ``mesh`` that
+    split the vocabulary (no dims: the identity, one block). The
+    backward is local, ``(softmax - onehot) * g`` on the block, so no
+    gradient flows through a collective."""
+
+    @staticmethod
+    def forward(ctx, x, labels, lo, mesh, dims):
+        def reduce(t, op):
+            return autoshard.all_reduce_over(t, mesh, dims, op)
+
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        m = reduce(xf.amax(dim=-1), "max")
+        # one block-sized temporary a pass (exp in place)
+        s = reduce((xf - m[..., None]).exp_().sum(dim=-1), "sum")
+        lse = m + torch.log(s)
+        labels = labels.long()
+        own = (labels >= lo) & (labels < lo + x.shape[-1])
+        idx = torch.where(own, labels - lo, 0)
+        gold = reduce(torch.where(
+            own, torch.gather(xf, -1, idx[..., None])[..., 0], 0.0), "sum")
+        ctx.save_for_backward(xf, lse, idx, own)
+        ctx.dtype = x.dtype
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, lse, idx, own = ctx.saved_tensors
+        grad = (xf - lse[..., None]).exp_().mul_(g[..., None])
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(own, -g, 0.0)[..., None])
+        return grad.to(ctx.dtype), None, None, None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` at every position, in float32
+    or the logits' wider dtype (logits [B, S, V], labels [B, S] -> [B, S]).
+    Under a mesh each rank
+    works on its own rows and its own block of the vocabulary, which
+    stays sharded over ``model`` as the head's product leaves it
+    (:class:`_VocabCE`); a plain tensor is one block of the same code."""
+    logits = hint(logits, DP, None, "model")
+    mesh, dims, lo = None, (), 0
+    if is_distributed(logits):
+        last = logits.dim() - 1
+        dims = tuple(i for i, p in enumerate(logits.placements)
+                     if p.is_shard(last))
+        mesh, lo = logits.device_mesh, autoshard.block(logits)[1][-1]
+    return local_call(
+        lambda x, lb: _VocabCE.apply(x, lb, lo, mesh, dims),
+        (logits, labels), ((DP, None, "model"), (DP, None)), out_of=1)
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
             num_groups: int = 1) -> tuple[torch.Tensor, dict]:
     """Next-token (or provided-labels) cross-entropy + router aux: the mean
     over positions of ``logsumexp(logits) - logits[label]`` in float32, as
-    the reference computes it (no fused cross-entropy). Returns (loss,
+    the reference computes it (no fused cross-entropy), on each rank's own
+    block of the vocabulary (:func:`vocab_cross_entropy`). Returns (loss,
     {"ce", "aux"})."""
     logits, aux = forward(cfg, params, batch, num_groups=num_groups)
     if "labels" in batch:
@@ -376,17 +439,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     else:
         labels = batch["tokens"][:, 1:]
         logits = logits[:, :-1]
-    # the gold gather below wants the vocab whole on each rank (DTensor's
-    # gather over a vocab-sharded dim mis-masks its partial sums)
-    logits = hint(logits, DP, None, None)
     valid = torch.ones_like(labels, dtype=torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    # on each rank's own rows: the gather's backward makes its zeros
-    # there (on a DTensor it makes them at the whole batch's size)
-    gold = local_call(
-        lambda lg, lb: torch.gather(lg, -1, lb[..., None].long())[..., 0],
-        (logits, labels), ((DP, None, None), (DP, None)), out_of=1)
-    ce = ((lse - gold) * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+    ce = ((vocab_cross_entropy(logits, labels) * valid).sum()
+          / torch.clamp_min(valid.sum(), 1.0))
     return ce + aux, {"ce": ce, "aux": aux}
 
 

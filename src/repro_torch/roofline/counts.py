@@ -18,7 +18,9 @@ it then sees), and keeps
   and wire bytes by the ring factors of :func:`wire_factor` on the
   group's size, split by link: NVLink when the group's ranks sit in one
   node of :data:`NODE_GPUS` consecutive ranks, else the network;
-* the live bytes of the tensors the step creates, and their peak.
+* the live bytes of the tensors the step creates, and their peak, with
+  the largest storages live there (the op that made each, its shape and
+  dtype).
 
 A loop runs its body's ops once an iteration, so a layer loop counts
 each layer (what ``hlo_cost``'s trip counts restore for a scan).
@@ -28,6 +30,7 @@ the same counts come out.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import sys
 import weakref
 from collections import defaultdict
@@ -138,6 +141,8 @@ class Counts:
     peak_bytes: int
     ops: dict       # aten op -> [count, flops, traffic bytes]
     hot: dict       # (op, result shape) -> traffic bytes
+    # the largest storages live at the peak: (bytes, op, shape, dtype)
+    peak_live: list = dataclasses.field(default_factory=list)
 
     @property
     def total_wire_bytes(self) -> float:
@@ -164,7 +169,12 @@ class Counts:
 class Recorder(TorchDispatchMode):
     """Counts the aten ops run under it (``with Recorder() as rec: ...``;
     then ``rec.counts()``). Live bytes start at 0: the step's arguments
-    are the caller's to add."""
+    are the caller's to add. The storages live at the peak are taken
+    whenever the peak passes the last taking by :data:`PEAK_STEP`, so
+    they are those of a moment within that share of the peak."""
+
+    PEAK_TOP = 8
+    PEAK_STEP = 0.005
 
     def __init__(self):
         super().__init__()
@@ -177,6 +187,8 @@ class Recorder(TorchDispatchMode):
         self._outside: set = set()
         self.live = 0
         self.peak = 0
+        self._taken = 0
+        self.peak_live: list = []
 
     def exclude(self, tensors) -> None:
         """Leave the storages of ``tensors`` (the step's arguments, whose
@@ -238,9 +250,9 @@ class Recorder(TorchDispatchMode):
             shape = tuple(outs[0].shape) if outs else ()
             self._hot[(key, str(shape))] += moved
         for t in outs:
-            self._track(t)
+            self._track(t, key)
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, op: str) -> None:
         if id(t) in self._seen:
             return
         try:
@@ -251,9 +263,17 @@ class Recorder(TorchDispatchMode):
         if key in self._outside:
             return
         if key not in self._live:
-            self._live[key] = [st.nbytes(), 0]
+            self._live[key] = [st.nbytes(), 0,
+                               (op, tuple(t.shape), str(t.dtype))]
             self.live += st.nbytes()
-            self.peak = max(self.peak, self.live)
+            if self.live > self.peak:
+                self.peak = self.live
+                if self.peak > (1 + self.PEAK_STEP) * self._taken:
+                    self._taken = self.peak
+                    self.peak_live = [
+                        (v[0],) + v[2] for v in heapq.nlargest(
+                            self.PEAK_TOP, self._live.values(),
+                            key=lambda v: v[0])]
         self._live[key][1] += 1
         self._seen.add(id(t))
         weakref.finalize(t, self._free, key, id(t))
@@ -277,4 +297,4 @@ class Recorder(TorchDispatchMode):
             count_by_op={k: v[0] for k, v in self._coll.items()},
             wire_bytes_by_op={k: v[2] for k, v in self._coll.items()},
             wire_bytes_by_link=dict(self._links), peak_bytes=self.peak,
-            ops=ops, hot=dict(self._hot))
+            ops=ops, hot=dict(self._hot), peak_live=list(self.peak_live))

@@ -16,6 +16,11 @@
   queue 3; a training cell that raises even so is recorded); each cell
   records FLOPs, traffic and collectives;
 * a cell that raises is written with ``"status": "fail"``;
+* an olmoe smoke prefill cell needs no more on a fake (pod, data, model)
+  = (2, 4, 2) world than on a flat (4, 2) one: at the expert boundary the
+  dispatch groups stay over ``pod`` (the routing integers and logits of
+  such a mesh are held to the unsharded port on real ranks in
+  ``test_torch_lm_mesh_serve.py``, case ``pod``);
 * the TM cell's slab equals the unsharded cross-validation engine's rows
   bit for bit.
 
@@ -269,6 +274,37 @@ def test_failed_cell_is_written(fake):
     status, error, on_disk = fake["fail"]
     assert status == on_disk == "fail"
     assert "no trace" in error
+
+
+POD_PEAK = textwrap.dedent("""\
+    import json
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import RankMesh
+    cfg = configs.get_smoke_config("olmoe_1b_7b")
+    # short rows, many of them: the expert buffers set the peak
+    shape = ShapeConfig("p", 32, 64, "prefill")
+    out = {}
+    for shp, names in (((4, 2), ("data", "model")),
+                       ((2, 4, 2), ("pod", "data", "model"))):
+        with dryrun.fake_world(int(np.prod(shp))):
+            mesh = RankMesh(shp, names, device="meta")
+            out[len(shp)] = dryrun.trace_cell(cfg, shape,
+                                              mesh)["counts"].peak_bytes
+    print(json.dumps(out))
+""")
+
+
+def test_moe_prefill_needs_no_more_on_the_pod_mesh():
+    """Serving puts the experts over ``data``; the groups, over pod x data
+    before the boundary, keep ``pod`` after it. Before, they went whole
+    there, and DTensor gathered every group's buffers [G, E, C, D] on
+    each rank to cut the experts (1.55x the flat world's peak here; about
+    10x at the production meshes' data = 16)."""
+    got = _run(POD_PEAK)
+    assert got["3"] <= got["2"], got
 
 
 def test_all_cells_cover_every_arch_shape_and_the_tm_cell():

@@ -10,12 +10,17 @@ super-block under the mesh), gemma3_1b (one kv head: the heads' rule falls back 
 replication) and olmoe_1b_7b (experts over model; the dispatch groups
 are the data group size, and the unsharded runs use as many). The ranks
 run ``tests/torch_lm_mesh_ranks.py`` (one spawn an arch, 120 s at most,
-every rank's error reported) and send back rank 0's gathered state.
+every rank's error reported) and send back rank 0's gathered state. The
+spawns start in two waves (the dense and MoE archs with ``misc``, then
+the block archs), and each holds 4 of the host's rank slots
+(``torch_lm_mesh_ranks.rank_slots``, shared with
+``test_torch_lm_mesh_serve.py``) while it runs.
 
 Tolerances:
 * the loss on meshes (2, 2), (4, 1) and (1, 4) (each case's first
   step): within 1e-5 relative of the unsharded port's and of the
-  reference's;
+  reference's; the logits reach the vocabulary-parallel cross-entropy
+  sharded over ``model``, each rank's block V / model wide;
 * 3 AdamW steps, plain on (2, 2), two microbatches on (4, 1), int8
   compression on (1, 4): parameters, moments and residual within 1e-4 of
   each leaf's range of the unsharded port's after every step, with
@@ -87,39 +92,52 @@ STAGED = {"olmoe_1b_7b"}
 
 def _spawn(arch, ckpt_dir):
     try:
-        if arch == "misc":
-            return ranks.spawn(ranks_mod.misc, 4, (ckpt_dir,), device="cpu",
-                               timeout_s=120, staged=True)
-        _, prm, batches = _inputs(arch)
-        plan = ({"train": [("adamw", BLOCK_MESH[arch])], "reshard": []}
-                if arch in BLOCK_MESH else PLAN)
-        # the block archs' spawns share the cores with the others: a
-        # longer limit (it only guards against a hang)
-        return ranks.spawn(ranks_mod.run, 4, (arch, prm, batches, plan,
-                                              ckpt_dir),
-                           device="cpu",
-                           timeout_s=300 if arch in BLOCK_ARCHS else 120,
-                           staged=arch in STAGED)[0]
+        with ranks_mod.rank_slots(4):
+            if arch == "misc":
+                return ranks.spawn(ranks_mod.misc, 4, (ckpt_dir,),
+                                   device="cpu", timeout_s=120, staged=True)
+            _, prm, batches = _inputs(arch)
+            plan = ({"train": [("adamw", BLOCK_MESH[arch])], "reshard": []}
+                    if arch in BLOCK_MESH else PLAN)
+            # the block archs' steps are the longest: a longer limit (it
+            # only guards against a hang)
+            return ranks.spawn(ranks_mod.run, 4, (arch, prm, batches, plan,
+                                                  ckpt_dir),
+                               device="cpu",
+                               timeout_s=300 if arch in BLOCK_ARCHS else 120,
+                               staged=arch in STAGED)[0]
     except RuntimeError as e:
         return e
 
 
+# the spawns in waves: the dense and MoE archs and ``misc`` first, then
+# the block archs, so that no wave puts more ranks on the cores than the
+# first did
+WAVES = (ARCHS + ["misc"], BLOCK_ARCHS)
+
+
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    """Every arch's 4 ranks, and the ``misc`` ranks, the spawns at once
-    (each its own 120 s limit): {arch: (checkpoint dir, rank 0's results
-    or the error)}."""
+    """Every arch's 4 ranks, and the ``misc`` ranks, in :data:`WAVES` (a
+    wave's spawns at once, each its own limit, each holding its rank
+    slots): {arch: (checkpoint dir, rank 0's results or the error)}."""
     root = tmp_path_factory.mktemp("lm_mesh")
-    names = ARCHS + BLOCK_ARCHS + ["misc"]
-    with ThreadPoolExecutor(len(names)) as pool:
-        futures = {a: pool.submit(_spawn, a, str(root / a)) for a in names}
-        return {a: (root / a, f.result()) for a, f in futures.items()}
+    out = {}
+    for wave in WAVES:
+        with ThreadPoolExecutor(len(wave)) as pool:
+            futures = {a: pool.submit(_spawn, a, str(root / a))
+                       for a in wave}
+            out.update({a: (root / a, f.result())
+                        for a, f in futures.items()})
+    return out
 
 
 def _run(arch, sharded):
+    """Rank 0's results, or the spawn's error (every rank's traceback, or
+    the ranks that gave no result in time) raised in the test."""
     got = sharded[arch][1]
     if isinstance(got, Exception):
-        raise got
+        raise RuntimeError(f"{arch}'s ranks failed: {got}") from got
     return got
 
 
@@ -202,6 +220,24 @@ def test_sharded_loss_matches_unsharded_and_reference(arch, sharded):
         for other, name in ((want, "port"), (ref, "ref")):
             err = abs(got - other) / abs(other)
             assert err <= LOSS_TOL, f"{arch} {shape} vs {name}: {err:.2e}"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_takes_the_logits_vocab_sharded(arch, sharded):
+    """The logits reach the cross-entropy as the head's product leaves
+    them, the vocabulary over ``model`` (nothing gathers it whole): each
+    rank's block is V / model wide on (2, 2) and (1, 4), and whole on
+    (4, 1)."""
+    got = _run(arch, sharded)["loss_logits"]
+    V = configs.get_smoke_config(arch).vocab_size
+    for _, shape in PLAN["train"]:
+        placements, local = got[shape]
+        model = shape[1]
+        assert local[-1] == V // model, (shape, local, V)
+        if model > 1:
+            assert placements.endswith("Shard(dim=2))"), (shape, placements)
+        else:
+            assert "Shard(dim=2)" not in placements, (shape, placements)
 
 
 @pytest.mark.parametrize("arch,case", [(a, c) for a in ARCHS

@@ -18,7 +18,10 @@ given tokens decoded, in three cases:
   without sequence parallelism (a global batch of 16);
 * ``long``: (1, 4), a 4096-slot cache (its sequence over ``model``, the
   partial-softmax decode), the SP decode policy (batch 4 < 16);
-* ``sp``: (2, 2), 4096 slots, the SP decode policy.
+* ``sp``: (2, 2), 4096 slots, the SP decode policy;
+* ``pod`` (olmoe alone): (pod, data, model) = (2, 2, 1), a 32-slot
+  cache, the dispatch groups over pod x data and the experts over data:
+  the groups stay over ``pod`` at the expert boundary.
 
 Tolerances: logits within 1e-4 of max |ref| against the unsharded port
 and the reference (and the reference's sharded cells); greedy tokens
@@ -52,6 +55,7 @@ import pytest
 import torch
 
 import torch_lm_mesh_serve_ranks as ranks_mod
+from torch_lm_mesh_ranks import rank_slots
 from repro import configs as rconfigs
 from repro.models import transformer as RT
 from repro_torch import tree as T
@@ -63,6 +67,8 @@ ARCHS = ["granite_8b", "gemma3_1b", "olmoe_1b_7b", "mamba2_780m",
          "recurrentgemma_9b", "llama32_vision_11b"]
 PLAN = {"short": ((2, 2), 32, 16), "long": ((1, 4), 4096, 4),
         "sp": ((2, 2), 4096, 4)}
+# olmoe also serves on a mesh with a pod axis
+POD_PLAN = {"pod": ((2, 2, 1), 32, 16)}
 B, S, NEW = 4, 8, 4
 TOL = 1e-4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,12 +95,19 @@ def _inputs(arch):
     return rc, prm, prompt, new, extra
 
 
+def _plan(arch) -> dict:
+    return {**PLAN, **POD_PLAN} if arch == "olmoe_1b_7b" else PLAN
+
+
 def _spawn(arch):
     _, prm, prompt, new, extra = _inputs(arch)
     try:
-        return ranks.spawn(ranks_mod.serve, 4, (arch, _kw(arch), prm, prompt,
-                                                new, PLAN, extra),
-                           device="cpu", timeout_s=300)[0]
+        # 4 of the host's rank slots (shared with test_torch_lm_mesh.py)
+        with rank_slots(4):
+            return ranks.spawn(ranks_mod.serve, 4,
+                               (arch, _kw(arch), prm, prompt, new,
+                                _plan(arch), extra),
+                               device="cpu", timeout_s=300)[0]
     except RuntimeError as e:
         return e
 
@@ -179,7 +192,7 @@ def sharded(tmp_path_factory):
 def _got(arch, sharded):
     got = sharded[arch]
     if isinstance(got, Exception):
-        raise got
+        raise RuntimeError(f"{arch}'s ranks failed: {got}") from got
     return got
 
 
@@ -189,8 +202,8 @@ def _unsharded(arch, case):
     every step, the cache after the last, the first MoE routing)."""
     rc, prm, prompt, new, extra = _inputs(arch)
     cfg = ranks_mod.config(arch, _kw(arch))
-    shape, max_seq, _ = PLAN[case]
-    groups = shape[0] if cfg.moe is not None else 1
+    shape, max_seq, _ = _plan(arch)[case]
+    groups = int(np.prod(shape[:-1])) if cfg.moe is not None else 1
     params = T.map(torch.tensor, prm)
     batch = {"tokens": torch.tensor(prompt)}
     batch.update({k: torch.tensor(v) for k, v in (extra or {}).items()})
@@ -304,6 +317,23 @@ def test_moe_routing_integers_equal(case, sharded):
     assert got is not None and want is not None
     for g, w, name in zip(got, want, ("expert_idx", "pos", "keep")):
         assert np.array_equal(g, w), (case, name)
+
+
+def test_moe_pod_mesh_matches_unsharded_port_and_reference(sharded):
+    """olmoe on (pod, data, model) = (2, 2, 1): the routing integers
+    equal to the unsharded port's at the same 4 groups, the logits of
+    the prefill and every decode step within 1e-4 of max |ref| of the
+    unsharded port's and of the reference's, greedy tokens as above."""
+    got = _got("olmoe_1b_7b", sharded)["pod"]
+    want, _, routing = _unsharded("olmoe_1b_7b", "pod")
+    for g, w, name in zip(got["routing"], routing,
+                          ("expert_idx", "pos", "keep")):
+        assert np.array_equal(g, w), name
+    ref = _reference("olmoe_1b_7b", POD_PLAN["pod"][1])
+    for other, what in ((want, "port"), (ref, "reference")):
+        for i, (g, w) in enumerate(zip(got["logits"], other)):
+            assert _rel(g, w) <= TOL, f"pod step {i} vs {what}"
+        _tokens_match(got["logits"], other, f"pod vs {what}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

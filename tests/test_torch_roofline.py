@@ -105,6 +105,9 @@ def test_recorder_counts_local_ops():
     assert got.traffic_bytes == 272.0 + 96.0
     # c and d alive together at the peak; the arguments left out
     assert got.peak_bytes == 96 and rec.live == 48
+    assert sorted(got.peak_live) == [
+        (48, "aten.add", (12,), "torch.float32"),
+        (48, "aten.mm", (4, 3), "torch.float32")]
     del d
     assert rec.live == 0
 

@@ -2,8 +2,18 @@
 ranks runs (``repro_torch.launch.ranks.spawn`` imports this module in
 every child; it imports no JAX). The test process builds the parameters
 and batches with numpy and compares what rank 0 sends back with the
-unsharded port and the reference."""
+unsharded port and the reference.
+
+:func:`rank_slots` caps the ranks that the LM mesh test files
+(``test_torch_lm_mesh.py``, ``test_torch_lm_mesh_serve.py``) run at once
+on the host, whichever pytest workers start them."""
+import contextlib
 import dataclasses
+import fcntl
+import os
+import random
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -23,6 +33,56 @@ NAMES = ("data", "model")
 # granite's runs rematerialise (the backward recomputes each super-block
 # under the mesh's hints), the others keep their smoke config's "none"
 REMAT = {"granite_8b": "dots"}
+# the most ranks the two LM mesh test files run at once on one host: four
+# spawns of 4 (one rank a core on 8 cores would starve the other workers;
+# a spawn's own limit only starts once it holds its slots)
+RANK_CAP = 16
+
+
+def _slot_path(name: str) -> str:
+    return os.path.join(tempfile.gettempdir(),
+                        f"repro_torch_lm_mesh_{name}.lock")
+
+
+def _take(n: int) -> list:
+    """``n`` free slot files, locked, or [] (none kept) when fewer are
+    free."""
+    held = []
+    for i in range(RANK_CAP):
+        f = open(_slot_path(f"rank{i}"), "a")
+        try:
+            fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            f.close()
+            continue
+        held.append(f)
+        if len(held) == n:
+            return held
+    for f in held:
+        f.close()
+    return []
+
+
+@contextlib.contextmanager
+def rank_slots(n: int):
+    """Hold ``n`` of the host's :data:`RANK_CAP` rank slots while the block
+    runs, waiting until they are free. A slot is a lock file in the temp
+    directory held with ``flock`` (the kernel drops it when its holder
+    exits, however it ends); a gate file makes each taking of ``n`` slots
+    all or nothing."""
+    assert 0 < n <= RANK_CAP, n
+    held: list = []
+    while not held:
+        with open(_slot_path("gate"), "a") as gate:
+            fcntl.flock(gate, fcntl.LOCK_EX)
+            held = _take(n)
+        if not held:
+            time.sleep(0.2 + 0.3 * random.random())
+    try:
+        yield
+    finally:
+        for f in held:
+            f.close()
 
 
 def config(arch):
@@ -67,9 +127,11 @@ def run(rank, world, arch, prm, batches, plan, ckpt_dir, device="cpu"):
     it, checks it bitwise against the saved state and takes step 4.
     Returns (rank 0): {"train": {case: [(state, metrics) after each
     step]}, "reshard": {shape: state after step 4}, "local": {shape:
-    local elements of the parameters}}."""
+    local elements of the parameters}, "loss_logits": {shape: (the
+    logits' placements as the loss gets them, the local shape of the
+    block its cross-entropy runs on) at the first step}}."""
     cfg = config(arch)
-    out = {"train": {}, "reshard": {}, "local": {}}
+    out = {"train": {}, "reshard": {}, "local": {}, "loss_logits": {}}
     saved = None
     for i, (case, shape) in enumerate(plan["train"]):
         mesh = RankMesh(shape, NAMES, device=device)
@@ -81,8 +143,11 @@ def run(rank, world, arch, prm, batches, plan, ckpt_dir, device="cpu"):
         out["local"][shape] = shd.local_numel(state.params)
         steps = []
         for k in range(3):
-            state, m = TS.train_step(cfg, tc, state, batches[k],
-                                     donate=bool(k % 2))
+            with _loss_spy() if k == 0 else contextlib.nullcontext() as seen:
+                state, m = TS.train_step(cfg, tc, state, batches[k],
+                                         donate=bool(k % 2))
+            if seen:
+                out["loss_logits"][shape] = seen[0]
             _check_local_shapes(state, sh)
             steps.append((host(state), {key: float(v) for key, v
                                         in m.items()}))
@@ -108,6 +173,32 @@ def run(rank, world, arch, prm, batches, plan, ckpt_dir, device="cpu"):
         out["reshard"][shape] = host(state)
     out["staged"] = collectives.staged_counts()
     return out if rank == 0 else None
+
+
+@contextlib.contextmanager
+def _loss_spy():
+    """Yields a list that gets, for each ``vocab_cross_entropy`` call made
+    inside, (the logits' placements, or None for a plain tensor, and the
+    local shape of the block ``_VocabCE`` computes on)."""
+    seen, placed = [], []
+    entry, block = transformer.vocab_cross_entropy, transformer._VocabCE.apply
+
+    def vocab_ce(logits, labels):
+        placed.append(str(tuple(logits.placements))
+                      if hasattr(logits, "placements") else None)
+        return entry(logits, labels)
+
+    def apply(x, *rest):
+        seen.append((placed[len(seen)], tuple(x.shape)))
+        return block(x, *rest)
+
+    transformer.vocab_cross_entropy = vocab_ce
+    transformer._VocabCE.apply = staticmethod(apply)
+    try:
+        yield seen
+    finally:
+        transformer.vocab_cross_entropy = entry
+        del transformer._VocabCE.apply   # back to Function.apply
 
 
 def misc(rank, world, ckpt_dir, device="cpu"):

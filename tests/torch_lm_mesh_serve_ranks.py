@@ -32,7 +32,8 @@ def config(arch, cfg_kw):
 
 def serve(rank, world, arch, cfg_kw, prm, prompt, new_tokens, plan,
           extra=None, device="cpu"):
-    """``plan``: {case: (mesh shape, max_seq, decode global batch)}: on
+    """``plan``: {case: (mesh shape, max_seq, decode global batch)} (a
+    3-dim shape is (pod, data, model)): on
     each mesh, ``build_cell``'s prefill (the prompt into a ``max_seq``
     cache laid out by ``cache_shardings``) and then its decode cell for
     each of ``new_tokens``' columns. ``extra``: the prompt batch's other
@@ -44,7 +45,8 @@ def serve(rank, world, arch, cfg_kw, prm, prompt, new_tokens, plan,
     B, S = prompt.shape
     out = {}
     for case, (shape, max_seq, dec_batch) in plan.items():
-        mesh = RankMesh(shape, NAMES, device=device)
+        names = NAMES if len(shape) == 2 else ("pod",) + NAMES
+        mesh = RankMesh(shape, names, device=device)
         pre = ShapeConfig(case, max_seq, B, "prefill")
         dec = ShapeConfig(case, max_seq, dec_batch, "decode")
         params = dict(prm)
