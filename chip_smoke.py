@@ -180,7 +180,15 @@ Phases, each with its seconds:
    8 bf16 AdamW steps of each at 5 layers (step ms, tokens/s, peak
    memory, a 2-step profile). The CROSS gates and the RG-LRU's
    constant-init biases and Lambda are drawn off their inits in every
-   check. Then ``lm_mesh`` (``phase_lm_mesh``; no CUDA kernel of its
+   check. Then ``lm_attention_memory`` (``phase_lm_attention_memory``;
+   no CUDA kernel of its own): one layer's attention at full width, B =
+   2, S = 4096: the vlm's CROSS attention over its 1601 image tokens in
+   query blocks against the dense path (bf16 and float32: output and
+   gradients within the LM tolerances, each path's memory increment and
+   ms), and granite-8b's streaming attention bit for bit against the
+   frozen out-of-place code of ``tests/test_torch_lm_attention_memory.py``
+   (bf16 with and without a window, float32), both codes' increments and
+   ms. Then ``lm_mesh`` (``phase_lm_mesh``; no CUDA kernel of its
    own): 4 ``torch.distributed`` ranks, on one card over the staged
    backend (a card a rank with NCCL where there are 4), train gemma3-1b
    at full width, 6 of 26 layers, B = 4 x 1024, laid out over a (2, 2)
@@ -4971,6 +4979,151 @@ def phase_lm_rglru_cross_train(torch, np):
                    label="lm_rglru_cross_train")
 
 
+LMA_B, LMA_S = 2, 4096          # one layer's attention at full width
+LMA_FLASH_ARCH = "granite_8b"   # 32 query heads over 8 kv heads of 128
+LMA_CROSS_ARCH = "llama32_vision_11b"   # the same heads, N = 1601 keys
+LMA_WINDOW = 1000               # a window whose rows' first chunks go dead
+# the increment predicted for each path over one forward and backward
+# of the bf16 CROSS attention, GB (PERF.md §6)
+LMA_CROSS_DENSE_GB, LMA_CROSS_BLOCKED_GB = 5.0, 1.0
+LMA_TOL = {"float32": LM_TOL, "bfloat16": 3e-2}
+
+
+def _lma_oracle():
+    """The frozen out-of-place streaming attention, ``_OracleFlash``, that
+    ``tests/test_torch_lm_attention_memory.py`` holds ``layers._Flash``
+    to (that file imports no JAX)."""
+    import importlib.util
+
+    path = ROOT / "tests" / "test_torch_lm_attention_memory.py"
+    spec = importlib.util.spec_from_file_location("lma_oracle", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._OracleFlash
+
+
+def _lma_pass(torch, fn, xs, do):
+    """One forward and backward of ``fn`` on leaf copies of ``xs``: (out,
+    dq, dk, dv), the increment of ``max_memory_allocated`` over what was
+    allocated before it (its outputs included) in GB, and the median ms
+    of 5 more (CUDA events)."""
+    leaves = [x.detach().clone().requires_grad_() for x in xs]
+
+    def once():
+        out = fn(*leaves)
+        return (out.detach(), *torch.autograd.grad(out, leaves, do))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = once()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return got, peak, _events_ms(torch, once)
+
+
+def _lma_inputs(torch, cfg, T: int, dtype, seed: int):
+    """q [B, S, Hq, D], k and v [B, T, Hkv, D] and a cotangent like q,
+    standard normal from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    return (draw(LMA_B, LMA_S, hq, dh), draw(LMA_B, T, hkv, dh),
+            draw(LMA_B, T, hkv, dh), draw(LMA_B, LMA_S, hq, dh))
+
+
+def phase_lm_attention_memory(torch, np):
+    """The train step's attention in block-sized memory, one layer's
+    attention at full width, B = 2, S = 4096 (plain PyTorch ops):
+
+    * the vlm's CROSS attention over its N = 1601 image tokens (32 heads
+      over 8 kv heads of 128, attn_chunk 512), bf16 and float32: the query
+      blocks (``layers._CrossBlocks``) against the dense path
+      (``_gqa_scores_out`` under autograd) on the same inputs, the output
+      and dq, dk, dv within LMA_TOL of max |dense| (the largest
+      differences printed), and each path's memory increment over one
+      forward and backward and its ms;
+    * granite-8b's streaming attention (``layers._Flash``, the same heads,
+      chunk 512), bf16 (no window, and window LMA_WINDOW) and float32:
+      the output and dq, dk, dv equal bit for bit to the frozen
+      out-of-place code's, and both codes' increments and ms beside the
+      block sizes (the new code: at most two float32 blocks of [B, Hkv,
+      G, S, chunk] and one bf16 block live)."""
+    from repro_torch import configs
+    from repro_torch.models import layers
+
+    smi = _smi()
+    cross_cfg = configs.get_config(LMA_CROSS_ARCH)
+    N = cross_cfg.n_cross_tokens
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(cross_cfg, compute_dtype=dtype)
+        td = layers._DTYPES[dtype]
+        q, k, v, do = _lma_inputs(torch, cfg, N, td, SEED)
+        mask = torch.zeros((1, 1, LMA_S, N), device="cuda")
+        blocked, b_gb, b_ms = _lma_pass(
+            torch, lambda *a: layers._CrossBlocks.apply(*a, cfg),
+            (q, k, v), do)
+        dense, d_gb, d_ms = _lma_pass(
+            torch, lambda *a: layers._gqa_scores_out(cfg, *a, mask),
+            (q, k, v), do)
+        errs = []
+        for name, got, want in zip(("out", "dq", "dk", "dv"), blocked,
+                                   dense):
+            check(got.dtype == td and bool(torch.isfinite(got).all()),
+                  f"lm_attention_memory CROSS {dtype} {name}: not finite")
+            err = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+            check(err <= LMA_TOL[dtype], f"lm_attention_memory CROSS "
+                  f"{dtype} {name}: {err:.3e} > {LMA_TOL[dtype]}")
+            errs.append(f"{name} {err:.3e}")
+        check(b_gb < d_gb / 4, f"lm_attention_memory CROSS {dtype}: the "
+              f"blocks took {b_gb:.3f} GB, the dense path {d_gb:.3f}")
+        print(f"lm_attention_memory CROSS {dtype} B = {LMA_B}, S = {LMA_S}, "
+              f"N = {N}, blocks of {cfg.attn_chunk}: blocked vs dense max|d| "
+              f"/ max|dense| {', '.join(errs)}; increment over forward + "
+              f"backward: blocked {b_gb:.4f} GB, dense {d_gb:.4f} GB "
+              f"(predicted at bf16: under {LMA_CROSS_BLOCKED_GB} / about "
+              f"{LMA_CROSS_DENSE_GB}); ms: blocked {b_ms:.3f}, dense "
+              f"{d_ms:.3f} ({smi})", flush=True)
+        del q, k, v, do, mask, blocked, dense
+
+    oracle = _lma_oracle()
+    flash_cfg = configs.get_config(LMA_FLASH_ARCH)
+    chunk = flash_cfg.attn_chunk
+    for dtype, window in (("bfloat16", None), ("bfloat16", LMA_WINDOW),
+                          ("float32", None)):
+        td = layers._DTYPES[dtype]
+        q, k, v, do = _lma_inputs(torch, flash_cfg, LMA_S, td, SEED + 1)
+        new, n_gb, n_ms = _lma_pass(
+            torch, lambda *a: layers._Flash.apply(*a, window, chunk),
+            (q, k, v), do)
+        old, o_gb, o_ms = _lma_pass(
+            torch, lambda *a: oracle.apply(*a, window, chunk), (q, k, v), do)
+        for name, got, want in zip(("out", "dq", "dk", "dv"), new, old):
+            check(bool(torch.isfinite(got).all()),
+                  f"lm_attention_memory flash {dtype} {name}: not finite")
+            check(torch.equal(got, want), f"lm_attention_memory flash "
+                  f"{dtype} window {window} {name}: not bitwise the "
+                  f"out-of-place code's (max|d| "
+                  f"{(got.float() - want.float()).abs().max().item():.3e})")
+        check(n_gb < o_gb, f"lm_attention_memory flash {dtype}: in place "
+              f"{n_gb:.3f} GB, out of place {o_gb:.3f}")
+        blk = LMA_B * flash_cfg.n_heads * LMA_S * chunk
+        print(f"lm_attention_memory flash {dtype} window {window} B = "
+              f"{LMA_B}, S = {LMA_S}, chunk {chunk}: out, dq, dk, dv bitwise "
+              f"the out-of-place code's; increment over forward + backward: "
+              f"in place {n_gb:.4f} GB, out of place {o_gb:.4f} GB (a "
+              f"float32 block {blk * 4 / 1e9:.4f} GB, a {dtype} block "
+              f"{blk * td.itemsize / 1e9:.4f} GB); ms: in place {n_ms:.3f}, "
+              f"out of place {o_ms:.3f} ({smi})", flush=True)
+        del q, k, v, do, new, old
+    torch.cuda.empty_cache()
+
+
 LMM_ARCH = "gemma3_1b"
 LMM_LAYERS = 6                  # one super-block of gemma3-1b's 26 layers
 LMM_B, LMM_S = 4, 1024
@@ -6016,6 +6169,7 @@ def main() -> int:
     timed("lm_moe_ssd_train", phase_lm_moe_ssd_train, torch, np)
     timed("lm_rglru_cross", phase_lm_rglru_cross, torch, np)
     timed("lm_rglru_cross_train", phase_lm_rglru_cross_train, torch, np)
+    timed("lm_attention_memory", phase_lm_attention_memory, torch, np)
     timed("lm_mesh", phase_lm_mesh, torch, np, smi)
     timed("lm_mesh_serve", phase_lm_mesh_serve, torch, np, ce, fb, smi)
     timed("profile", phase_profile, torch, np)

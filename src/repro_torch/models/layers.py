@@ -10,7 +10,9 @@ function of the same name. Attention comes in three temporal modes here:
 * single-token decode against a KV cache, written in place;
 * cross-attention over stub modality embeddings (vlm), flamingo-style
   gated: :func:`cross_attention`, and :func:`cross_attend` for keys and
-  values already projected (a prefill's, or the decode cache's).
+  values already projected (a prefill's, or the decode cache's); above
+  ``cfg.attn_chunk`` queries they run in query blocks
+  (:class:`_CrossBlocks`).
 
 Numerics follow the reference: parameters in their own dtype, products in
 ``cfg.compute_dtype``, softmax and norms in float32 (``acc_dtype``: float64
@@ -260,18 +262,25 @@ def _flash_fwd_impl(q, k, v, window: Optional[int], chunk: int):
     for j in range(S // chunk):
         kj = k[:, j * chunk:(j + 1) * chunk]
         vj = v[:, j * chunk:(j + 1) * chunk]
+        # one float32 [B, hkv, g, S, chunk] block, overwritten in place:
+        # the scores, the masked scores, then the probabilities
         s = torch.einsum("bskgd,btkd->bkgst", qg, kj).to(f)
-        s = s * scale
         ok = _chunk_mask(S, j, chunk, window, dev)
-        s = torch.where(ok, s, -torch.inf)
+        s.mul_(scale).masked_fill_(~ok, -torch.inf)
 
         m_new = torch.maximum(m, s.amax(dim=-1))
         live = ~torch.isinf(m_new)   # fully-masked prefix guard (window warmup)
-        p = torch.where(live[..., None], torch.exp(s - m_new[..., None]), 0.0)
+        p = s.sub_(m_new[..., None]).exp_().masked_fill_(~live[..., None], 0.0)
         r = torch.where(live & ~torch.isinf(m), torch.exp(m - m_new), 0.0)
-        l = l * r + p.sum(dim=-1)
-        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(cd), vj)
-        acc = acc * r[..., None] + pv.to(f)
+        l.mul_(r).add_(p.sum(dim=-1))
+        pc = p.to(cd)
+        # each block is freed as soon as it is read: the float32 one
+        # before the product, none left when the next scores are made
+        del s, p
+        pv = torch.einsum("bkgst,btkd->bkgsd", pc, vj)
+        del pc
+        acc.mul_(r[..., None]).add_(pv.to(f))
+        del pv
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     lse = m + torch.log(torch.clamp_min(l, 1e-30))
@@ -290,7 +299,13 @@ class _Flash(torch.autograd.Function):
     would keep every chunk's tiles, and in the rows whose first chunks are
     all masked (a LOCAL layer's window warm-up) the discarded branch
     ``exp(-inf - -inf)`` is NaN, whose gradient 0 * NaN only the mask's
-    ``where`` stops."""
+    ``where`` stops.
+
+    Both directions overwrite each chunk's blocks in place, as the
+    reference's ``lax.scan`` step reuses its buffers: the forward holds
+    one float32 [B, Hkv, G, S, chunk] block and one compute-dtype block,
+    the backward at most two float32 blocks, one compute-dtype block and
+    one float32 dq; the values are the out-of-place ops' bit for bit."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: Optional[int], chunk: int):
@@ -317,23 +332,29 @@ class _Flash(torch.autograd.Function):
         Drow = torch.einsum("bskgd,bskgd->bkgs", dog.to(f), og.to(f))
 
         dq = torch.zeros((B, S, hkv, g, D), dtype=f, device=dev)
-        dks, dvs = [], []
+        dk = torch.empty((B, S, hkv, D), dtype=cd, device=dev)
+        dv = torch.empty((B, S, hkv, D), dtype=cd, device=dev)
         for j in range(S // chunk):
-            kj = k[:, j * chunk:(j + 1) * chunk]
-            vj = v[:, j * chunk:(j + 1) * chunk]
-            s = torch.einsum("bskgd,btkd->bkgst", qg, kj).to(f)
-            s = s * scale
+            sl = slice(j * chunk, (j + 1) * chunk)
+            kj, vj = k[:, sl], v[:, sl]
+            # at most two float32 [B, hkv, g, S, chunk] blocks (p, then dp
+            # turned into ds in place) and one compute-dtype block live
+            p = torch.einsum("bskgd,btkd->bkgst", qg, kj).to(f)
             ok = _chunk_mask(S, j, chunk, window, dev)
-            p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
-            dvs.append(torch.einsum("bkgst,bskgd->btkd", p.to(cd), dog))
-            dp = torch.einsum("bskgd,btkd->bkgst", dog, vj).to(f)
-            ds = p * (dp - Drow[..., None]) * scale
-            dq = dq + torch.einsum("bkgst,btkd->bskgd", ds.to(cd), kj).to(f)
-            dks.append(torch.einsum("bkgst,bskgd->btkd", ds.to(cd), qg))
-        dk = torch.cat(dks, dim=1)
-        dv = torch.cat(dvs, dim=1)
-        return (dq.to(cd).reshape(B, S, hq, D), dk.to(cd), dv.to(cd), None,
-                None)
+            p.mul_(scale).sub_(lse[..., None]).exp_().masked_fill_(~ok, 0.0)
+            pc = p.to(cd)
+            dv[:, sl] = torch.einsum("bkgst,bskgd->btkd", pc, dog)
+            del pc
+            ds = torch.einsum("bskgd,btkd->bkgst", dog, vj).to(f)
+            # p * (dp - Drow) * scale: IEEE products commute
+            ds.sub_(Drow[..., None]).mul_(p).mul_(scale)
+            del p
+            dsc = ds.to(cd)
+            del ds
+            dq.add_(torch.einsum("bkgst,btkd->bskgd", dsc, kj).to(f))
+            dk[:, sl] = torch.einsum("bkgst,bskgd->btkd", dsc, qg)
+            del dsc
+        return dq.to(cd).reshape(B, S, hq, D), dk, dv, None, None
 
 
 def gqa_attention(cfg, q, k, v, *, window: Optional[int]):
@@ -596,17 +617,88 @@ def attend_cache(cfg, q, ck, cv, ok: torch.Tensor) -> torch.Tensor:
     return autoshard.hint(out, autoshard.DP, None, "model", None)
 
 
+class _CrossBlocks(torch.autograd.Function):
+    """Attention with no mask (a zero one), the queries ``cfg.attn_chunk``
+    rows at a time (the last block shorter where that does not divide S).
+    Each block runs :func:`_gqa_scores_out`'s ops, so each output row is
+    the dense path's; no [S, N] score tensor is ever whole, and only q, k
+    and v are saved. The backward recomputes each block's softmax and
+    applies the chain rule autograd applies to the dense path (the
+    weighted sum's product, the casts, ``_softmax_backward_data``, the
+    division, the scores' product), summing dk and dv over the blocks in
+    the accumulation dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg: ModelConfig):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = cfg
+        bs = cfg.attn_chunk
+        mask = _cross_mask(q, k, bs)
+        out = torch.empty_like(q)
+        for i in range(0, q.shape[1], bs):
+            qi = q[:, i:i + bs]
+            out[:, i:i + bs] = _gqa_scores_out(cfg, qi, k, v,
+                                               mask[:, :, :qi.shape[1]])
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        bs = ctx.cfg.attn_chunk
+        B, S, hq, D = q.shape
+        hkv = k.shape[2]
+        g = hq // hkv
+        cd, dev = q.dtype, q.device
+        acc = acc_dtype(cd)
+        root = torch.sqrt(_scalar(D, acc, dev))
+        mask = _cross_mask(q, k, bs)
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=acc, device=dev)
+        dv = torch.zeros(v.shape, dtype=acc, device=dev)
+        for i in range(0, S, bs):
+            n = min(bs, S - i)
+            qg = q[:, i:i + n].reshape(B, n, hkv, g, D)
+            dog = do[:, i:i + n].reshape(B, n, hkv, g, D)
+            s = torch.einsum("bskgd,btkd->bkgst", qg, k).to(acc)
+            s.div_(root).add_(mask[:, :, None, :n])
+            w = torch.softmax(s, dim=-1)
+            del s
+            wc = w.to(cd)
+            dv.add_(torch.einsum("bkgst,bskgd->btkd", wc, dog).to(acc))
+            del wc
+            dw = torch.einsum("bskgd,btkd->bkgst", dog, v).to(acc)
+            ds = torch._softmax_backward_data(dw, w, -1, acc)
+            del dw, w
+            dsc = ds.div_(root).to(cd)
+            del ds
+            dq[:, i:i + n] = torch.einsum("bkgst,btkd->bskgd", dsc,
+                                          k).reshape(B, n, hq, D)
+            dk.add_(torch.einsum("bkgst,bskgd->btkd", dsc, qg).to(acc))
+            del dsc
+        return dq, dk.to(cd), dv.to(cd), None
+
+
+def _cross_mask(q, k, rows: int) -> torch.Tensor:
+    """The zero additive mask [1, 1, rows, N] of a block of queries."""
+    return torch.zeros((1, 1, min(rows, q.shape[1]), k.shape[1]), dtype=_F32,
+                       device=q.device)
+
+
 def cross_attend(cfg: ModelConfig, p: dict, x: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The gated cross-attention of queries from ``x`` [B, S, D] over
     projected keys and values [B, N, Hkv, D]: no rope, no mask (a zero
-    one), then ``wo`` and ``* tanh(gate)``."""
+    one), then ``wo`` and ``* tanh(gate)``. Above ``cfg.attn_chunk``
+    queries (training, prefill) the scores run in query blocks
+    (:class:`_CrossBlocks`); a decode step's one query, and any S up to
+    the chunk, take the dense path."""
     cd = compute_dtype(cfg)
 
     def core(q, k, v):
-        mask = torch.zeros((1, 1, q.shape[1], k.shape[1]), dtype=_F32,
-                           device=q.device)
-        return _gqa_scores_out(cfg, q, k.to(cd), v.to(cd), mask)
+        if q.shape[1] > cfg.attn_chunk:
+            return _CrossBlocks.apply(q, k.to(cd), v.to(cd), cfg)
+        return _gqa_scores_out(cfg, q, k.to(cd), v.to(cd),
+                               _cross_mask(q, k, q.shape[1]))
 
     out = attend_local(core, _project_q(cfg, p, x), k, v)
     return _dot(out, p["wo"].to(cd), 2) * torch.tanh(p["gate"].to(cd))

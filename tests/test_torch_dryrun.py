@@ -27,6 +27,7 @@
 Everything that starts a fake process group or sets ``XLA_FLAGS`` runs in
 a subprocess.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -305,6 +306,53 @@ def test_moe_prefill_needs_no_more_on_the_pod_mesh():
     10x at the production meshes' data = 16)."""
     got = _run(POD_PEAK)
     assert got["3"] <= got["2"], got
+
+
+def _train_peak_live(chunk: int, n_cross: int, S: int) -> list:
+    """``peak_live`` of one unsharded train step's gradients of the vlm
+    smoke stack (4 GLOBAL layers and a CROSS one) at bf16 compute, B = 2,
+    traced by the ``Recorder`` on meta tensors."""
+    from repro_torch import tree as T
+    from repro_torch.roofline.counts import Recorder
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(configs.get_smoke_config("llama32_vision_11b"),
+                              attn_chunk=chunk, n_cross_tokens=n_cross,
+                              compute_dtype="bfloat16")
+    params = dryrun._zeros(dryrun._structs(transformer.model_specs(cfg),
+                                           torch.float32), "meta")
+    batch = dryrun._zeros(stubs.input_specs(
+        cfg, ShapeConfig("t", S, 2, "train")), "meta")
+    rec = Recorder()
+    rec.exclude(T.leaves(params) + T.leaves(batch))
+    with rec:
+        out = TS.grad_fn(cfg, TS.TrainConfig(), params, batch)
+        del out
+    return rec.counts().peak_live
+
+
+@pytest.mark.parametrize("chunk,n_cross", [(512, 9), (256, 800)],
+                         ids=["flash_peak", "cross_peak"])
+def test_train_peak_holds_attention_blocks_not_whole_scores(chunk, n_cross):
+    """At S = 4 chunks the step's peak holds at most two float32 blocks of
+    the streaming backward ([B, Hkv, G, S, chunk]) and one bf16 block,
+    and no CROSS tensor [.., S, N] (the query blocks' [.., chunk, N]
+    instead). Where the attention blocks outweigh the CROSS scores (N = 9)
+    the peak is in a GLOBAL layer's backward, and the out-of-place code
+    held six float32 blocks there; with N = 800 it is in the CROSS layer's,
+    where the dense path held its float32 scores and softmax [.., S, N]
+    whole."""
+    S = 4 * chunk
+    live = _train_peak_live(chunk, n_cross, S)
+    block = 2 * 4 * S * chunk   # B x heads x S x chunk
+    f32 = [e for e in live if e[3] == "torch.float32" and e[0] == 4 * block]
+    bf16 = [e for e in live if e[3] == "torch.bfloat16" and e[0] == 2 * block]
+    assert len(f32) <= 2 and len(bf16) <= 1, live
+    assert not [e for e in live if tuple(e[2][-2:]) == (S, n_cross)], live
+    if n_cross < chunk:
+        assert f32, live
+    else:
+        assert [e for e in live if tuple(e[2][-2:]) == (chunk, n_cross)], live
 
 
 def test_all_cells_cover_every_arch_shape_and_the_tm_cell():

@@ -127,6 +127,113 @@ def test_cross_attention_matches_reference(qkv_bias):
     assert float(np.max(np.abs(np.asarray(want)))) > 0.1
 
 
+def _in_graph(t, name: str) -> bool:
+    """Whether a node called ``name`` is in the autograd graph behind t."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        if fn.name() == name:
+            return True
+        seen.add(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return False
+
+
+def _core_inputs(rc, S: int, seed: int):
+    """q [2, S, 4, 16], k and v [2, N, 2, 16] and a cotangent like q."""
+    rng = np.random.default_rng(seed)
+    hq, hkv, dh, N = rc.n_heads, rc.n_kv_heads, rc.head_dim, \
+        rc.n_cross_tokens
+    return ((2.0 * rng.standard_normal((2, S, hq, dh))).astype(np.float32),
+            (2.0 * rng.standard_normal((2, N, hkv, dh))).astype(np.float32),
+            rng.standard_normal((2, N, hkv, dh)).astype(np.float32),
+            rng.standard_normal((2, S, hq, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", 3e-2)])
+def test_blocked_cross_matches_reference(dtype, tol):
+    """The CROSS attention's query blocks (``layers._CrossBlocks``; attn_chunk
+    4, S = 14: blocks of 4, 4, 4 and 2 rows, over N = 9 keys) against the
+    reference's ``cross_attention`` core (``_gqa_scores_out`` with its zero
+    mask): the output, and dq, dk, dv against ``jax.vjp``. float32 within
+    TOL, bfloat16 within 3e-2 of max |ref|."""
+    rc, tc = _cfgs(attn_chunk=4, compute_dtype=dtype)
+    q, k, v, do = _core_inputs(rc, 14, seed=7)
+    jd, td = jnp.dtype(dtype), layers._DTYPES[dtype]
+    mask = jnp.zeros((1, 1, 14, rc.n_cross_tokens), jnp.float32)
+    want, vjp = jax.vjp(lambda a, b, c: RL._gqa_scores_out(rc, a, b, c, mask),
+                        *(jnp.asarray(x, jd) for x in (q, k, v)))
+    wants = vjp(jnp.asarray(do, jd))
+    xs = [torch.tensor(x, dtype=td).requires_grad_() for x in (q, k, v)]
+    got = layers._CrossBlocks.apply(*xs, tc)
+    gots = torch.autograd.grad(got, xs, torch.tensor(do, dtype=td))
+    assert got.dtype == td and all(g.dtype == td for g in gots)
+    assert_close(got.float(), np.asarray(want, np.float32), "out", tol)
+    for name, g, w in zip(("dq", "dk", "dv"), gots, wants):
+        assert_close(g.float(), np.asarray(w, np.float32), name, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blocked_cross_against_the_dense_path(dtype):
+    """``_CrossBlocks`` against the port's dense ``_gqa_scores_out`` on the
+    same inputs (S = 14, blocks of 4). The forward is equal bit for bit
+    on the CPU (the largest difference measured: 0; each block runs the
+    dense path's ops on its rows), and so is dq; dk and dv sum the blocks
+    in float32: measured 1.25e-07 / 1.29e-07 (float32) and 4.10e-03 /
+    4.24e-03 (bfloat16) of max |dense|, held to TOL and 3e-2."""
+    rc, tc = _cfgs(attn_chunk=4, compute_dtype=dtype)
+    td = layers._DTYPES[dtype]
+    q, k, v, do = (torch.tensor(x, dtype=td)
+                   for x in _core_inputs(rc, 14, seed=8))
+    mask = torch.zeros((1, 1, 14, rc.n_cross_tokens))
+    outs = []
+    for blocked in (True, False):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = (layers._CrossBlocks.apply(*xs, tc) if blocked else
+             layers._gqa_scores_out(tc, *xs, mask))
+        outs.append((o.detach(), *torch.autograd.grad(o, xs, do)))
+    (o, dq, dk, dv), (o_d, dq_d, dk_d, dv_d) = outs
+    assert torch.equal(o, o_d)
+    assert torch.equal(dq, dq_d)
+    tol = TOL if dtype == "float32" else 3e-2
+    for name, g, w in (("dk", dk, dk_d), ("dv", dv, dv_d)):
+        assert_close(g.float(), w.float().numpy(), name, tol)
+
+
+@pytest.mark.parametrize("S,blocked", [(4, False), (14, True), (1, False)])
+def test_cross_attention_takes_the_blocks_above_attn_chunk(S, blocked):
+    """The gated layer (``cross_attention``) at attn_chunk 4 against the
+    reference's: S = 14 runs the query blocks, S = 4 (= attn_chunk) and a
+    decode step's S = 1 the dense path; output and the gradients of x,
+    the image embeddings and every weight within TOL."""
+    rc, tc = _cfgs(attn_chunk=4)
+    rng = np.random.default_rng(9)
+    p = {}
+    for key, s in sorted(RL.attention_specs(rc, gated=True).items()):
+        p[key] = (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])
+                  if s.shape else np.array(0.7)).astype(np.float32)
+    x = rng.standard_normal((2, S, 64)).astype(np.float32)
+    ce = rng.standard_normal((2, 9, 64)).astype(np.float32)
+    dy = rng.standard_normal((2, S, 64)).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda pp, a, b: RL.cross_attention(rc, pp, a, b),
+        {key: jnp.asarray(val) for key, val in p.items()}, jnp.asarray(x),
+        jnp.asarray(ce))
+    wp, wx, wce = vjp(jnp.asarray(dy))
+    tp = {key: torch.tensor(val).requires_grad_() for key, val in p.items()}
+    tx, tce = (torch.tensor(a).requires_grad_() for a in (x, ce))
+    got = layers.cross_attention(tc, tp, tx, tce)
+    assert _in_graph(got, "_CrossBlocksBackward") == blocked
+    assert_close(got, want, "cross_attention")
+    got.backward(torch.tensor(dy))
+    assert_close(tx.grad, wx, "dx")
+    assert_close(tce.grad, wce, "d cross_embeds")
+    for key in p:
+        assert_close(tp[key].grad, wp[key], f"d {key}")
+
+
 def test_cross_layer_is_the_identity_at_the_reference_init():
     """With the reference's own init (gates zero) a CROSS layer returns its
     input bit for bit, in both packages."""
@@ -192,12 +299,27 @@ def test_cross_gradients_match_reference():
     1, but the branches' weights get a zero gradient there), float32,
     within TOL of each leaf's range; each layer drawn with its own
     fan-in."""
-    rc, tc, prm, tree = _setup(per_layer=True)
-    rb, tb = _batch(rc, 2, 12, seed=5)
-    want = jax.grad(lambda p: RT.loss_fn(rc, p, rb)[0])(prm)
+    _check_loss_grads(*_setup(per_layer=True), S=12)
+
+
+def test_blocked_cross_gradients_match_reference():
+    """The same at attn_chunk 4 and S = 14: the CROSS layer's queries run
+    in blocks of 4, the last one of 2 (the GLOBAL layers take the dense
+    mask, 14 not being a multiple of 4)."""
+    _check_loss_grads(*_setup(per_layer=True, attn_chunk=4), S=14,
+                      blocked=True)
+
+
+def _check_loss_grads(rc, tc, prm, tree, S, blocked=False):
+    rb, tb = _batch(rc, 2, S, seed=5)
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p: RT.loss_fn(rc, p, rb)[0]))(prm)
     tp = jax.tree.map(lambda t: t.clone().requires_grad_(), tree,
                       is_leaf=torch.is_tensor)
-    transformer.loss_fn(tc, tp, tb)[0].backward()
+    loss = transformer.loss_fn(tc, tp, tb)[0]
+    assert _in_graph(loss, "_CrossBlocksBackward") == blocked
+    assert abs(loss.item() - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    loss.backward()
     for path, w in jax.tree_util.tree_flatten_with_path(want)[0]:
         node = tp
         for k in path:
