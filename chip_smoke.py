@@ -78,13 +78,24 @@ Phases, each with its seconds:
    and K8 must each have launched during the "auto" run, and K5 exactly
    as often as the packed run implies;
 5. paper   -- the paper's iris setup at full scale through the
-   replica-first engine: ``manager.run_orderings`` over all 120 block
-   orderings for the three use cases (online learning §5.1 at
-   SystemConfig(10, 16), class introduction §5.2 and stuck-at faults
-   §5.3 at SystemConfig(3, 7), their events at cycle 5), and
-   ``CrossValRun.sweep`` over 120 orderings x s {1.375, 2.0, 3.0} x
-   T {5, 10, 15} (R = 1080), 10 epochs. Backend "auto", then "ref": the
-   curves, banks and accuracies must be bitwise equal;
+   replica-first engine: ``CrossValRun.sweep`` over 120 orderings x s
+   {1.375, 2.0, 3.0} x T {5, 10, 15} (R = 1080), 10 epochs, then the
+   figure runs through ``eval.usecases.run_system`` at SystemConfig(10,
+   16): online learning (Fig 4, §5.1) over all 120 block orderings, and
+   the reference's full-scale pairs over 24 (tests/test_paper_figures.py):
+   class 0 introduced at cycle 5, frozen and online (Figs 6/7, §5.2), and
+   75% of the TAs stuck at 0 from cycle 5, frozen and online (Figs 8/9,
+   §5.3). Each run on backend "auto" and on "ref", in worker processes
+   (five at a time); banks, accuracies and activity must be bitwise
+   equal, K3/K4/K9 must launch as the code implies, and the curves must
+   pass the reference's bands (the Fig-4 gains; the Fig 6-9 drops, flat
+   frozen curves, recovery and online-over-frozen gaps). Then
+   ``examples``: seven ``examples/*_torch.py`` through their ``main``
+   on the card, each in a worker process, all at once (quickstart,
+   serve_fleet, mnist_scale --side 28, tunable_serving, serve_lm,
+   train_lm --small, online_lm_adaptation; checkpoints in a temporary
+   directory): each returns, prints its lines (echoed), gives finite
+   accuracies and losses in range and launches the kernels on its path;
 6. wide    -- the same engine at the full MNIST width (f = 784):
    ``run_orderings`` with O = 8, SystemConfig(2, 2), and a sweep of
    O = 4 x s {1.5, 2.0} x T {24, 32} (R = 16), 1 epoch; "auto" then
@@ -1608,56 +1619,302 @@ def phase_engine(torch, np, ce, fb, label, params, osets, cases, sweep):
     return launches, curves
 
 
-# The paper phase's class-introduction and stuck-at-fault cases run
-# shallower than the online-learning one, which carries the Fig-4 claim at
-# the paper's 10 offline epochs and 16 cycles (a depth cut that keeps the
-# script's wall within its budget): 3 offline epochs, and 7 cycles, so
-# each event (at cycle 5) lands and a cycle runs after it; kernels against
-# plain versions bitwise, as before.
-PAPER_EVENT_CASES = (3, 7)      # offline epochs, online cycles
+# The paper's figure runs. Fig 4's online learning runs over all 120
+# orderings at the paper's 10 offline epochs and 16 cycles; the
+# class-introduction (Figs 6/7) and stuck-at-fault (Figs 8/9) pairs run at
+# the reference's full-scale test protocol (tests/test_paper_figures.py:
+# 24 orderings, SystemConfig(10, 16), the event at cycle 5, 75% of the TAs
+# stuck at 0), each through usecases.run_system on "auto" and on "ref".
+PAPER_CASES = {                 # name -> (fig, orderings, offline_limit)
+    "fig4_online_learning": (4, 120, 20),
+    "fig6_intro_frozen": (6, 24, None),
+    "fig7_intro_online": (7, 24, None),
+    "fig8_faults_frozen": (8, 24, 20),
+    "fig9_faults_online": (9, 24, 20),
+}
+PAPER_EVENT = 5                 # the cycle of the introduction / injection
+# Runs at a time: on one H100 a run took 19.7 s alone, 29-31 s five at a
+# time and 69 s ten at a time (processes sharing one card are
+# time-sliced), so two waves of five finish first (72.7 s against 91.7
+# for all ten).
+PAPER_WORKERS = 5
+PAPER_FAULT_FRACTION = 0.75
+PAPER_KERNELS = ("clause_counts_replicated", "clause_counts_batch_replicated",
+                 "feedback_plane_replicated")
+
+
+def in_workers(jobs: list, workers: int | None = None) -> list:
+    """Each ``(fn, *args)`` in a worker process (forked from the ranks'
+    fork server, ``launch.ranks.context``), ``workers`` at a time
+    (default: all at once); their results in order. The TM runs are bound
+    by the host's launches, one core each, so separate processes run them
+    side by side on the card. Every process ends before this returns."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.launch import ranks
+
+    with ProcessPoolExecutor(max_workers=workers or len(jobs),
+                             mp_context=ranks.context()) as pool:
+        futures = [pool.submit(fn, *args) for fn, *args in jobs]
+        return [f.result() for f in futures]
+
+
+def _paper_job(name: str, backend: str) -> dict:
+    """One figure run on the card, in a worker process: the run's bank,
+    accuracies, activity, mean curves (``usecases.mean_curves``, as
+    ``run_schedule`` averages them), wall and launches."""
+    import torch
+
+    from repro_torch.eval import usecases
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.kernels import feedback as fb
+
+    torch.set_num_threads(1)
+    fig, O, limit = PAPER_CASES[name]
+    schedule = usecases.figure_schedule(fig, PAPER_EVENT,
+                                        PAPER_FAULT_FRACTION)
+    zero_counters(ce, fb)
+    torch.cuda.synchronize()
+    res = usecases.run_system(schedule, n_orderings=O, n_cycles=16,
+                              offline_limit=limit, seed=0, device="cuda",
+                              backend=backend)
+    torch.cuda.synchronize()
+    curve, activity = usecases.mean_curves(res)
+    return {"bank": res.state.ta_state.cpu().numpy(),
+            "accs": res.accuracies.cpu().numpy(),
+            "act": res.activity.cpu().numpy(), "curve": curve,
+            "activity": activity, "wall": res.wall_s,
+            "launches": counters(ce, fb)}
+
+
+def _fmt_curve(np, c) -> str:
+    return "[" + " ".join(f"{v:.4f}" for v in np.asarray(c)) + "]"
 
 
 def phase_paper(torch, np, ce, fb):
-    """The paper's iris setup (120 orderings) for its three use cases, the
-    online-learning one at full scale (10 offline epochs, 16 cycles), the
-    class-introduction and fault ones at PAPER_EVENT_CASES; and the
-    1080-replica sweep."""
+    """The paper's iris setup through the replica-first engine: the
+    1080-replica sweep (120 orderings x s {1.375, 2.0, 3.0} x T {5, 10,
+    15}), then the PAPER_CASES runs on "auto" and "ref", each in a worker
+    process on the card, PAPER_WORKERS at a time, held bit for bit and to
+    the reference's full-scale bands for Figs 4 and 6-9."""
     from repro_torch.configs import tm_iris
-    from repro_torch.core import faults
-    from repro_torch.core import manager as mgr
     from repro_torch.data import blocks
 
     params = tm_iris.CONFIG
     osets, _ = blocks.iris_paper_sets(n_orderings=params.n_orderings)
     check(osets.offline_x.shape == (120, 30, 16),
           "the iris paper sets are not 120 orderings of 30 x 16")
-    masks = faults.even_spread_stuck_at(params.tm, 0.2, 0)
-    s_onl = params.s_online
-    full = mgr.SystemConfig(params.n_offline_epochs, params.n_online_cycles)
-    event = mgr.SystemConfig(*PAPER_EVENT_CASES)
-    cases = [
-        ("online_learning", mgr.make_schedule(online_s=s_onl),
-         params.offline_limit, full),
-        ("class_introduction", mgr.make_schedule(
-            online_s=s_onl, filtered_class=0, introduce_at_cycle=5), None,
-         event),
-        ("faults", mgr.make_schedule(online_s=s_onl, fault_masks=masks,
-                                     inject_at_cycle=5),
-         params.offline_limit, event),
-    ]
-    launches, curves = phase_engine(
-        torch, np, ce, fb, "paper", params, osets, cases,
+    launches, _ = phase_engine(
+        torch, np, ce, fb, "paper", params, osets, [],
         ((1.375, 2.0, 3.0), (5, 10, 15), params.n_offline_epochs, 120))
-    # The paper's Fig-4 claim at full scale, as the repo's own full-scale
-    # test holds the reference to it: online learning on labelled data
-    # raises the validation and online-set accuracy.
-    c = curves["online_learning"]
+
+    jobs = [(_paper_job, name, backend) for name in PAPER_CASES
+            for backend in ("auto", "ref")]
+    t = time.perf_counter()
+    done = in_workers(jobs, PAPER_WORKERS)
+    wall = time.perf_counter() - t
+    runs = {(name, backend): r for (_, name, backend), r in zip(jobs, done)}
+    n_off, n_onl = osets.offline_y.shape[1], osets.online_y.shape[1]
+    steps = params.n_offline_epochs * n_off + 16 * n_onl
+    want = {"clause_counts_replicated": steps,
+            "clause_counts_batch_replicated": 1 + 16,
+            "feedback_plane_replicated": steps}
+    curves = {}
+    for name, (_, O, _) in PAPER_CASES.items():
+        a, r = runs[name, "auto"], runs[name, "ref"]
+        for key in ("bank", "accs", "act", "curve", "activity"):
+            check(np.array_equal(a[key], r[key]), f"paper {name}: {key} "
+                  "differs between the kernels and the plain versions")
+        check(a["accs"].shape == (O, 17, 3)
+              and np.isfinite(a["accs"]).all() and a["accs"].min() >= 0.0
+              and a["accs"].max() <= 1.0, f"paper {name}: accuracies "
+              "malformed")
+        check(a["act"].shape == (O, 16) and np.isfinite(a["act"]).all(),
+              f"paper {name}: activity malformed")
+        got = {k: a["launches"][k] for k in PAPER_KERNELS}
+        check(got == want, f"paper {name}: launches {got}, the code "
+              f"implies {want}")
+        check(not any(r["launches"].values()), f"paper {name}: the plain "
+              "run launched a kernel")
+        for k in PAPER_KERNELS:
+            launches[k] += got[k]
+        c = curves[name] = a["curve"]
+        print(f"paper {name} O={O} SystemConfig(10, 16): validation "
+              f"{_fmt_curve(np, c[:, 1])}, offline {c[0, 0]:.4f} -> "
+              f"{c[-1, 0]:.4f}, online {c[0, 2]:.4f} -> {c[-1, 2]:.4f}, "
+              f"mean activity {float(a['activity'].mean()):.6f}; auto == "
+              f"ref bitwise (banks, accuracies, activity): True; auto "
+              f"{a['wall']:.3f} s, ref {r['wall']:.3f} s, launches (auto) "
+              f"{json.dumps(got)}", flush=True)
+    print(f"paper: {len(jobs)} runs, {PAPER_WORKERS} processes at a time, "
+          f"{wall:.2f} s to the last", flush=True)
+
+    # The reference's full-scale claims (tests/test_paper_figures.py: the
+    # Fig-4 gains, and the slow tests' Fig 6-9 bands, word for word).
+    c = curves["fig4_online_learning"]
     gain_val, gain_onl = c[-1, 1] - c[0, 1], c[-1, 2] - c[0, 2]
-    print(f"paper Fig-4 gains (mean over 120 orderings): validation "
+    print(f"paper Fig-4 gains (mean over "
+          f"{PAPER_CASES['fig4_online_learning'][1]} orderings): validation "
           f"{gain_val:+.4f}, online {gain_onl:+.4f}", flush=True)
     check(gain_val >= 0.04 and gain_onl >= 0.04,
           "online learning did not raise the accuracy (Fig. 4)")
+    e = PAPER_EVENT
+    c6, c7 = curves["fig6_intro_frozen"], curves["fig7_intro_online"]
+    c8, c9 = curves["fig8_faults_frozen"], curves["fig9_faults_online"]
+
+    def flat(c):                # np.testing.assert_allclose(atol=1e-6)
+        return bool(np.allclose(c[e + 1:, 1], c[e + 1, 1], rtol=1e-7,
+                                atol=1e-6))
+
+    bands = {
+        "Fig 6 drops at the introduction (<= -0.15)":
+            c6[e + 1, 1] - c6[e, 1] <= -0.15,
+        "Fig 6 stays flat after it (atol 1e-6)": flat(c6),
+        "Fig 7 recovers from its dip (>= +0.02)":
+            c7[-1, 1] >= c7[e + 1, 1] + 0.02,
+        "Fig 7 ends above Fig 6 (>= +0.15)": c7[-1, 1] >= c6[-1, 1] + 0.15,
+        "Fig 8 drops at the injection (<= -0.05)":
+            c8[e + 1, 1] - c8[e, 1] <= -0.05,
+        "Fig 8 stays flat after it (atol 1e-6)": flat(c8),
+        "Fig 9 ends above Fig 8 (>= +0.04)": c9[-1, 1] >= c8[-1, 1] + 0.04,
+    }
+    print(f"paper Figs 6-9 ({PAPER_CASES['fig6_intro_frozen'][1]} "
+          f"orderings, event at cycle {e}): Fig 6 drop "
+          f"{c6[e + 1, 1] - c6[e, 1]:+.4f}, Fig 7 recovery "
+          f"{c7[-1, 1] - c7[e + 1, 1]:+.4f}, Fig 7 - Fig 6 at the end "
+          f"{c7[-1, 1] - c6[-1, 1]:+.4f}, Fig 8 drop "
+          f"{c8[e + 1, 1] - c8[e, 1]:+.4f}, Fig 9 - Fig 8 at the end "
+          f"{c9[-1, 1] - c8[-1, 1]:+.4f}; bands: "
+          + ", ".join(f"{k}: {bool(v)}" for k, v in bands.items()),
+          flush=True)
+    for k, v in bands.items():
+        check(bool(v), f"paper: {k} fails on the card's curves")
     return launches
+
+
+# The examples phase: each ``examples/<name>_torch.py`` through its
+# ``main(argv)`` on the card, at the reference's defaults but for the full
+# MNIST width and a temporary checkpoint directory. The class_introduction
+# and fault_mitigation examples do not run here: their usecases functions
+# build each run with usecases.figure_schedule and go through
+# usecases.run_system, which phase paper runs on the card at full depth
+# for Figs 6-9 (their Fig 5 run and fault_mitigation's default 20%
+# fraction run only in the CPU tests). Each example names the kernels
+# whose launch counts must move (the CUDA kernels on its path).
+EXAMPLES = (
+    ("quickstart", [], ("clause_counts", "clause_counts_batch",
+                        "feedback_plane") + PAPER_KERNELS),
+    ("serve_fleet", [], PAPER_KERNELS),
+    ("mnist_scale", ["--side", "28"], PAPER_KERNELS),
+    ("tunable_serving", [], ("clause_counts_replicated",
+                             "feedback_plane_replicated",
+                             "clause_counts_batch_pruned_replicated")),
+    ("serve_lm", [], ()),
+    ("train_lm", ["--small", "--ckpt"], ()),
+    ("online_lm_adaptation", ["--ckpt"], ()),
+)
+
+
+def _example_job(name: str, argv: list) -> dict:
+    """``examples/<name>_torch.py``'s ``main(argv)`` on the card, in a
+    worker process: what it returned, what it printed, its wall and the
+    kernels' launches."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    from repro_torch.kernels import clause_eval as ce
+    from repro_torch.kernels import feedback as fb
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    zero_counters(ce, fb)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = mod.main(argv)
+    torch.cuda.synchronize()
+    return {"result": result, "stdout": out.getvalue(),
+            "wall": time.perf_counter() - t, "launches": counters(ce, fb)}
+
+
+def _in_unit(np, *arrays) -> bool:
+    return all(np.isfinite(np.asarray(a, dtype=np.float64)).all()
+               and 0.0 <= np.min(a) and np.max(a) <= 1.0 for a in arrays)
+
+
+def phase_examples(torch, np, ce, fb):
+    """The examples, each in a process of its own on the card, all at
+    once: each returns, prints, gives finite accuracies and losses in
+    range, and moves the launch counters of the kernels on its path."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(_example_job, name,
+                 [a if a != "--ckpt" else f"--ckpt={tmp}/{name}"
+                  for a in argv])
+                for name, argv, _ in EXAMPLES]
+        t = time.perf_counter()
+        done = in_workers(jobs)
+        wall = time.perf_counter() - t
+    for (name, _, kernels), (_, _, argv), r in zip(EXAMPLES, jobs, done):
+        print(f"--- example {name}_torch {' '.join(argv)}: wall "
+              f"{r['wall']:.2f} s, launches " + json.dumps(
+                  {k: n for k, n in r["launches"].items() if n}),
+              flush=True)
+        print(r["stdout"].rstrip(), flush=True)
+        for k in kernels:
+            check(r["launches"][k] > 0, f"example {name}: {k} never "
+                  "launched")
+        out = r["result"]
+        if name == "quickstart":
+            check(out["curve"].shape == (17, 3)
+                  and _in_unit(np, out["curve"], out["base"],
+                               out["service_accuracy"])
+                  and len(out["service_accuracy"]) == 2
+                  and set(out["preds"].tolist()) <= {0, 1, 2},
+                  "example quickstart: outputs malformed")
+            steps = 10 * 30 + 16 * 60
+            got = {k: r["launches"][k] for k in PAPER_KERNELS}
+            check(got == {"clause_counts_replicated": steps,
+                          "clause_counts_batch_replicated": 17,
+                          "feedback_plane_replicated": steps},
+                  f"example quickstart: the engine's launches {got}")
+        elif name == "serve_fleet":
+            check(_in_unit(np, out["base"], out["final"])
+                  and out["final"].shape == (4,),
+                  "example serve_fleet: accuracies malformed")
+        elif name == "mnist_scale":
+            check(_in_unit(np, out["base"], out["served"])
+                  and out["served"].min() > 0.3,
+                  "example mnist_scale: accuracies malformed")
+        elif name == "tunable_serving":
+            check(sorted(out["rows"]) == [0.25, 0.5, 1.0]
+                  and _in_unit(np, [a for _, a, _ in out["rows"].values()]),
+                  "example tunable_serving: accuracies malformed")
+        elif name == "serve_lm":
+            check(out.shape == (4, 24) and out.dtype == np.int32
+                  and out.min() >= 0, "example serve_lm: tokens malformed")
+        elif name == "train_lm":
+            check(out.steps_run == 200 and not out.fault_events
+                  and np.isfinite(out.losses).all(),
+                  "example train_lm: training malformed")
+            print(f"example train_lm: loss {out.losses[0]:.4f} -> "
+                  f"{out.losses[-1]:.4f}", flush=True)
+        else:
+            losses = [out["offline"]] + [x for _, x in out["history"]]
+            check(len(losses) == 8 and np.isfinite(losses).all(),
+                  "example online_lm_adaptation: losses malformed")
+    print(f"examples: {len(jobs)} examples in {len(jobs)} processes side "
+          f"by side, {wall:.2f} s to the last", flush=True)
 
 
 def phase_wide(torch, np, ce, fb):
@@ -2530,14 +2787,22 @@ def phase_mesh(torch, np, ce, fb, smi: str, dev: str = "cuda"):
     return launched
 
 
+# Offers per producer in phase traffic: half the schedules' 256 (about
+# 20-30 s of the script's wall), to make room for the paper's full-scale
+# Fig 6-9 runs and the examples. The fault still lands (fault_at = 192 of
+# the 512 points drained fleet-wide).
+TRAFFIC_POINTS = 128
+
+
 def phase_traffic(torch, np, ce, fb):
     """The traffic harness on the card: the iris service at the
     reference's traffic geometry (K = 4 producers, capacity 512, chunk
     32, ingress block 32, analysis every 64) with an adapting tuner at a
     budget of 0.5, offline-trained and calibrated; the steady and
     fault_injected
-    schedules (256 offers per producer) run threaded, then a fresh twin
-    replays each from one thread and must land on the same fingerprint."""
+    schedules (TRAFFIC_POINTS offers per producer) run threaded, then a
+    fresh twin replays each from one thread and must land on the same
+    fingerprint."""
     from repro_torch.configs import tm_iris
     from repro_torch.core import init_state
     from repro_torch.data import iris
@@ -2565,7 +2830,7 @@ def phase_traffic(torch, np, ce, fb):
         return svc
 
     for name in ("steady", "fault_injected"):
-        sc = SCENARIOS[name]
+        sc = dataclasses.replace(SCENARIOS[name], points=TRAFFIC_POINTS)
         scripts = make_scripts(sc, xs, ys, cfg.max_classes, K, seed=0)
         live = service()
         before = counters(ce, fb)
@@ -3586,13 +3851,17 @@ def _per_layer_init(torch, cfg, tree: dict) -> dict:
 
 
 def _rel_tree(torch, got, want) -> float:
-    """max over leaves of max |got - want| / max |want| (float64, CPU)."""
+    """max over leaves of max |got - want| / max |want| (float64), on the
+    card where either leaf is there (the CPU's leaf goes over in its own
+    dtype: the same numbers, without a pass over the host's memory)."""
     from repro_torch import tree as T
 
     out = 0.0
     for a, b in zip(T.leaves(got), T.leaves(want)):
-        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        dev = a.device if a.device.type == "cuda" else b.device
+        a, b = a.detach().to(dev).double(), b.detach().to(dev).double()
         out = max(out, ((a - b).abs().max() / b.abs().max()).item())
+        del a, b
     return out
 
 
@@ -5175,6 +5444,15 @@ def _lmm_host(torch, state) -> list:
     return [x.detach().to("cpu", copy=True) for x in T.leaves(state)]
 
 
+def _lmm_keep(torch, state) -> list:
+    """The leaves of a plain state on the card, as copies on the card
+    (rank 0 keeps the unsharded run's states there until it has compared
+    the sharded ones: a host copy of 5.6 GB costs seconds each way)."""
+    from repro_torch import tree as T
+
+    return [x.detach().clone() for x in T.leaves(state)]
+
+
 def _lmm_rel_host(torch, got, ref) -> float:
     """max |got - ref| / max |ref| of one leaf (0 for an integer leaf),
     on ``ref``'s device."""
@@ -5336,10 +5614,14 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
             state, ref["losses"], _ = _lmm_steps(torch, f32, tc, state,
                                                  batches[:2])
         note("unsharded float32 steps 1-2")
-        ref["step2"] = _lmm_host(torch, state)
+        a = torch.cuda.memory_allocated()
+        ref["step2"] = _lmm_keep(torch, state)
+        kept = torch.cuda.memory_allocated() - a
         state, loss3, _ = _lmm_steps(torch, f32, tc, state, batches[2:])
         ref["losses"] += loss3
-        ref["step3"] = _lmm_host(torch, state)
+        a = torch.cuda.memory_allocated()
+        ref["step3"] = _lmm_keep(torch, state)
+        kept += torch.cuda.memory_allocated() - a   # the kept states' bytes
         note("unsharded float32 step 3")
         del state
         torch.cuda.empty_cache()
@@ -5349,7 +5631,7 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
             state, _, ms = _lmm_steps(torch, bf16, tc, state,
                                       batches[:1 + LMM_TIMED])
         out["plain_bf16_ms"] = ms[1:]
-        out["plain_peak"] = torch.cuda.max_memory_allocated()
+        out["plain_peak"] = torch.cuda.max_memory_allocated() - kept
         note(f"unsharded bf16 steps {ms}")
         del state
         torch.cuda.empty_cache()
@@ -5424,6 +5706,8 @@ def _lm_mesh_rank(rank, world, ckpt_dir):
     note("resumed step 3")
     out["err_step3"] = _lmm_rel(torch, back, ref.get("step3"), rank)
     del back
+    for k in ("step2", "step3"):    # rank 0's kept states, before the peaks
+        ref.pop(k, None)
     torch.cuda.empty_cache()
     out["reshard_s"] = time.perf_counter() - t0
 
@@ -6114,6 +6398,11 @@ def main() -> int:
     from repro_torch.kernels import clause_eval as ce
     from repro_torch.kernels import feedback as fb
 
+    if not (args.kernels_from or args.tm_from):
+        # the worker and rank processes of later phases fork from a
+        # server that imports torch once; it starts now, beside the build
+        from repro_torch.launch import ranks
+        ranks.warm()
     t = time.perf_counter()
     built = _build.build()
     print(f"build: {sorted(p.name for p in built.values())} in "
@@ -6157,6 +6446,7 @@ def main() -> int:
     launches.update(timed("wide", phase_wide, torch, np, ce, fb))
     check(all(n > 0 for n in paper.values()),
           "a replica-first kernel never launched on the paper path")
+    timed("examples", phase_examples, torch, np, ce, fb)
     launches.update(timed("fleet", phase_fleet, torch, np, ce, fb))
     timed("fleet_iris", phase_fleet_iris, torch, np, ce, fb)
     launches.update(timed("tunable", phase_tunable, torch, np, ce, fb))

@@ -1,7 +1,7 @@
 """Start the ranks of a process group on one host.
 
-:func:`spawn` starts ``world`` processes with ``torch.multiprocessing``
-(spawn), joins them to one world group through a file store
+:func:`spawn` starts ``world`` processes from a fork server
+(:func:`context`), joins them to one world group through a file store
 (:func:`~repro_torch.launch.mesh.init_ranks`, the backend by device and
 card count), runs ``fn(rank, world, *args)`` in each and returns what each
 returned. A rank that raises, or a spawn that outlives its timeout, fails
@@ -15,6 +15,37 @@ import queue
 import tempfile
 import time
 import traceback
+
+# What a rank or worker process needs before anything else. The fork
+# server imports it once and every process it forks starts with it loaded:
+# where the file system is slow a fresh interpreter spends many seconds
+# importing torch and DTensor, and four ranks import at once. The server
+# runs nothing but these imports: none touches CUDA or runs a parallel
+# region (numpy's BLAS pool is fork-aware), so a process forked from it can
+# take a card, where one forked from the caller, with its threads and
+# CUDA context, could not.
+PRELOAD = ["__main__", "numpy", "torch", "torch.distributed.tensor"]
+
+
+def context():
+    """The multiprocessing context that ranks (and the callers' worker
+    pools) start in: a fork server that has imported :data:`PRELOAD`. It
+    starts at its first use (or :func:`warm`) and ends with the process
+    that started it."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)
+    return ctx
+
+
+def warm() -> None:
+    """Start the fork server now, so that its imports run beside the
+    caller's own work instead of in front of the first process."""
+    from multiprocessing import forkserver
+
+    context()
+    forkserver.ensure_running()
 
 
 def _entry(fn, rank: int, world: int, init_method: str, device,
@@ -46,9 +77,7 @@ def spawn(fn, world: int, args: tuple = (), *, device="cuda",
     the cards round-robin; "cpu": gloo); ``staged`` sends the CPU ranks'
     collectives through the staged backend (which ranks sharing a card
     use), so that the CPU tests cover it."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
+    ctx = context()
     out = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "store")

@@ -9,8 +9,9 @@ here is bitwise the one the reference trains from the same seed.
 A key is an int64 tensor of shape ``[2]`` holding two 32-bit words (the
 reference's uint32 key data). All words live in int64 tensors masked to 32
 bits, because CPU torch has no uint32 shifts; the rotations stay below
-2**63, so no intermediate overflows. Every function takes its key
-explicitly; there is no global generator.
+2**63, so no intermediate overflows (on CPU tensors the block function's
+rounds run in numpy's uint32 and come back as int64). Every function
+takes its key explicitly; there is no global generator.
 
 Every function also takes a batch of keys ``[D, 2]`` (any leading shape)
 and then equals ``jax.vmap`` of the single-key function: the key words
@@ -35,8 +36,32 @@ def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
     """The 20-round threefry2x32 block function on 32-bit words (int64).
 
     ``k0``/``k1`` are key words (scalar tensors), ``x0``/``x1`` the counter
-    words (any shape). Returns the two output words.
+    words (any shape). Returns the two output words. On CPU tensors the
+    rounds run in numpy's uint32, which wraps by itself and costs a few
+    times fewer host cycles an operation than torch's masked int64 ops;
+    on the card they run as torch ops (:func:`_threefry_torch`).
     """
+    if x0.device.type != "cpu":
+        return _threefry_torch(k0, k1, x0, x1)
+    k0, k1, x0, x1 = (t.numpy().astype(np.uint32) for t in (k0, k1, x0, x1))
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    x0, x1 = np.broadcast_arrays(x0, x1)
+    x0, x1 = x0.copy(), x1.copy()
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 += x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3] + np.uint32(i + 1)
+    return (torch.from_numpy(x0.astype(np.int64)),
+            torch.from_numpy(x1.astype(np.int64)))
+
+
+def _threefry_torch(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` in torch ops on int64 words masked to 32 bits
+    (the card's path)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32

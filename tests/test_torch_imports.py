@@ -1,10 +1,11 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
-  ``jax`` or the reference package ``repro`` (an AST scan, so imports
-  inside functions count too).
+* No module of ``src/repro_torch``, not ``chip_smoke.py`` and no
+  ``examples/*_torch.py`` imports ``jax``, the reference package
+  ``repro`` or its ``benchmarks`` (an AST scan, so imports inside
+  functions count too).
 * The entry points default to CUDA and raise without it; ``device="cpu"``
-  is the explicit way onto the CPU.
+  is the explicit way onto the CPU. The examples too: ``--device cpu``.
 * The kernel build raises without ``nvcc``; nothing falls back.
 """
 import ast
@@ -15,9 +16,13 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLES = ("quickstart", "class_introduction", "fault_mitigation",
+            "serve_fleet", "mnist_scale", "tunable_serving", "serve_lm",
+            "train_lm", "online_lm_adaptation")
+EXAMPLE_FILES = [ROOT / "examples" / f"{n}_torch.py" for n in EXAMPLES]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+    ROOT / "chip_smoke.py"] + EXAMPLE_FILES
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -270,3 +275,54 @@ def test_lm_mesh_entry_points_default_to_cuda(no_cuda):
     assert mesh_mod._rank_device("cpu", 3) == torch.device("cpu")
     assert mesh_mod.rank_backend("cpu", 4) == "gloo"
     assert mesh_mod.rank_backend("cpu", 4, staged=True) == "cpu:staged"
+
+
+def test_scan_covers_the_entry_points():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "src/repro_torch/eval/usecases.py" in names
+    assert {f"examples/{n}_torch.py" for n in EXAMPLES} <= names
+    # one port example beside each reference example
+    assert {p.stem for p in (ROOT / "examples").glob("*.py")
+            if not p.stem.endswith("_torch")} == set(EXAMPLES)
+
+
+CKPT_DEFAULTS = {"train_lm_torch": "repro_train_lm",
+                 "online_lm_adaptation_torch": "repro_online_lm"}
+
+
+@pytest.mark.parametrize("path", EXAMPLE_FILES, ids=lambda p: p.stem)
+def test_examples_default_to_cuda(no_cuda, tmp_path, monkeypatch, path):
+    """Every example runs on the card unless ``--device`` says otherwise,
+    and raises before any work without one. The LM examples' default
+    checkpoint directory lies in the temporary directory that ``TMPDIR``
+    names, so two checkouts run side by side never share one."""
+    import argparse
+    import importlib.util
+    import tempfile
+
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    parsed = []
+    parse = argparse.ArgumentParser.parse_args
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args",
+                        lambda self, *a, **k: parsed.append(
+                            parse(self, *a, **k)) or parsed[-1])
+    spec = importlib.util.spec_from_file_location(f"_ex_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
+    assert parsed[-1].device is None
+    if path.stem in CKPT_DEFAULTS:
+        ckpt = tmp_path / CKPT_DEFAULTS[path.stem]
+        assert parsed[-1].ckpt == str(ckpt)
+        assert not ckpt.exists()
+
+
+def test_usecases_default_to_cuda(no_cuda):
+    from repro_torch.core import manager as mgr
+    from repro_torch.eval import usecases
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        usecases.run_schedule(mgr.make_schedule(online_s=1.0),
+                              n_orderings=1, n_cycles=1)

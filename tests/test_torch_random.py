@@ -153,3 +153,21 @@ def test_categorical_batched(seed, d, n, data):
     want = jax.vmap(jax.random.categorical)(kj, jnp.asarray(logits))
     got = rnd.categorical(kt, torch.from_numpy(logits))
     assert np.array_equal(np.asarray(want), got.numpy())
+
+
+@CFG
+@given(seed=SEEDS, d=st.integers(1, 6), n=st.integers(1, 300))
+def test_card_threefry_path_equals_the_cpu_path(seed, d, n):
+    """CPU tensors run the rounds in numpy's uint32; the card runs them as
+    torch ops on masked int64 (``_threefry_torch``). On the same words,
+    here on the CPU, both give the same blocks, so the tests above hold
+    the card's path to ``jax.random`` too."""
+    keys = rnd.split(rnd.PRNGKey(seed), d)
+    k0, k1 = rnd._words(keys)
+    hi, lo = rnd._counters(n, "cpu")
+    lo = lo + (2**32 - 1 - n)                      # words near the top
+    for got, want in zip(rnd.threefry2x32(k0, k1, hi, lo),
+                         rnd._threefry_torch(k0, k1, hi, lo)):
+        assert got.dtype == want.dtype == torch.int64
+        assert got.shape == want.shape == (d, n)
+        assert torch.equal(got, want)

@@ -5,13 +5,9 @@ under ``-m slow`` as in the reference:
 
 * the sweep engine, "ref" against "cuda" per cell (on CPU tensors the
   kernel entries run their plain versions), and against the reference's
-  sweep, bitwise, at f = 784 only (``-m slow``; at f = 196 it took 5.8 s
-  alone on one CPU worker and 48-91 s beside other workers, which
-  tier-1's time leaves out);
+  sweep, bitwise;
 * ``TMService`` end to end, submit -> tick -> serve with a §5.3.2
-  rollback, per backend, at f = 784 only (``-m slow``; at f = 196 it
-  takes 9-10 s on one CPU worker for both backends, which tier-1's time
-  leaves out);
+  rollback, per backend;
 * whole tick trajectories, "ref" against "cuda" and against the
   reference's ``TMService``, bitwise;
 * the packed service against the unpacked one per backend, and its
@@ -46,6 +42,17 @@ FAST_SIDE = 14
 SLOW_SIDE = 28
 TAIL_SIDE = 7
 BACKENDS = ["ref", "cuda"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Torch's CPU ops on one thread: the suite runs several workers at
+    once, and intra-op threads on top of them oversubscribe the cores (the
+    f = 196 sweep cell took 48-91 s beside other workers, 5.8 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(side, backend="ref"):
@@ -86,6 +93,11 @@ def _assert_sweep(side):
     np.testing.assert_array_equal(a, b)
     assert a.shape == (1, 1, 2)
     np.testing.assert_array_equal(a, _ref_sweep_cell(side))
+
+
+def test_sweep_cell_ref_cuda_bitwise_fast():
+    """f = 196: one sweep cell per ordering."""
+    _assert_sweep(FAST_SIDE)
 
 
 @pytest.mark.slow
@@ -149,6 +161,12 @@ def _e2e_rollback(side, backend):
     assert float(acc_served) >= float(base[1]) - 0.15
     # the rolled-back member is back near its known-good accuracy
     assert float(svc.analyze()[0]) >= float(base[0]) - 0.1
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_service_end_to_end_rollback_fast(backend):
+    """f = 196 submit -> tick -> serve with a §5.3.2 rollback."""
+    _e2e_rollback(FAST_SIDE, backend)
 
 
 @pytest.mark.slow
